@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels, each beside its plain PyTorch version."""
+
+from audiodenoiser_torch.ops.cuda.istft import istft_kernel, istft_plain
+from audiodenoiser_torch.ops.cuda.stft import stft_kernel, stft_plain
+
+KERNELS = (stft_kernel, istft_kernel)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+__all__ = ["stft_kernel", "stft_plain", "istft_kernel", "istft_plain",
+           "KERNELS", "reset_launch_counts"]
