@@ -26,7 +26,7 @@ class _Conv(nn.Module):
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor,
                  transpose: bool = False):
         super().__init__()
-        self.register_buffer("weight", weight)
+        self.register_buffer("weight", weight.contiguous(memory_format=torch.channels_last))
         self.register_buffer("bias", bias)
         self.transpose = transpose
 
@@ -50,7 +50,9 @@ class FoldedUNet(nn.Module):
     """The U-Net's dataflow with every [Conv -> BN -> ReLU] folded to
     conv(+bias) -> ReLU. Inference only; built by :func:`fold_for_inference`.
     Input and output are (N, C, F, T) in the caller's dtype; the graph
-    computes in ``dtype``."""
+    computes in ``dtype`` with activations and kernels in ``channels_last``
+    memory (NHWC, the layout of cuDNN's Hopper convolution kernels: in NCHW
+    every convolution paid a transpose in and one out)."""
 
     def __init__(self, convs: dict, features: Sequence[int],
                  dtype: torch.dtype = torch.bfloat16):
@@ -65,7 +67,7 @@ class FoldedUNet(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype
-        h = x.to(self.dtype)
+        h = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         skips = []
         for i in range(len(self.features)):
             h = self._double(h, f"down{i}")
