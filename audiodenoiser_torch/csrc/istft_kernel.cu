@@ -7,11 +7,13 @@
 // one grid step to the next in VMEM scratch. CUDA blocks run in no order,
 // so that carry cannot be copied.
 //
-// What bounds it on the H100: like the forward DFT, 4*n_fft*F*T*B flops
-// (17 GFLOP at B=256, T=126, n_fft=512), ~0.25 ms at the 67 TFLOP/s fp32
-// non-tensor rate against ~0.025 ms for its 83 MB: fp32 FMA issue and the
-// shared-memory loads that feed it. Full fp32 FMA keeps the accuracy of
-// the Pallas kernel's Precision.HIGHEST matmuls.
+// What bounds it on the H100: the function is bound by its 83 MB of bytes
+// (~0.025 ms at 3.35 TB/s, B=256, T=126, n_fft=512). Its algorithm here,
+// a direct inverse DFT like the forward one, does 4*n_fft*F*T*B flops
+// (17 GFLOP), ~0.25 ms at the 67 TFLOP/s fp32 non-tensor rate: the kernel
+// is bound by fp32 FMA issue and the shared-memory loads that feed it.
+// Full fp32 FMA keeps the accuracy of the Pallas kernel's
+// Precision.HIGHEST matmuls.
 //
 // Design: each block owns one batch row and a segment of P = TF - H output
 // samples-hops, where H = floor((n_fft - 1) / hop) is the number of earlier

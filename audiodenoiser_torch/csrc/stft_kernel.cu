@@ -5,11 +5,14 @@
 // chunks in VMEM and multiplies by n_fft x F cos/sin bases on the MXU at
 // Precision.HIGHEST (full fp32).
 //
-// What bounds it on the H100: the direct DFT does 4*n_fft*F*T*B flops
-// (17 GFLOP at B=256, T=126, n_fft=512), which at the 67 TFLOP/s fp32
-// non-tensor rate is ~0.25 ms, ten times the time to move its 83 MB. So it
-// is bound by fp32 FMA issue and by the shared-memory loads that feed it.
-// Full fp32 FMA (no TF32, no bf16) keeps the Precision.HIGHEST accuracy.
+// What bounds it on the H100: the function itself is bound by its bytes
+// (83 MB at B=256, T=126, n_fft=512: ~0.025 ms at 3.35 TB/s; an FFT's
+// operations take a quarter of that). This kernel's algorithm, a direct
+// DFT, does 4*n_fft*F*T*B flops (17 GFLOP), ~0.25 ms at the 67 TFLOP/s
+// fp32 non-tensor rate, so the kernel is bound by fp32 FMA issue and by
+// the shared-memory loads that feed it, ten times above the function's
+// bound. Full fp32 FMA (no TF32, no bf16) keeps the Precision.HIGHEST
+// accuracy.
 //
 // Design: one block owns one batch row and TT=16 consecutive frames. It
 // stages the windowed frames once in shared memory, transposed to

@@ -11,11 +11,13 @@ Semantics are those of ``audiodenoiser_tpu.dsp.stft``:
   trimmed from both ends when ``center=True``, then padded or cut to
   ``length``.
 
-``precision="fft"`` is plain ``torch.fft``. ``precision="kernel"`` is the
-counterpart of JAX's ``"pallas"``: the transforms go through
-``ops.cuda.stft_kernel`` / ``istft_kernel``, which launch the CUDA kernels
-for CUDA tensors and take their plain versions for CPU tensors. The
-envelope division and the trim stay outside the kernels.
+``precision="fft"`` runs the kernels' plain ``torch.fft`` versions,
+``ops.cuda.stft_plain`` / ``istft_plain``, on any device.
+``precision="kernel"`` is the counterpart of JAX's ``"pallas"``: the
+transforms go through ``ops.cuda.stft_kernel`` / ``istft_kernel``, which
+launch the CUDA kernels for CUDA tensors and take the same plain versions
+for CPU tensors. The envelope division and the trim stay outside the
+kernels.
 """
 
 from __future__ import annotations
@@ -113,13 +115,10 @@ def stft(
         x = _pad_signal(x, n_fft, pad_mode)
     lead = x.shape[:-1]
     xb = x.reshape(-1, x.shape[-1])
-    if precision == "kernel":
-        from audiodenoiser_torch.ops.cuda import stft_kernel
+    from audiodenoiser_torch.ops.cuda import stft_kernel, stft_plain
 
-        spec = stft_kernel(xb.contiguous(), w, n_fft, hop_length)
-    else:
-        spec = torch.fft.rfft(frame_signal(xb, n_fft, hop_length) * w,
-                              n=n_fft, dim=-1).transpose(-1, -2)
+    transform = stft_kernel if precision == "kernel" else stft_plain
+    spec = transform(xb.contiguous(), w, n_fft, hop_length)
     return spec.reshape(*lead, *spec.shape[-2:])
 
 
@@ -199,14 +198,11 @@ def istft(
     w = _on(w_np, spec.device)
     lead = spec.shape[:-2]
     sb = spec.reshape(-1, *spec.shape[-2:]).to(torch.complex64)
-    if precision == "kernel":
-        from audiodenoiser_torch.ops.cuda import istft_kernel
+    from audiodenoiser_torch.ops.cuda import istft_kernel, istft_plain
 
-        parts = torch.view_as_real(sb)
-        y = istft_kernel(parts[..., 0], parts[..., 1], w, n_fft, hop_length)
-    else:
-        frames = torch.fft.irfft(sb.transpose(-1, -2), n=n_fft, dim=-1) * w
-        y = overlap_add(frames, hop_length)
+    transform = istft_kernel if precision == "kernel" else istft_plain
+    parts = torch.view_as_real(sb)
+    y = transform(parts[..., 0], parts[..., 1], w, n_fft, hop_length)
     n_frames = spec.shape[-1]
     inv_env = _on(
         _wss_envelope(n_fft, hop_length, n_frames, w_np.tobytes(), win_length),

@@ -11,6 +11,7 @@ import ctypes
 
 import torch
 
+from audiodenoiser_torch.dsp.stft import frame_signal
 from audiodenoiser_torch.ops.cuda import build
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
@@ -19,7 +20,7 @@ _SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 def stft_plain(x: torch.Tensor, window: torch.Tensor, n_fft: int = 512,
                hop_length: int = 128) -> torch.Tensor:
     """unfold + window + ``torch.fft.rfft``: (B, L) -> complex (B, F, T)."""
-    frames = x.unfold(-1, n_fft, hop_length) * window
+    frames = frame_signal(x, n_fft, hop_length) * window
     return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
 
 

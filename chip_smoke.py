@@ -19,9 +19,9 @@ from the root of a checkout. Phases, each fatal on failure:
    (plain versions) for one 2 s clip and compare;
 5. measure throughput with ``eval.bench.run_bench`` at batch 256.
 
-The line before the last is one JSON object listing every kernel with
-its launches on the main path, error and times; the last line is
-``{"ok": true, "device": {...}}``. Without a GPU, or without the package
+Before the last line come one JSON object listing every kernel with its
+launches on the main path, error and times, then the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
 beside it, the script fails before printing any result.
 """
 
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import sys
 import threading
@@ -39,7 +40,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PARAMS_FULL = 31_042_369
 SR, N_FFT, HOP = 8000, 512, 128
 KERNEL_TOL = 1e-4  # max |kernel - plain| <= KERNEL_TOL * max |plain|
-SERVE_TOL = 0.02   # relative L2, the repo's bf16 bound (tests/test_folded.py)
+SERVE_TOL = 1e-4   # relative L2, service vs direct call on the same batch:
+                   # 16-bit PCM rounding only
 SLICE_TOL = 1e-4   # relative L2, fp32 card vs CPU (tests/test_torch_runner.py)
 # H100 SXM peaks from NVIDIA's data sheet (dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -72,17 +74,25 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def dft_bound_ms(batch: int, n_frames: int, signal_len: int) -> tuple[float, str]:
-    """Least time for one STFT or iSTFT by direct DFT at these shapes: the
-    larger of its bytes (signal + re/im planes, each moved once) over the
-    memory rate and its flops (4*n_fft*F*T*B: re and im, one FMA each)
-    over the fp32 non-tensor rate."""
+def stft_bound_ms(batch: int, n_frames: int, signal_len: int) -> tuple[float, str]:
+    """Least time for one STFT or iSTFT at these shapes, whatever the
+    algorithm: the larger of its bytes (signal + re/im planes + window,
+    each moved once) over the memory rate and the operations of an FFT
+    (2.5*n_fft*log2(n_fft) per real frame, plus the window multiply) over
+    the fp32 non-tensor rate."""
     n_freq = N_FFT // 2 + 1
     nbytes = 4 * batch * (signal_len + 2 * n_freq * n_frames) + 4 * N_FFT
-    flops = 4 * N_FFT * n_freq * n_frames * batch
+    flops = batch * n_frames * (2.5 * N_FFT * math.log2(N_FFT) + N_FFT)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def direct_dft_ms(batch: int, n_frames: int) -> float:
+    """The floor of the kernels' own algorithm, a direct DFT (re and im,
+    one FMA each per sample and bin): a reference, not the bound."""
+    flops = 4 * N_FFT * (N_FFT // 2 + 1) * n_frames * batch
+    return flops / PEAK_FP32_FLOPS * 1e3
 
 
 def phase_kernels(torch, rng):
@@ -154,7 +164,8 @@ def phase_kernels(torch, rng):
                 time_ms(library_istft),
                 err2),
         }
-        bound, bound_by = dft_bound_ms(batch, n_frames, x.shape[1])
+        bound, bound_by = stft_bound_ms(batch, n_frames, x.shape[1])
+        dft_ms = direct_dft_ms(batch, n_frames)
         replaces = {"stft_kernel": "audiodenoiser_tpu/ops/pallas/stft_kernel.py:117",
                     "istft_kernel": "audiodenoiser_tpu/ops/pallas/istft_kernel.py:138"}
         for name, (ms, plain_ms, lib_ms, err) in timings.items():
@@ -167,7 +178,7 @@ def phase_kernels(torch, rng):
             }
             print(f"[kernels] {name} bench: kernel_ms={ms:.4f} plain_ms="
                   f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}) direct_dft_ms={dft_ms:.4f}", flush=True)
     return rows
 
 
@@ -303,6 +314,14 @@ def phase_serve(torch, rng, rows, device="cuda"):
             direct_batch = runner.denoise_audio(torch.from_numpy(padded))
             for i, (key, clip) in enumerate(zip(names, group)):
                 check_answer(key, clip, answers[key], direct_batch[i, : len(clip)])
+        # measured, not checked: in bf16 a clip's answer depends on the
+        # batch it ran in, because cuDNN picks other kernels per batch size
+        for key, clip in zip(keys[-1], sent_pair):
+            alone = runner.denoise_audio(torch.from_numpy(clip[None]))[0]
+            alone = alone.float().cpu().numpy()
+            gap = np.linalg.norm(answers[key] - alone) / (np.linalg.norm(alone) + 1e-12)
+            print(f"[serve] {key}: bf16 batch-composition gap, served in a pair "
+                  f"vs alone: rel_err {gap:.3e}", flush=True)
     finally:
         server.shutdown()
         server.server_close()
