@@ -6,13 +6,17 @@ neither JAX nor any module of ``audiodenoiser_tpu``.
 
 Subpackages
 -----------
-dsp     STFT / iSTFT (``precision="fft"`` plain torch, ``"kernel"`` CUDA)
+dsp     STFT / iSTFT (``precision="fft"`` plain torch, ``"kernel"`` CUDA),
+        mel spectrogram, the four noise corruptions
 ops     hand-written CUDA kernels (``csrc/*.cu``) with their plain versions
-models  live-BN U-Net, its BN-folded inference form, Flax weight carry-over
+models  live-BN U-Net (bf16, K3 deconv), its BN-folded inference form,
+        Flax weight carry-over
+losses  the combined 0.4/0.4/0.2 spectral training loss
+train   clipped AdamW, train/eval steps, ``fit``, exports and logs
 eval    the fused denoise runner and the throughput bench
-data    WAV decode/encode and resampling
+data    WAV IO, chunking, the ``.npy`` dataset, the on-device mixer
 serve   the HTTP denoise service
-cli     ``python -m audiodenoiser_torch.cli.serve``
+cli     ``python -m audiodenoiser_torch.cli.{serve,train}``
 
 Every entry point runs on ``torch.device("cuda")`` unless the caller
 passes another device; without a GPU it raises instead of falling back.

@@ -1,1 +1,1 @@
-"""WAV IO and resampling on the host."""
+"""WAV IO, chunking, the ``.npy`` pair dataset and the on-device mixer."""

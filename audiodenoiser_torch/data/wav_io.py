@@ -8,6 +8,7 @@ normalisation, resampling a polyphase Kaiser filter
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -56,3 +57,9 @@ def write_wav(path, audio: np.ndarray, sample_rate: int) -> None:
     a = np.asarray(audio, dtype=np.float32)
     pcm = np.clip(a * 32768.0, -32768, 32767).astype(np.int16)
     wavfile.write(path, sample_rate, pcm)
+
+
+def load_wav_list(dirname: str) -> list[str]:
+    """Sorted .wav paths in a directory."""
+    return sorted(os.path.join(dirname, f) for f in os.listdir(dirname)
+                  if f.lower().endswith(".wav"))

@@ -1,1 +1,1 @@
-"""Signal processing: windows, STFT / iSTFT."""
+"""Signal processing: windows, STFT / iSTFT, mel spectrogram, noise corruptions."""

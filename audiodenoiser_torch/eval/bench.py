@@ -8,9 +8,12 @@ with ``frames = 1 + samples // hop`` per clip. Weights are seeded random
 weights with non-trivial BatchNorm statistics, carried across from the
 Flax tree layout by ``models.convert``.
 
-  python -m audiodenoiser_torch.eval.bench --batch_size 256
+  python -m audiodenoiser_torch.eval.bench --batch_size 256 [--pallas_deconv]
 
-prints one JSON line naming the card and its power limit.
+prints one JSON line naming the card and its power limit. With
+``--pallas_deconv`` the U-Net is the live-BN bf16 one, unfolded, whose
+four upsamplings run through the K3 kernel, as the JAX bench's option of
+that name runs its Pallas deconv.
 """
 
 from __future__ import annotations
@@ -40,8 +43,9 @@ def card_info() -> str:
 
 
 def build_runner(seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                 device: DeviceLike = None):
-    """A runner over the full-width folded U-Net with seeded random weights."""
+                 device: DeviceLike = None, pallas_deconv: bool = False):
+    """A runner over the full-width folded U-Net with seeded random weights
+    (with ``pallas_deconv``: the live-BN U-Net with K3, unfolded)."""
     from audiodenoiser_torch.eval.runner import DenoiserRunner
     from audiodenoiser_torch.models import (
         UNet,
@@ -51,9 +55,11 @@ def build_runner(seed: int = 0, dtype: torch.dtype = torch.bfloat16,
     )
 
     device = resolve_device(device)
-    model = UNet()
+    model = UNet(dtype=dtype, pallas_deconv=pallas_deconv)
     model.load_state_dict(state_dict_from_flax(random_flax_variables(seed)),
                           strict=True)
+    if pallas_deconv:  # the kernel lives in the module a fold would replace
+        return DenoiserRunner(model.eval(), device=device)
     return DenoiserRunner(fold_for_inference(model.eval(), dtype), device=device)
 
 
@@ -73,7 +79,9 @@ def device_breakdown(fn, iters: int, device: torch.device, top: int = 8) -> dict
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     kernels = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a user annotation (e.g. "Optimizer.step#AdamW.step") spans the
+        # kernels under it: counting it too would count them twice
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -94,11 +102,12 @@ def device_breakdown(fn, iters: int, device: torch.device, top: int = 8) -> dict
 
 def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
               warmup: int = 3, pipelined: bool = True, seed: int = 0,
-              device: DeviceLike = None, profile_iters: int = 0) -> dict:
+              device: DeviceLike = None, profile_iters: int = 0,
+              pallas_deconv: bool = False) -> dict:
     """Frames/s of the fused path; with ``profile_iters`` > 0 (CUDA only)
     also a ``device_breakdown`` of that many further batches."""
     device = resolve_device(device)
-    runner = build_runner(seed, device=device)
+    runner = build_runner(seed, device=device, pallas_deconv=pallas_deconv)
     sr, hop = 8000, runner.hop
     n_samples = int(sr * clip_seconds)
     rng = np.random.default_rng(seed)
@@ -125,13 +134,16 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
     dt = time.perf_counter() - t0
     frames = batch_size * (1 + n_samples // hop) * iters
     result = {
-        "metric": "spectrogram_frames_per_sec (STFT->UNet BN-folded bf16->iSTFT)",
+        "metric": ("spectrogram_frames_per_sec (STFT->UNet live-BN bf16 with "
+                   "the K3 deconv->iSTFT)" if pallas_deconv else
+                   "spectrogram_frames_per_sec (STFT->UNet BN-folded bf16->iSTFT)"),
         "value": frames / dt,
         "unit": "frames/s",
         "batch_size": batch_size,
         "clip_seconds": clip_seconds,
         "iters": iters,
         "pipelined": pipelined,
+        "pallas_deconv": pallas_deconv,
         "batch_ms": dt / iters * 1e3,
         "device": device_name(device),
         "card": card_info() if device.type == "cuda" else "cpu",
@@ -149,9 +161,12 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--latency", action="store_true",
                    help="synchronise after every batch instead of pipelining")
+    p.add_argument("--pallas_deconv", action="store_true",
+                   help="the live-BN U-Net with the K3 deconv kernel, unfolded")
     args = p.parse_args(argv)
     print(json.dumps(run_bench(args.batch_size, args.clip_seconds, args.iters,
-                               pipelined=not args.latency)))
+                               pipelined=not args.latency,
+                               pallas_deconv=args.pallas_deconv)))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,14 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version."""
 
+from audiodenoiser_torch.ops.cuda.deconv import (
+    conv_transpose_2x2,
+    conv_transpose_2x2_plain,
+    deconv_kernel,
+)
 from audiodenoiser_torch.ops.cuda.istft import istft_kernel, istft_plain
 from audiodenoiser_torch.ops.cuda.stft import stft_kernel, stft_plain
 
-KERNELS = (stft_kernel, istft_kernel)
+KERNELS = (stft_kernel, istft_kernel, deconv_kernel)
 
 
 def reset_launch_counts() -> None:
@@ -12,4 +17,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["stft_kernel", "stft_plain", "istft_kernel", "istft_plain",
+           "deconv_kernel", "conv_transpose_2x2", "conv_transpose_2x2_plain",
            "KERNELS", "reset_launch_counts"]

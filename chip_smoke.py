@@ -7,22 +7,32 @@ from the root of a checkout. Phases, each fatal on failure:
 
 1. print the card's name and power limit; build every CUDA kernel from
    ``audiodenoiser_torch/csrc`` (one nvcc per source, in parallel);
-2. hold each kernel against its plain PyTorch version on the card, at the
-   bench shape (256 clips of 2 s) and a ragged one (3 clips of 3.1 s), and
-   time kernel, plain version and one library call beside the kernel's
-   lower bound;
+2. hold each kernel against its plain PyTorch version on the card and time
+   kernel, plain version and one library call beside the kernel's lower
+   bound: K1/K2 at the bench shape (256 clips of 2 s) and a ragged one (3
+   clips of 3.1 s); K3 at the four upsamplings of a batch-16 training step
+   and of a batch-256 bench batch, in bf16 and fp32, forward and backward;
 3. serve HTTP requests through the full-width 31,042,369-parameter
    BN-folded bf16 U-Net (``DenoiseService`` + ``make_http_server``) and
-   check each answer against a direct ``DenoiserRunner`` call; the kernels'
+   check each answer against a direct ``DenoiserRunner`` call; K1 and K2's
    launch counters must rise during the requests;
-4. run the whole slice in fp32 on the card (kernels) and on the CPU
+4. run the serving slice in fp32 on the card (kernels) and on the CPU
    (plain versions) for one 2 s clip and compare;
-5. measure throughput with ``eval.bench.run_bench`` at batch 256.
+5. one full-width fp32 training step (mixer with K1, U-Net with K3) on the
+   card against the CPU from the same weights, chunks and noise draws (the
+   two featurizations within one float16 rounding, then one batch for both);
+6. ``train.loop.fit`` of the full-width bf16 ``UNet(pallas_deconv=True)``
+   on the on-device mixer: 2 epochs of 10 steps at batch 16, K1 and K3
+   counted, the export served, then the steady step rate and its device
+   profile; and ``python -m audiodenoiser_torch.cli.train`` on wavs;
+7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded
+   and with ``pallas_deconv`` (K1, K2 and K3 counted).
 
 Before the last line come one JSON object listing every kernel with its
-launches on the main path, error and times, then the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without the package
-beside it, the script fails before printing any result.
+launches on its path, error and times, then the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``. Without a GPU,
+or without the package beside it, the script fails before printing any
+result.
 """
 
 from __future__ import annotations
@@ -31,7 +41,10 @@ import io
 import json
 import math
 import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -46,6 +59,14 @@ SLICE_TOL = 1e-4   # relative L2, fp32 card vs CPU (tests/test_torch_runner.py)
 # H100 SXM peaks from NVIDIA's data sheet (dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# K3 shapes (B, Cin, H, W, Cout): the four upsamplings of a training step
+# (batch 16, crop 256 x 64) and of a bench batch (256 clips of 2 s, 257 x 126)
+DECONV_TRAIN = ((16, 1024, 16, 4, 512), (16, 512, 32, 8, 256),
+                (16, 256, 64, 16, 128), (16, 128, 128, 32, 64))
+DECONV_BENCH = ((256, 1024, 16, 7, 512), (256, 512, 32, 15, 256),
+                (256, 256, 64, 31, 128), (256, 128, 128, 63, 64))
+TRAIN_TOL = 1e-4  # fp32 training step, card vs CPU: loss, grad norm, BN stats
 
 
 def fail(msg: str) -> None:
@@ -233,7 +254,7 @@ def phase_serve(torch, rng, rows, device="cuda"):
     from audiodenoiser_torch.device import device_name
     from audiodenoiser_torch.eval.bench import build_runner
     from audiodenoiser_torch.models import UNet, count_params
-    from audiodenoiser_torch.ops.cuda import KERNELS, reset_launch_counts
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
     from audiodenoiser_torch.serve import DenoiseService, make_http_server
 
     check(count_params(UNet()) == PARAMS_FULL,
@@ -283,7 +304,7 @@ def phase_serve(torch, rng, rows, device="cuda"):
             t.join(timeout=300)
             check(not t.is_alive(), "a request never finished")
         serve_s = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in KERNELS}
+        launches = {k.__name__: k.launches for k in (stft_kernel, istft_kernel)}
         answers.update(results)
         print(f"[serve] 5 requests in {serve_s:.3f} s, batch sizes "
               f"{gated.batch_sizes}, kernel launches {launches}", flush=True)
@@ -363,6 +384,267 @@ def phase_slice_fp32(torch, rng):
     check(np.isfinite(a).all() and rel < SLICE_TOL, "fp32 slice card vs CPU")
 
 
+def deconv_bound_ms(shapes, itemsize: int) -> tuple[float, str]:
+    """Least time for these K3 calls together: the larger of their bytes
+    (x read once, out written once, plus the 2x2 weights in the compute
+    dtype and the fp32 bias) over the memory rate and their multiply-adds
+    (2*B*H*W*4*Cin*Cout) over the dense bf16 tensor rate."""
+    nbytes = flops = 0
+    for b, cin, h, w, cout in shapes:
+        nbytes += itemsize * (b * h * w * cin + 4 * b * h * w * cout + 4 * cin * cout) + 4 * cout
+        flops += 2 * b * h * w * 4 * cin * cout
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_deconv(torch, rng):
+    """Phase 2, K3: the kernel against its plain version at the training-step
+    and bench shapes, bf16 and fp32, forward and backward; times in bf16.
+    Returns the kernels-line row, timed over one training step's four
+    upsamplings (launches filled in by the training phase)."""
+    import torch.nn.functional as F
+
+    from audiodenoiser_torch.ops.cuda import (
+        conv_transpose_2x2,
+        conv_transpose_2x2_plain,
+        deconv_kernel,
+    )
+
+    dev = torch.device("cuda")
+    totals = {"train": [0.0, 0.0, 0.0], "bench": [0.0, 0.0, 0.0]}
+    train_err = 0.0
+    for label, shapes in (("train", DECONV_TRAIN), ("bench", DECONV_BENCH)):
+        for b, cin, h, w, cout in shapes:
+            x32 = torch.from_numpy(rng.standard_normal((b, h, w, cin), dtype="float32")).to(dev)
+            x32 = x32.permute(0, 3, 1, 2)  # logical NCHW, channels_last memory
+            wt = torch.from_numpy((rng.standard_normal((cin, cout, 2, 2)) / math.sqrt(cin))
+                                  .astype("float32")).to(dev)
+            bias = torch.from_numpy(rng.standard_normal(cout).astype("float32")).to(dev)
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                ours = deconv_kernel(x, wt, bias)
+                ref = conv_transpose_2x2_plain(x.float(), wt.to(dtype).float(), bias)
+                torch.cuda.synchronize()
+                check(ours.shape == (b, cout, 2 * h, 2 * w) and ours.dtype == dtype
+                      and ours.is_contiguous(memory_format=torch.channels_last),
+                      f"K3 output {tuple(ours.shape)} {ours.dtype} at {label}")
+                err = (ours.float() - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                tol = 1e-5 if dtype == torch.float32 else 1e-2
+                errs[str(dtype).split(".")[-1]] = (err, err / scale)
+                check(err <= tol * scale, f"K3 {dtype} disagrees with plain at "
+                      f"{(b, cin, h, w, cout)}: {err:.3e} of {scale:.3e}")
+                if dtype == torch.bfloat16 and label == "train":
+                    train_err = max(train_err, err)
+                del ours, ref
+            # backward in fp32: the Function (K3 forward) against autograd
+            # through the plain version, TF32 off
+            grads = []
+            for fn in (conv_transpose_2x2, conv_transpose_2x2_plain):
+                xg, wg, bg = (t.detach().clone().requires_grad_() for t in (x32, wt, bias))
+                with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                    (fn(xg, wg, bg).square() * 0.5).sum().backward()
+                grads.append((xg.grad, wg.grad, bg.grad))
+            gerr = max(((a - r).norm() / r.norm()).item() for a, r in zip(*grads))
+            check(gerr <= 1e-4, f"K3 backward disagrees at {(b, cin, h, w, cout)}: {gerr:.3e}")
+            del grads
+            xb, wb, bb = x32.to(torch.bfloat16), wt.to(torch.bfloat16), bias.to(torch.bfloat16)
+            wb_cl = wb.contiguous(memory_format=torch.channels_last)
+            ms = time_ms(lambda: deconv_kernel(xb, wt, bias))
+            plain_ms = time_ms(lambda: conv_transpose_2x2_plain(xb, wt, bias), reps=5)
+            lib_ms = time_ms(lambda: F.conv_transpose2d(xb, wb_cl, bb, stride=2))
+            bound, bound_by = deconv_bound_ms([(b, cin, h, w, cout)], 2)
+            for i, t in enumerate((ms, plain_ms, lib_ms)):
+                totals[label][i] += t
+            print(f"[kernels] deconv_kernel {label} B={b} Cin={cin} H={h} W={w} "
+                  f"Cout={cout}: f32 max_rel_err={errs['float32'][1]:.3e} bf16 "
+                  f"max_rel_err={errs['bfloat16'][1]:.3e} grad_rel_l2={gerr:.3e}; bf16 "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                  f"bound_ms={bound:.4f} ({bound_by})", flush=True)
+            del x32, xb
+            torch.cuda.empty_cache()
+    for label, shapes in (("train", DECONV_TRAIN), ("bench", DECONV_BENCH)):
+        bound, bound_by = deconv_bound_ms(shapes, 2)
+        ms, plain_ms, lib_ms = totals[label]
+        print(f"[kernels] deconv_kernel {label}, four upsamplings: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
+              f"({bound_by})", flush=True)
+    bound, bound_by = deconv_bound_ms(DECONV_TRAIN, 2)
+    ms, plain_ms, lib_ms = totals["train"]
+    return {"name": "deconv_kernel", "route": "cuda",
+            "source": "audiodenoiser_torch/csrc/deconv_kernel.cu",
+            "replaces": "audiodenoiser_tpu/ops/pallas/deconv_kernel.py:117",
+            "launches": 0, "max_abs_err": train_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_train_step_fp32(torch):
+    """Phase 5: one full-width fp32 training step on the card (K1 in the
+    mixer, K3 forward and backward) against the CPU (plain versions), from
+    the same weights, clean chunks and noise draws. The mixer's float16
+    round trip can round a magnitude the other way when K1 and the CPU's
+    FFT differ in the last bit, so the two featurizations are held to one
+    float16 rounding, and both steps then run on the card's batch."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import UNet, random_flax_variables
+    from audiodenoiser_torch.ops.cuda import deconv_kernel, stft_kernel
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    chunks = synth_chunks(8, seed=1)
+    variables = random_flax_variables(2)
+    draws = OnDeviceMixer(chunks, "white", device="cpu").draw(
+        torch.Generator().manual_seed(5), 2)
+    launched = stft_kernel.launches
+    batch = OnDeviceMixer(chunks, "white", device="cuda").sample_from(draws)
+    check(stft_kernel.launches == launched + 1, "the card's mixer did not run K1")
+    plain = OnDeviceMixer(chunks, "white", device="cpu").sample_from(draws)
+    for name, a, b in zip(("noisy", "clean"), batch, plain):
+        d = (a.cpu() - b).abs()
+        rel = (d / b.abs().clamp_min(torch.finfo(torch.float16).tiny)).max().item()
+        print(f"[train fp32] {name} features card (K1) vs CPU: {int((d > 0).sum())} of "
+              f"{d.numel()} differ, max rel {rel:.3e}", flush=True)
+        check(rel <= 2.0 ** -10, f"{name} features differ by more than one float16 rounding")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        noisy, clean = (t.to(dev) for t in batch)
+        launched = deconv_kernel.launches
+        state = create_train_state(0, UNet(pallas_deconv=True), variables=variables,
+                                   device=dev)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            state, losses = train_step(state, noisy, clean)
+        stats = {k: v.float().cpu() for k, v in state.model.state_dict().items()
+                 if "running" in k}
+        got[dev] = (float(losses.total), float(state.grad_norm), stats)
+        if dev == "cuda":
+            check(deconv_kernel.launches == launched + 4, "the fp32 card step did not run K3")
+        del state
+    (lc, gc, sc), (lp, gp, sp) = got["cuda"], got["cpu"]
+    stat_err = max(((sc[k] - sp[k]).abs() / (1.0 + sp[k].abs())).max().item() for k in sp)
+    print(f"[train fp32] card vs CPU: loss {lc:.6f} vs {lp:.6f} (rel {abs(lc - lp) / abs(lp):.3e}), "
+          f"grad norm {gc:.6f} vs {gp:.6f} (rel {abs(gc - gp) / abs(gp):.3e}), "
+          f"BN running stats max |d|/(1+|ref|) {stat_err:.3e} over {len(sp)} tensors",
+          flush=True)
+    check(math.isfinite(lc) and abs(lc - lp) <= TRAIN_TOL * abs(lp), "fp32 step loss")
+    check(abs(gc - gp) <= TRAIN_TOL * abs(gp), "fp32 step gradient norm")
+    check(stat_err <= TRAIN_TOL, "fp32 step BN running stats")
+
+
+def _categories(top):
+    """Device ms per step by kind of kernel, from profiler kernel names."""
+    kinds = (("K3 deconv", ("deconv_bf16", "deconv_f32")), ("K1 stft", ("stft_kernel",)),
+             ("optimizer", ("multi_tensor", "adam", "foreach")),
+             ("convolutions", ("conv", "xmma", "cudnn", "gemm", "cutlass", "wgrad",
+                               "dgrad", "sm90", "implicit")),
+             ("concat", ("CatArray",)), ("fft", ("fft",)),
+             ("reductions (BN stats, loss)", ("reduce",)),
+             ("elementwise (BN, ReLU, casts, pads)", ("elementwise", "Elementwise")))
+    out = {}
+    for row in top:
+        name = row["kernel"]
+        kind = next((k for k, pats in kinds if any(p in name for p in pats)), "other")
+        out[kind] = out.get(kind, 0.0) + row["ms"]
+    return out
+
+
+def phase_train_fit(torch, rows, tmp):
+    """Phase 6: ``fit`` at full width in bf16 with K3 and the on-device
+    mixer (K1), the export served, the steady rate and its profile."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.ops.cuda import deconv_kernel, reset_launch_counts, stft_kernel
+    from audiodenoiser_torch.train.bench import run_train_bench, synth_chunks
+    from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit
+
+    batch, steps, val_steps, epochs = 16, 10, 2, 2
+    chunks = synth_chunks(72, seed=2)
+    mixer = OnDeviceMixer(chunks[:64], "white")
+    val_mixer = OnDeviceMixer(chunks[64:], "white")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = FitConfig(run_name="smoke", output_path=os.path.join(tmp, "runs"), epochs=epochs,
+                    batch_size=batch, precision="bf16", log_every=10)
+    factory = lambda: create_train_state(0, UNet(dtype=torch.bfloat16, pallas_deconv=True))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(cfg, lambda e: (mixer.sample(gen, batch) for _ in range(steps)),
+              lambda: (val_mixer.sample(gen, batch) for _ in range(val_steps)),
+              state_factory=factory)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k1, k3 = stft_kernel.launches, deconv_kernel.launches
+    forwards = epochs * (steps + val_steps)
+    print(f"[train fit] {epochs} epochs x {steps} steps at batch {batch} in {fit_s:.2f} s "
+          f"(validation, export and first-step set-up included); history "
+          f"{res['history']}; launches K1={k1} K3={k3}", flush=True)
+    check(all(math.isfinite(h["train"]) and math.isfinite(h["val"]) for h in res["history"]),
+          "non-finite loss in fit")
+    check(k1 == forwards, f"K1 launched {k1} times, expected {forwards}")
+    check(k3 == 4 * forwards, f"K3 launched {k3} times, expected 4 per forward")
+    rows["deconv_kernel"]["launches"] = k3
+
+    saved = os.path.join(tmp, "saved")
+    os.makedirs(saved, exist_ok=True)
+    shutil.copyfile(res["best_path"], os.path.join(saved, "unet_denoiser_white.pth"))
+    runner = DenoiserRunner(load_model_for_noise("white", saved))
+    clip = torch.from_numpy(chunks[-1:])
+    out = runner.denoise_audio(clip).float().cpu()
+    check(out.shape == clip.shape and bool(torch.isfinite(out).all()),
+          "the exported model did not denoise a clip")
+    print(f"[train fit] export served: 2 s clip, output rms "
+          f"{out.square().mean().sqrt().item():.4f}", flush=True)
+
+    bench = run_train_bench(batch, steps=20, profile_iters=3)
+    prof = bench.pop("profile")
+    print(f"[train] steady step, mixer + forward + loss + backward + AdamW: "
+          f"{json.dumps(bench)}", flush=True)
+    check(math.isfinite(bench["last_loss"]), "non-finite loss in the steady steps")
+    if isinstance(prof.get("device_busy_ms"), float):
+        cats = _categories(prof["top"])
+        print(f"[train profile] wall {prof['wall_ms']:.2f} ms/step, device busy "
+              f"{prof['device_busy_ms']:.2f} ms, idle {prof['idle_share']:.3f}; by kind "
+              + json.dumps({k: round(v, 4) for k, v in sorted(cats.items(),
+                                                               key=lambda kv: -kv[1])}),
+              flush=True)
+        for row in prof["top"][:15]:
+            print(f"[train profile] {row['ms']:.4f} ms {row['share']:.3f} {row['kernel']}",
+                  flush=True)
+    else:
+        print(f"[train profile] {prof}", flush=True)
+
+
+def _write_wav_dir(path: str, n_files: int):
+    from audiodenoiser_torch.data.wav_io import write_wav
+    from audiodenoiser_torch.train.bench import synth_chunks
+
+    os.makedirs(path, exist_ok=True)
+    for i, chunk in enumerate(synth_chunks(2 * n_files, seed=3).reshape(n_files, -1)):
+        write_wav(os.path.join(path, f"clean_{i}.wav"), chunk, SR)
+
+
+def phase_train_cli(tmp):
+    """Phase 6b: ``python -m audiodenoiser_torch.cli.train`` on the card."""
+    data = os.path.join(tmp, "wavs")
+    _write_wav_dir(os.path.join(data, "clean"), 12)
+    export = os.path.join(tmp, "cli_saved")
+    cmd = [sys.executable, "-m", "audiodenoiser_torch.cli.train", "--base_dataset_path", data,
+           "--pipeline", "on_device", "--noise_type", "white", "--epochs", "1",
+           "--steps_per_epoch", "3", "--output_path", os.path.join(tmp, "cli_runs"),
+           "--export_dir", export]
+    env = {**os.environ, "PYTHONPATH": HERE}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-6:]
+    for line in tail:
+        print(f"[train cli] {line}", flush=True)
+    check(proc.returncode == 0, f"cli.train exited {proc.returncode}")
+    check(os.path.exists(os.path.join(export, "unet_denoiser_white.pth")),
+          "cli.train wrote no export")
+    print(f"[train cli] exit 0 in {time.perf_counter() - t0:.1f} s, export written", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -389,13 +671,33 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    from audiodenoiser_torch.ops.cuda import KERNELS, reset_launch_counts
+
     rng = np.random.default_rng(0)
     rows = phase_kernels(torch, rng)
+    rows["deconv_kernel"] = phase_deconv(torch, rng)
     phase_serve(torch, rng, rows)
     phase_slice_fp32(torch, rng)
+    phase_train_step_fp32(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        phase_train_fit(torch, rows, tmp)
+        phase_train_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     bench = run_bench(batch_size=256, clip_seconds=2.0, iters=20, profile_iters=3)
     print(f"[bench] {json.dumps(bench)}", flush=True)
     check(bench["value"] > 0, "bench measured nothing")
+    reset_launch_counts()
+    bench_k3 = run_bench(batch_size=256, clip_seconds=2.0, iters=10, profile_iters=3,
+                         pallas_deconv=True)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    print(f"[bench pallas_deconv] {json.dumps(bench_k3)}; launches {launches}", flush=True)
+    check(bench_k3["value"] > 0 and all(n > 0 for n in launches.values()),
+          "the pallas_deconv bench did not run through K1, K2 and K3")
+    print(f"[bench] folded {bench['value']:.1f} frames/s ({bench['batch_ms']:.2f} ms a "
+          f"batch) vs live-BN with K3 {bench_k3['value']:.1f} frames/s "
+          f"({bench_k3['batch_ms']:.2f} ms)", flush=True)
 
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

@@ -123,3 +123,66 @@ def test_runner_on_card_matches_cpu(dev):
             assert istft_kernel.launches == launched[1] + 1
     rel = (outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()
     assert rel < 1e-4, rel
+
+
+DECONV_SHAPES = [
+    (16, 1024, 16, 4, 512),    # training step, batch 16, crop (256, 64)
+    (16, 128, 128, 32, 64),
+    (256, 1024, 16, 7, 512),   # bench eval shape: odd W
+    (9, 128, 16, 4, 64),       # batch not a multiple of any tile
+    (1, 16, 4, 63, 8),         # wide odd W, batch 1, narrow channels
+    (2, 20, 3, 5, 6),          # Cin and 4*Cout not multiples of 8
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,cin,h,w,cout", DECONV_SHAPES)
+def test_deconv_kernel_matches_plain(dev, dtype, b, cin, h, w, cout):
+    from audiodenoiser_torch.ops.cuda import conv_transpose_2x2_plain, deconv_kernel
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((b, cin, h, w)).astype(np.float32)).to(dev)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    wt = torch.from_numpy((rng.standard_normal((cin, cout, 2, 2))
+                           / np.sqrt(cin)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
+    before = deconv_kernel.launches
+    ours = deconv_kernel(x, wt, bias)
+    # the plain version in fp32 from the same (bf16-rounded) inputs
+    ref = conv_transpose_2x2_plain(x.float(), wt.to(dtype).float(), bias)
+    torch.cuda.synchronize()
+    assert deconv_kernel.launches == before + 1
+    assert ours.shape == (b, cout, 2 * h, 2 * w) and ours.dtype == dtype
+    assert ours.is_contiguous(memory_format=torch.channels_last)
+    # fp32: FMA order only; bf16: one rounding of the output
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _max_rel(ours.float(), ref) <= tol
+
+
+def test_deconv_backward_matches_autograd_of_plain(dev):
+    from audiodenoiser_torch.ops.cuda import conv_transpose_2x2, conv_transpose_2x2_plain
+
+    rng = np.random.default_rng(4)
+    x0 = torch.from_numpy(rng.standard_normal((3, 64, 8, 5)).astype(np.float32)).to(dev)
+    w0 = torch.from_numpy(rng.standard_normal((64, 32, 2, 2)).astype(np.float32) * 0.1).to(dev)
+    b0 = torch.from_numpy(rng.standard_normal(32).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (conv_transpose_2x2, conv_transpose_2x2_plain):
+        x = x0.clone().contiguous(memory_format=torch.channels_last).requires_grad_()
+        w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            torch.sin(fn(x, w, b)).sum().backward()
+        grads.append((x.grad, w.grad, b.grad))
+    for a, r in zip(*grads):
+        assert ((a - r).norm() / r.norm()).item() < 1e-4
+
+
+def test_deconv_kernel_rejects_what_it_does_not_take(dev):
+    from audiodenoiser_torch.ops.cuda import deconv_kernel
+
+    w, b = torch.zeros(8, 4, 2, 2, device=dev), torch.zeros(4, device=dev)
+    with pytest.raises(ValueError, match="channels_last"):
+        deconv_kernel(torch.zeros(2, 8, 4, 4, device=dev), w, b)
+    with pytest.raises(TypeError):
+        deconv_kernel(torch.zeros(2, 8, 4, 4, device=dev, dtype=torch.float16)
+                      .contiguous(memory_format=torch.channels_last), w, b)
