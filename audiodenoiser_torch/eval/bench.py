@@ -9,11 +9,15 @@ weights with non-trivial BatchNorm statistics, carried across from the
 Flax tree layout by ``models.convert``.
 
   python -m audiodenoiser_torch.eval.bench --batch_size 256 [--pallas_deconv]
+  python -m audiodenoiser_torch.eval.bench --mode complex_mask
 
 prints one JSON line naming the card and its power limit. With
 ``--pallas_deconv`` the U-Net is the live-BN bf16 one, unfolded, whose
 four upsamplings run through the K3 kernel, as the JAX bench's option of
-that name runs its Pallas deconv.
+that name runs its Pallas deconv. ``--mode complex_mask`` runs the
+BN-folded bf16 ``ComplexMaskUNet`` (31,043,586 parameters, mask bound 2)
+in ``complex_mask`` mode: the same STFT and iSTFT kernels, a 3-channel
+input and a 2-channel tanh mask.
 """
 
 from __future__ import annotations
@@ -43,21 +47,30 @@ def card_info() -> str:
 
 
 def build_runner(seed: int = 0, dtype: torch.dtype = torch.bfloat16,
-                 device: DeviceLike = None, pallas_deconv: bool = False):
+                 device: DeviceLike = None, pallas_deconv: bool = False,
+                 mode: str = "noisy_phase"):
     """A runner over the full-width folded U-Net with seeded random weights
-    (with ``pallas_deconv``: the live-BN U-Net with K3, unfolded)."""
-    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    (with ``pallas_deconv``: the live-BN U-Net with K3, unfolded; with
+    ``mode="complex_mask"``: the folded ``ComplexMaskUNet``)."""
+    from audiodenoiser_torch.eval.runner import MODES, DenoiserRunner
     from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
         UNet,
         fold_for_inference,
+        load_flax_variables,
         random_flax_variables,
-        state_dict_from_flax,
     )
 
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     device = resolve_device(device)
-    model = UNet(dtype=dtype, pallas_deconv=pallas_deconv)
-    model.load_state_dict(state_dict_from_flax(random_flax_variables(seed)),
-                          strict=True)
+    if mode == "complex_mask":
+        model = ComplexMaskUNet(dtype=dtype, pallas_deconv=pallas_deconv)
+        variables = random_flax_variables(seed, in_channels=3, out_channels=2)
+    else:
+        model = UNet(dtype=dtype, pallas_deconv=pallas_deconv)
+        variables = random_flax_variables(seed)
+    load_flax_variables(model, variables)
     if pallas_deconv:  # the kernel lives in the module a fold would replace
         return DenoiserRunner(model.eval(), device=device)
     return DenoiserRunner(fold_for_inference(model.eval(), dtype), device=device)
@@ -103,11 +116,11 @@ def device_breakdown(fn, iters: int, device: torch.device, top: int = 8) -> dict
 def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
               warmup: int = 3, pipelined: bool = True, seed: int = 0,
               device: DeviceLike = None, profile_iters: int = 0,
-              pallas_deconv: bool = False) -> dict:
-    """Frames/s of the fused path; with ``profile_iters`` > 0 (CUDA only)
-    also a ``device_breakdown`` of that many further batches."""
+              pallas_deconv: bool = False, mode: str = "noisy_phase") -> dict:
+    """Frames/s of the fused path in ``mode``; with ``profile_iters`` > 0
+    (CUDA only) also a ``device_breakdown`` of that many further batches."""
     device = resolve_device(device)
-    runner = build_runner(seed, device=device, pallas_deconv=pallas_deconv)
+    runner = build_runner(seed, device=device, pallas_deconv=pallas_deconv, mode=mode)
     sr, hop = 8000, runner.hop
     n_samples = int(sr * clip_seconds)
     rng = np.random.default_rng(seed)
@@ -133,10 +146,10 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
             sync()
     dt = time.perf_counter() - t0
     frames = batch_size * (1 + n_samples // hop) * iters
+    net = ("ComplexMaskUNet" if mode == "complex_mask" else "UNet") + (
+        " live-BN bf16 with the K3 deconv" if pallas_deconv else " BN-folded bf16")
     result = {
-        "metric": ("spectrogram_frames_per_sec (STFT->UNet live-BN bf16 with "
-                   "the K3 deconv->iSTFT)" if pallas_deconv else
-                   "spectrogram_frames_per_sec (STFT->UNet BN-folded bf16->iSTFT)"),
+        "metric": f"spectrogram_frames_per_sec (STFT->{net}->iSTFT, {mode})",
         "value": frames / dt,
         "unit": "frames/s",
         "batch_size": batch_size,
@@ -144,6 +157,7 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
         "iters": iters,
         "pipelined": pipelined,
         "pallas_deconv": pallas_deconv,
+        "mode": mode,
         "batch_ms": dt / iters * 1e3,
         "device": device_name(device),
         "card": card_info() if device.type == "cuda" else "cpu",
@@ -163,10 +177,12 @@ def main(argv=None):
                    help="synchronise after every batch instead of pipelining")
     p.add_argument("--pallas_deconv", action="store_true",
                    help="the live-BN U-Net with the K3 deconv kernel, unfolded")
+    p.add_argument("--mode", choices=["noisy_phase", "complex_mask"], default="noisy_phase",
+                   help="complex_mask: the folded ComplexMaskUNet in its own mode")
     args = p.parse_args(argv)
     print(json.dumps(run_bench(args.batch_size, args.clip_seconds, args.iters,
                                pipelined=not args.latency,
-                               pallas_deconv=args.pallas_deconv)))
+                               pallas_deconv=args.pallas_deconv, mode=args.mode)))
 
 
 if __name__ == "__main__":

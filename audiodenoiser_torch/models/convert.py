@@ -16,6 +16,8 @@ A Conv kernel goes from HWIO to OIHW. A Flax ConvTranspose kernel is
 spatially flipped against torch's adjoint convention: the flip is undone
 with ``k[::-1, ::-1]`` before the kernel goes to (Cin, Cout, kh, kw).
 BatchNorm gains the ``num_batches_tracked`` that a strict load expects.
+The channel counts come from the kernels, so a complex-mask tree (a
+3-channel first conv, a 2-channel head) converts the same way.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _t(x) -> torch.Tensor:
@@ -74,13 +77,26 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
     return out
 
 
+def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
+    """Load an export's ``{"params", "batch_stats"}`` numpy tree (Flax
+    layout, as ``train.checkpoints.load_exported`` returns it) into the
+    port's ``UNet`` or ``ComplexMaskUNet`` of the same widths and channel
+    counts, strictly: a tree of another architecture raises."""
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    return model
+
+
 def random_flax_variables(seed: int = 0,
                           features: Sequence[int] = (64, 128, 256, 512),
-                          bottleneck: int = 1024) -> dict:
+                          bottleneck: int = 1024, in_channels: int = 1,
+                          out_channels: int = 1) -> dict:
     """Seeded random variables in the Flax ``UNet`` tree layout (HWIO
     kernels; BatchNorm ``scale``/``bias`` and ``mean``/``var``), with
     non-trivial BN statistics so that a fold is load-bearing. He-scaled
-    kernels keep activations of order one through the full depth."""
+    kernels keep activations of order one through the full depth.
+    ``in_channels`` and ``out_channels`` (default 1 and 1, the magnitude
+    U-Net) size the first conv and the 1x1 head: 3 and 2 give the tree of
+    a ``ComplexMaskUNet``."""
     rng = np.random.default_rng(seed)
 
     def conv(kh: int, cin: int, cout: int) -> dict:
@@ -103,7 +119,7 @@ def random_flax_variables(seed: int = 0,
         return p, s
 
     params, stats = {}, {}
-    cin = 1
+    cin = in_channels
     for i, f in enumerate(features):
         params[f"down{i}"], stats[f"down{i}"] = double(cin, f)
         cin = f
@@ -113,5 +129,5 @@ def random_flax_variables(seed: int = 0,
         params[f"up{i}_deconv"] = conv(2, cin, f)
         params[f"up{i}_conv"], stats[f"up{i}_conv"] = double(2 * f, f)
         cin = f
-    params["out"] = conv(1, cin, 1)
+    params["out"] = conv(1, cin, out_channels)
     return {"params": params, "batch_stats": stats}

@@ -7,16 +7,23 @@ the fold runs in float32, the kernels are then cast to the compute dtype
 and the biases stay float32, cast into the conv epilogue at call time.
 Convolutions and deconvolutions go to cuDNN (``F.conv2d`` /
 ``F.conv_transpose2d``), as the JAX folded graph leaves them to XLA.
+
+A folded ``ComplexMaskUNet`` keeps its mask head (``mask_bound``,
+``mask_residual``). The head runs in float32 on the output cast back to
+the input's dtype, as the live ``ComplexMaskUNet`` runs it; the JAX
+package's folded shim runs it in the compute dtype, so in bf16 the two
+differ by about one bf16 rounding of the mask.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audiodenoiser_torch.models.complex_mask import mask_head
 from audiodenoiser_torch.models.unet import UNet, pad_to_match
 
 
@@ -52,13 +59,17 @@ class FoldedUNet(nn.Module):
     Input and output are (N, C, F, T) in the caller's dtype; the graph
     computes in ``dtype`` with activations and kernels in ``channels_last``
     memory (NHWC, the layout of cuDNN's Hopper convolution kernels: in NCHW
-    every convolution paid a transpose in and one out)."""
+    every convolution paid a transpose in and one out). With ``mask_bound``
+    set, the output goes through the complex-mask head."""
 
     def __init__(self, convs: dict, features: Sequence[int],
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 mask_bound: Optional[float] = None, mask_residual: bool = False):
         super().__init__()
         self.features = tuple(features)
         self.dtype = dtype
+        self.mask_bound = mask_bound
+        self.mask_residual = mask_residual
         self.convs = nn.ModuleDict(convs)
 
     def _double(self, h: torch.Tensor, name: str) -> torch.Tensor:
@@ -77,13 +88,17 @@ class FoldedUNet(nn.Module):
         for i, skip in enumerate(reversed(skips)):
             h = pad_to_match(self.convs[f"up{i}_deconv"](h), skip)
             h = self._double(torch.cat([skip, h], dim=1), f"up{i}_conv")
-        return self.convs["out"](h, relu=False).to(in_dtype)
+        out = self.convs["out"](h, relu=False).to(in_dtype)
+        if self.mask_bound is not None:
+            out = mask_head(out, self.mask_bound, self.mask_residual)
+        return out
 
 
 def fold_for_inference(model: UNet,
                        dtype: torch.dtype = torch.bfloat16) -> FoldedUNet:
     """Fold every DoubleConv's eval BatchNorm and pre-cast kernels to
-    ``dtype``; the result lives on ``model``'s device."""
+    ``dtype``; the result lives on ``model``'s device. A
+    ``ComplexMaskUNet`` keeps its mask head."""
     convs = {}
 
     def fold_double(name: str, block) -> None:
@@ -105,4 +120,6 @@ def fold_for_inference(model: UNet,
             fold_double(f"up{i}_conv", up.conv)
         fold_double("bottleneck", model.bottleneck)
         convs["out"] = plain(model.out)
-    return FoldedUNet(convs, model.features, dtype).eval()
+    return FoldedUNet(convs, model.features, dtype,
+                      mask_bound=getattr(model, "mask_bound", None),
+                      mask_residual=bool(getattr(model, "residual", False))).eval()

@@ -180,5 +180,26 @@ class UNet(nn.Module):
         return self.out(x).to(in_dtype)
 
 
+def scaled_widths(width_mult: float = 1.0) -> tuple[tuple[int, ...], int]:
+    """Channel widths of a width-scaled U-Net: 1.0 is the reference
+    (64..512, bottleneck 1024); each width rounds to a multiple of 8, at
+    least 8 (0.5 -> 7.8M parameters, 0.25 -> 2.0M)."""
+    if width_mult <= 0:
+        raise ValueError(f"width_mult must be positive, got {width_mult}")
+
+    def _scale(c: int) -> int:
+        return max(8, int(round(c * width_mult / 8)) * 8)
+
+    return tuple(_scale(c) for c in (64, 128, 256, 512)), _scale(1024)
+
+
+def width_kwargs(width_mult: float) -> dict:
+    """``UNet`` constructor kwargs for a width multiplier ({} at 1.0)."""
+    if width_mult == 1.0:
+        return {}
+    feats, bottleneck = scaled_widths(width_mult)
+    return {"features": feats, "bottleneck": bottleneck}
+
+
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())

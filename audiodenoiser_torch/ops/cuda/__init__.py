@@ -6,9 +6,10 @@ from audiodenoiser_torch.ops.cuda.deconv import (
     deconv_kernel,
 )
 from audiodenoiser_torch.ops.cuda.istft import istft_kernel, istft_plain
+from audiodenoiser_torch.ops.cuda.overlap_add import overlap_add_kernel, overlap_add_plain
 from audiodenoiser_torch.ops.cuda.stft import stft_kernel, stft_plain
 
-KERNELS = (stft_kernel, istft_kernel, deconv_kernel)
+KERNELS = (stft_kernel, istft_kernel, deconv_kernel, overlap_add_kernel)
 
 
 def reset_launch_counts() -> None:
@@ -18,4 +19,4 @@ def reset_launch_counts() -> None:
 
 __all__ = ["stft_kernel", "stft_plain", "istft_kernel", "istft_plain",
            "deconv_kernel", "conv_transpose_2x2", "conv_transpose_2x2_plain",
-           "KERNELS", "reset_launch_counts"]
+           "overlap_add_kernel", "overlap_add_plain", "KERNELS", "reset_launch_counts"]

@@ -11,7 +11,9 @@
   (HTTP 503) instead of growing without bound.
 - ``make_http_server``: ``GET /healthz``, ``GET /metrics`` (Prometheus
   text with a latency histogram) and ``POST /denoise`` with WAV bytes in
-  and out (``X-Latency-Ms`` header, ``?mode=``).
+  and out (``X-Latency-Ms`` header, ``?mode=``); with a ``stream_factory``
+  also the chunked streaming API, ``POST /stream/start``,
+  ``POST /stream/{id}`` and ``POST /stream/{id}/flush``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ from __future__ import annotations
 import io
 import json
 import queue
+import re
 import threading
 import time
+import uuid
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
@@ -172,8 +176,7 @@ class DenoiseService:
         try:
             self._queue.put_nowait(req)
         except queue.Full:
-            with self._metrics_lock:
-                self.overloaded_total += 1
+            self.count_overload()
             raise ServiceOverloaded(
                 f"admission queue full ({self._queue.maxsize} pending)"
             ) from None
@@ -194,8 +197,13 @@ class DenoiseService:
             raise req.error
         return req.result
 
-    def metrics_text(self) -> str:
-        """Prometheus text-format service metrics (``GET /metrics``)."""
+    def count_overload(self) -> None:
+        with self._metrics_lock:
+            self.overloaded_total += 1
+
+    def metrics_text(self, stream_sessions: int = 0) -> str:
+        """Prometheus text-format service metrics (``GET /metrics``);
+        ``stream_sessions`` is the number of live stream sessions."""
         with self._metrics_lock:
             counts = list(self._lat_counts)
             lat_sum, lat_n = self._lat_sum_ms, self._lat_n
@@ -210,6 +218,8 @@ class DenoiseService:
                 f"adt_errors_total {self.errors_total}",
                 "# TYPE adt_queue_depth gauge",
                 f"adt_queue_depth {self._queue.qsize()}",
+                "# TYPE adt_stream_sessions gauge",
+                f"adt_stream_sessions {stream_sessions}",
                 "# TYPE adt_request_latency_ms histogram",
             ]
         cum = 0
@@ -223,9 +233,43 @@ class DenoiseService:
         return "\n".join(lines) + "\n"
 
 
+_STREAM_RE = re.compile(r"^/stream/([0-9a-f]{16})(/flush)?$")
+_RESAMPLE_ITEM = "ROADMAP A.9 (streaming resampler)"
+
+
 def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
-                     port: int = 8800) -> ThreadingHTTPServer:
-    """Build (not start) the HTTP server; call .serve_forever() to run."""
+                     port: int = 8800, stream_factory=None,
+                     stream_ttl: float = 600.0,
+                     max_stream_sessions: int = 64) -> ThreadingHTTPServer:
+    """Build (not start) the HTTP server; call .serve_forever() to run.
+
+    ``stream_factory(mode) -> session`` (a ``StreamingSession``) enables
+    the chunked streaming API:
+
+    - ``POST /stream/start[?mode=]`` -> ``{"session", "generation",
+      "latency_samples", "format": "f32le", "sample_rate"}``;
+    - ``POST /stream/{id}`` with raw little-endian float32 samples in the
+      body -> the samples finalized so far, in the same format;
+    - ``POST /stream/{id}/flush`` -> the remaining tail; closes the session.
+
+    Idle sessions expire after ``stream_ttl`` seconds; an unknown or
+    expired session is a 404. At ``max_stream_sessions`` live sessions a
+    start is refused with 503 and ``Retry-After``. Each session has its own
+    lock, so one client's packets run in order. ``?rate=`` other than the
+    service's rate is a 501: the streaming resampler is not ported yet.
+    """
+    sessions: dict = {}
+    s_lock = threading.Lock()
+
+    def live_sessions() -> int:
+        with s_lock:
+            return len(sessions)
+
+    def evict_idle() -> None:
+        now = time.monotonic()
+        with s_lock:
+            for sid in [k for k, v in sessions.items() if now - v["t"] > stream_ttl]:
+                del sessions[sid]
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet by default
@@ -240,50 +284,120 @@ def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
             self.end_headers()
             self.wfile.write(body)
 
+        def _json(self, code: int, info: dict, extra=None):
+            self._send(code, json.dumps(info).encode(), "application/json", extra)
+
         def _error(self, code: int, e: Exception, extra=None):
-            body = json.dumps({"error": f"{type(e).__name__}: {e}"}).encode()
-            self._send(code, body, "application/json", extra)
+            self._json(code, {"error": f"{type(e).__name__}: {e}"}, extra)
 
         def do_GET(self):
             path = urlparse(self.path).path
             if path == "/healthz":
-                info = {
+                self._json(200, {
                     "status": "ok",
                     "device": device_name(getattr(service.runner, "device", None)),
                     "sample_rate": service.sample_rate,
                     "requests_served": service.requests_served,
-                }
-                self._send(200, json.dumps(info).encode(), "application/json")
+                })
             elif path == "/metrics":
-                self._send(200, service.metrics_text().encode(),
+                self._send(200, service.metrics_text(live_sessions()).encode(),
                            "text/plain; version=0.0.4")
             else:
-                self._send(404, b'{"error": "not found"}', "application/json")
+                self._json(404, {"error": "not found"})
+
+        def _stream_start(self, query: str):
+            evict_idle()
+            qs = parse_qs(query)
+            mode = qs.get("mode", [None])[0]
+            rate = qs.get("rate", [None])[0]
+            if rate is not None:
+                try:
+                    rate = int(rate)
+                except ValueError:
+                    raise ValueError(f"bad rate {rate!r}") from None
+                if not 1000 <= rate <= 384000:
+                    raise ValueError(f"rate {rate} out of range")
+                if rate != service.sample_rate:
+                    raise NotImplementedError(
+                        f"streaming at {rate} Hz needs the resampler: {_RESAMPLE_ITEM}")
+            sess = stream_factory(mode)
+            sid = uuid.uuid4().hex[:16]
+            with s_lock:  # the cap holds even under concurrent starts
+                live = len(sessions)
+                admitted = live < max_stream_sessions
+                if admitted:
+                    sessions[sid] = {"s": sess, "lock": threading.Lock(),
+                                     "t": time.monotonic()}
+            if not admitted:
+                service.count_overload()
+                raise ServiceOverloaded(f"stream session limit reached ({live} live)")
+            # no hot reload yet (ROADMAP A.9): every session is generation 0
+            self._json(200, {"session": sid, "generation": 0,
+                             "latency_samples": int(sess.latency_samples),
+                             "format": "f32le", "sample_rate": service.sample_rate})
+
+        def _stream_packet(self, sid: str, flushing: bool):
+            evict_idle()
+            with s_lock:
+                entry = sessions.get(sid)
+            data = self.rfile.read(int(self.headers.get("Content-Length", "0")))
+            if entry is None:
+                self._json(404, {"error": "unknown or expired session"})
+                return
+            with entry["lock"]:
+                entry["t"] = time.monotonic()
+                if flushing:
+                    out = entry["s"].flush()
+                    with s_lock:
+                        sessions.pop(sid, None)
+                else:
+                    if len(data) % 4:
+                        raise ValueError(f"body of {len(data)} bytes is not f32le samples")
+                    out = entry["s"].process(np.frombuffer(data, dtype="<f4"))
+            self._send(200, np.asarray(out, "<f4").tobytes(), "application/octet-stream")
+
+        def _stream(self, parsed):
+            if stream_factory is None:
+                self._json(404, {"error": "streaming not enabled on this server"})
+                return
+            if parsed.path == "/stream/start":
+                self._stream_start(parsed.query)
+                return
+            m = _STREAM_RE.match(parsed.path)
+            if m is None:
+                self._json(404, {"error": "not found"})
+                return
+            self._stream_packet(m.group(1), m.group(2) is not None)
 
         def do_POST(self):
             parsed = urlparse(self.path)
-            if parsed.path != "/denoise":
-                self._send(404, b'{"error": "not found"}', "application/json")
-                return
             try:
-                length = int(self.headers.get("Content-Length", "0"))
-                data = self.rfile.read(length)
-                mode = parse_qs(parsed.query).get("mode", [None])[0]
-                t0 = time.perf_counter()
-                audio, _ = read_wav(io.BytesIO(data), service.sample_rate)
-                out = service.denoise(audio, mode=mode)
-                buf = io.BytesIO()
-                write_wav(buf, out, service.sample_rate)
-                latency_ms = (time.perf_counter() - t0) * 1e3
-                self._send(200, buf.getvalue(), "audio/wav",
-                           {"X-Latency-Ms": f"{latency_ms:.1f}"})
+                if parsed.path.startswith("/stream"):
+                    self._stream(parsed)
+                elif parsed.path == "/denoise":
+                    self._denoise(parsed)
+                else:
+                    self._json(404, {"error": "not found"})
             except ServiceOverloaded as e:
                 self._error(503, e, {"Retry-After": "1"})
-            except NotImplementedError as e:  # a mode not ported yet
+            except NotImplementedError as e:  # not ported, or not this deployment's
                 self._error(501, e)
-            except ValueError as e:  # malformed wav, bad mode, too long
+            except ValueError as e:  # malformed wav or samples, bad mode, too long
                 self._error(400, e)
             except Exception as e:  # device faults: the server's, not the client's
                 self._error(500, e)
+
+        def _denoise(self, parsed):
+            length = int(self.headers.get("Content-Length", "0"))
+            data = self.rfile.read(length)
+            mode = parse_qs(parsed.query).get("mode", [None])[0]
+            t0 = time.perf_counter()
+            audio, _ = read_wav(io.BytesIO(data), service.sample_rate)
+            out = service.denoise(audio, mode=mode)
+            buf = io.BytesIO()
+            write_wav(buf, out, service.sample_rate)
+            latency_ms = (time.perf_counter() - t0) * 1e3
+            self._send(200, buf.getvalue(), "audio/wav",
+                       {"X-Latency-Ms": f"{latency_ms:.1f}"})
 
     return ThreadingHTTPServer((host, port), Handler)

@@ -1,23 +1,103 @@
-"""Best-model export (port of ``train/checkpoints.py``, export part).
+"""Model exports (port of ``train/checkpoints.py``, export part).
 
-``export_model`` writes the model's state_dict as a ``.pth`` file: the
-reference's own format (``torch.save(state_dict)``), which
-``eval.runner.load_model_for_noise`` loads. ``record_best_val`` /
-``best_val_floor`` keep the ``.val.json`` sidecar beside an export. The
-JAX package's msgpack ``.ckpt`` export and its resume state are not
-ported yet (ROADMAP A.12).
+- ``export_model`` / ``load_exported``: the JAX package's single-file
+  ``.ckpt`` export, Flax's msgpack of ``{"params", "batch_stats"}`` in the
+  Flax tree layout, optionally with int8 kernels (``"format": "int8-v1"``).
+  The port reads and writes it with its own codec (``msgpack_codec``), so
+  the bytes it writes are the ones Flax writes and reads back.
+- ``export_pth``: the model's state_dict as a ``.pth`` file, the
+  reference's own format (``torch.save(state_dict)``), which ``fit``
+  writes and ``eval.runner.load_model_for_noise`` loads.
+- ``record_best_val`` / ``best_val_floor`` keep the ``.val.json`` sidecar
+  beside an export.
+
+The JAX package's orbax resume state is not ported yet (ROADMAP A.12).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
+from audiodenoiser_torch.train import msgpack_codec
 
-def export_model(path: str, model: nn.Module) -> None:
+INT8_FORMAT = "int8-v1"
+_QKEY = "__q8__"
+
+
+def _map_leaves(fn, tree: Any) -> Any:
+    """``fn`` on every leaf of a tree of dicts, keys in sorted order as
+    ``jax.tree_util.tree_map`` leaves them; a quantized leaf
+    (``{"__q8__", "scale"}``) counts as one leaf."""
+    if isinstance(tree, dict) and _QKEY not in tree:
+        return {k: _map_leaves(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def quantize_tree(params: Any) -> Any:
+    """Every 4-D float kernel to symmetric per-output-channel int8
+    ``{"__q8__": int8, "scale": f32[cout]}``; other leaves to float32
+    (``audiodenoiser_tpu/train/quantize.py::quantize_tree``)."""
+
+    def q(leaf):
+        arr = np.asarray(leaf)
+        if arr.ndim != 4 or arr.dtype.kind != "f":
+            return np.asarray(arr, np.float32)
+        absmax = np.abs(arr).reshape(-1, arr.shape[-1]).max(axis=0)
+        scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+        q8 = np.clip(np.round(arr / scale), -127, 127).astype(np.int8)
+        return {_QKEY: q8, "scale": scale}
+
+    return _map_leaves(q, params)
+
+
+def dequantize_tree(tree: Any) -> Any:
+    """Inverse of :func:`quantize_tree`: ``int8 * scale`` in float32."""
+
+    def dq(leaf):
+        if isinstance(leaf, dict):
+            return leaf[_QKEY].astype(np.float32) * np.asarray(leaf["scale"], np.float32)
+        return leaf
+
+    return _map_leaves(dq, tree)
+
+
+def export_model(path: str, params: Any, batch_stats: Any,
+                 quantize: bool = False) -> None:
+    """Single-file msgpack export of Flax-layout trees (dicts with numpy
+    array leaves), written atomically; ``quantize=True`` stores the conv
+    kernels as per-channel int8 (about 4x smaller)."""
+    if quantize:
+        # the JAX export passes both trees through tree_map: sorted keys
+        payload = {"format": INT8_FORMAT, "params": quantize_tree(params),
+                   "batch_stats": _map_leaves(lambda x: x, batch_stats)}
+    else:
+        payload = {"params": params, "batch_stats": batch_stats}
+    data = msgpack_codec.serialize(payload)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def load_exported(path: str) -> dict:
+    """Read a ``.ckpt`` export: ``{"params", "batch_stats"}`` of numpy
+    arrays, int8 payloads dequantized."""
+    with open(path, "rb") as f:
+        raw = msgpack_codec.restore(f.read())
+    if isinstance(raw, dict) and raw.get("format") == INT8_FORMAT:
+        raw = {"params": dequantize_tree(raw["params"]),
+               "batch_stats": raw["batch_stats"]}
+    return raw
+
+
+def export_pth(path: str, model: nn.Module) -> None:
     """Atomic ``torch.save`` of ``model``'s state_dict, on the CPU."""
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

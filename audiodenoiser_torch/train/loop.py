@@ -261,7 +261,7 @@ def fit(config: FitConfig,
 
         if val_loss < best_val:
             best_val = val_loss
-            ckpt_lib.export_model(best_path, state.model)
+            ckpt_lib.export_pth(best_path, state.model)
             ckpt_lib.record_best_val(best_path, best_val, epoch)
             exported_best = True
             logger.info(f"New best model saved to {best_path} (Val Loss: {best_val:.6f})")

@@ -12,21 +12,35 @@ from the root of a checkout. Phases, each fatal on failure:
    bound: K1/K2 at the bench shape (256 clips of 2 s) and a ragged one (3
    clips of 3.1 s); K3 at the four upsamplings of a batch-16 training step
    and of a batch-256 bench batch, in bf16 and fp32, forward and backward;
+   K4 (overlap-add, a standalone op that no path calls) at the bench shape,
+   a ragged one at hop 100 and batch 10 at hop 512;
 3. serve HTTP requests through the full-width 31,042,369-parameter
    BN-folded bf16 U-Net (``DenoiseService`` + ``make_http_server``) and
    check each answer against a direct ``DenoiserRunner`` call; K1 and K2's
-   launch counters must rise during the requests;
+   launch counters must rise during the requests, K4's must stay 0;
+3b. the recommended deployment, the full-width 31,043,586-parameter
+   residual ``ComplexMaskUNet``: seeded weights written with the port's
+   ``export_model`` as ``mask_denoiser_mixed.ckpt`` + sidecar and read back
+   bit-equal, served by ``cli.serve.build_server`` (``--model complex_mask
+   --noise_type mixed``: ``load_model_for_noise(stem="mask_denoiser")``
+   folded to bf16, warm-up, a WOLA streamer), 5 ``/denoise`` requests in
+   ``complex_mask`` mode each against a direct runner call, one
+   ``/stream`` session fed 3 s in ragged packets and flushed (as many
+   samples out as in); K1 and K2 counted, K4 0;
 4. run the serving slice in fp32 on the card (kernels) and on the CPU
-   (plain versions) for one 2 s clip and compare;
+   (plain versions) for one 2 s clip and compare; the same for the mask
+   slice, and a streamed fp32 mask session against the offline
+   ``StreamingDenoiser.denoise`` of the same signal;
 5. one full-width fp32 training step (mixer with K1, U-Net with K3) on the
    card against the CPU from the same weights, chunks and noise draws (the
    two featurizations within one float16 rounding, then one batch for both);
 6. ``train.loop.fit`` of the full-width bf16 ``UNet(pallas_deconv=True)``
    on the on-device mixer: 2 epochs of 10 steps at batch 16, K1 and K3
-   counted, the export served, then the steady step rate and its device
+   counted (K4 0), the export served, then the steady step rate and its device
    profile; and ``python -m audiodenoiser_torch.cli.train`` on wavs;
-7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded
-   and with ``pallas_deconv`` (K1, K2 and K3 counted).
+7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded,
+   with ``pallas_deconv`` (K1, K2 and K3 counted) and in ``complex_mask``
+   mode (K1 and K2 counted).
 
 Before the last line come one JSON object listing every kernel with its
 launches on its path, error and times, then the card's name and power
@@ -51,6 +65,7 @@ import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PARAMS_FULL = 31_042_369
+PARAMS_MASK = 31_043_586  # ComplexMaskUNet: 3 input channels, 2 output channels
 SR, N_FFT, HOP = 8000, 512, 128
 KERNEL_TOL = 1e-4  # max |kernel - plain| <= KERNEL_TOL * max |plain|
 SERVE_TOL = 1e-4   # relative L2, service vs direct call on the same batch:
@@ -60,6 +75,9 @@ SLICE_TOL = 1e-4   # relative L2, fp32 card vs CPU (tests/test_torch_runner.py)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# K4 shapes (B, T, n_fft, hop): the bench shape, a ragged one whose hop
+# does not divide n_fft, and one with no overlap at all
+OLA_SHAPES = ((256, 126, 512, 128), (3, 41, 512, 100), (10, 20, 512, 512))
 # K3 shapes (B, Cin, H, W, Cout): the four upsamplings of a training step
 # (batch 16, crop 256 x 64) and of a bench batch (256 clips of 2 s, 257 x 126)
 DECONV_TRAIN = ((16, 1024, 16, 4, 512), (16, 512, 32, 8, 256),
@@ -193,8 +211,7 @@ def phase_kernels(torch, rng):
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": f"audiodenoiser_torch/csrc/{name}.cu",
-                "replaces": replaces[name], "launches": 0,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "replaces": replaces[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
             }
             print(f"[kernels] {name} bench: kernel_ms={ms:.4f} plain_ms="
@@ -211,10 +228,10 @@ def _wav(audio) -> bytes:
     return buf.getvalue()
 
 
-def _post(url: str, body: bytes):
+def _post(url: str, body: bytes, query: str = ""):
     from audiodenoiser_torch.data.wav_io import read_wav
 
-    req = urllib.request.Request(f"{url}/denoise", data=body, method="POST")
+    req = urllib.request.Request(f"{url}/denoise{query}", data=body, method="POST")
     with urllib.request.urlopen(req, timeout=300) as r:
         check(r.status == 200, f"POST /denoise returned {r.status}")
         return read_wav(io.BytesIO(r.read()))[0]
@@ -312,6 +329,7 @@ def phase_serve(torch, rng, rows, device="cuda"):
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
             rows[name]["launches"] = n
+        count_off_path(rows, "the noisy-phase requests")
 
         with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
             health = json.loads(r.read())
@@ -348,6 +366,17 @@ def phase_serve(torch, rng, rows, device="cuda"):
         server.server_close()
 
 
+def count_off_path(rows, run: str) -> None:
+    """K4 is on no path, as B4 is in the JAX package: read its launch
+    count after a main path's run, record it and require 0."""
+    from audiodenoiser_torch.ops.cuda import overlap_add_kernel
+
+    n = overlap_add_kernel.launches
+    print(f"[launches] overlap_add_kernel: {n} during {run}", flush=True)
+    check(n == 0, f"overlap_add_kernel launched {n} times during {run}")
+    rows["overlap_add_kernel"]["launches"] = rows["overlap_add_kernel"].get("launches", 0) + n
+
+
 def check_answer(key, clip, out, direct):
     import numpy as np
 
@@ -382,6 +411,158 @@ def phase_slice_fp32(torch, rng):
     print(f"[slice fp32] card (kernels) vs CPU (plain): rel_err={rel:.3e} "
           f"max_abs_err={np.abs(a - b).max():.3e}", flush=True)
     check(np.isfinite(a).all() and rel < SLICE_TOL, "fp32 slice card vs CPU")
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def phase_mask_serve(torch, rng, rows):
+    """Phase 3b: the recommended deployment end to end, from a ``.ckpt``
+    the port wrote, through ``cli.serve``'s own server, to HTTP answers and
+    one stream session. Returns the seeded variables for phase 4b."""
+    import numpy as np
+
+    from audiodenoiser_torch.cli.serve import build_server, parse_args
+    from audiodenoiser_torch.data.wav_io import read_wav
+    from audiodenoiser_torch.models import random_flax_variables
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+    from audiodenoiser_torch.train.checkpoints import export_model, load_exported
+
+    variables = random_flax_variables(4, in_channels=3, out_channels=2)
+    n_params = sum(a.size for a in _leaves(variables["params"]).values())
+    check(n_params == PARAMS_MASK, f"mask parameter count {n_params} != {PARAMS_MASK}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mask_")
+    server = None
+    try:
+        path = os.path.join(tmp, "mask_denoiser_mixed.ckpt")
+        t0 = time.perf_counter()
+        export_model(path, variables["params"], variables["batch_stats"])
+        with open(os.path.join(tmp, "mask_denoiser_mixed.json"), "w") as f:
+            json.dump({"width_mult": 1.0, "mask_bound": 2.0, "residual": True}, f)
+        back = load_exported(path)
+        want, got = _leaves(variables), _leaves(back)
+        check(want.keys() == got.keys() and all(
+            want[k].dtype == got[k].dtype and want[k].shape == got[k].shape
+            and want[k].tobytes() == got[k].tobytes() for k in want),
+            "the .ckpt did not read back bit-equal")
+        write_s = time.perf_counter() - t0
+        # the deployment as `python -m audiodenoiser_torch.cli.serve` builds it:
+        # load_model_for_noise(stem="mask_denoiser") folded to bf16, warm-up,
+        # a WOLA streamer with a chunk of one 2 s bucket
+        service, server, name = build_server(parse_args([
+            "--model", "complex_mask", "--noise_type", "mixed", "--saved_models_dir", tmp,
+            "--port", "0", "--max_seconds", "10"]))
+        runner = service.runner
+        check(name == "mask_denoiser_mixed" and service.default_mode == "complex_mask"
+              and runner.model.mask_bound == 2.0 and runner.model.mask_residual
+              and runner.device.type == "cuda", "cli.serve built the wrong deployment")
+        print(f"[mask] {n_params} parameters; .ckpt of {os.path.getsize(path)} bytes "
+              f"written and read back bit-equal over {len(got)} arrays in {write_s:.2f} s; "
+              f"cli.serve loaded it folded to bf16 and warmed up in "
+              f"{time.perf_counter() - t0 - write_s:.2f} s", flush=True)
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+
+        clips = [np.clip(0.2 * rng.standard_normal(int(round(s * SR))), -1, 1)
+                 .astype(np.float32) for s in (0.5, 1.3, 2.0, 2.7, 3.1)]
+        signal = np.clip(0.2 * rng.standard_normal(3 * SR), -1, 1).astype(np.float32)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = [_post(url, _wav(c), "?mode=complex_mask") for c in clips]
+        info = json.loads(urllib.request.urlopen(urllib.request.Request(
+            f"{url}/stream/start", data=b"", method="POST"), timeout=300).read())
+        check(info["latency_samples"] == 2 * SR and info["format"] == "f32le",
+              f"/stream/start: {info}")
+        streamed, start = [], 0
+        for n in (1000, 4000, 7000, 12000, "flush"):
+            tail = "/flush" if n == "flush" else ""
+            body = b"" if n == "flush" else signal[start:start + n].astype("<f4").tobytes()
+            start += 0 if n == "flush" else n
+            req = urllib.request.Request(f"{url}/stream/{info['session']}{tail}",
+                                         data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                streamed.append(np.frombuffer(r.read(), "<f4"))
+        serve_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in (stft_kernel, istft_kernel)}
+        lens = [len(p) for p in streamed]
+        out = np.concatenate(streamed)
+        print(f"[mask] 5 requests and a 3 s stream in {serve_s:.3f} s; stream packets "
+              f"in (1000, 4000, 7000, 12000, flush) -> out {lens}, total {len(out)} of "
+              f"{len(signal)}; kernel launches {launches}", flush=True)
+        check(len(out) == len(signal) and bool(np.isfinite(out).all()),
+              "the stream session did not return as many samples as it was fed")
+        for name, n in launches.items():
+            check(n > 0, f"{name} was not launched on the mask path")
+        count_off_path(rows, "the mask deployment's requests and stream")
+        for clip, answer in zip(clips, answers):
+            sent = read_wav(io.BytesIO(_wav(clip)))[0]
+            padded = np.zeros((1, service._bucket_len(len(sent))), np.float32)
+            padded[0, : len(sent)] = sent
+            direct = runner.denoise_audio(torch.from_numpy(padded))[0, : len(sent)]
+            check_answer(f"mask {len(clip) / SR:.1f} s", sent, answer, direct)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return variables
+
+
+def phase_mask_fp32(torch, rng, variables):
+    """Phase 4b: the mask slice in fp32, card (kernels) against CPU
+    (plain); a streamed fp32 session against the offline WOLA denoise of
+    the same signal; the bf16 streaming-vs-offline gap, printed only."""
+    import numpy as np
+
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.eval.streaming import StreamingDenoiser
+    from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
+        fold_for_inference,
+        load_flax_variables,
+    )
+
+    feats = tuple(variables["params"][f"down{i}"]["conv0"]["kernel"].shape[-1]
+                  for i in range(4))
+    bottleneck = variables["params"]["bottleneck"]["conv0"]["kernel"].shape[-1]
+
+    def runner(dev, dtype):
+        model = load_flax_variables(ComplexMaskUNet(residual=True, features=feats,
+                                                    bottleneck=bottleneck), variables)
+        return DenoiserRunner(fold_for_inference(model.eval(), dtype), device=dev)
+
+    clip = np.clip(0.2 * rng.standard_normal((1, 2 * SR)), -1, 1).astype(np.float32)
+    signal = np.clip(0.2 * rng.standard_normal(3 * SR), -1, 1).astype(np.float32)
+    outs = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for dev in ("cuda", "cpu"):
+            outs[dev] = runner(dev, torch.float32).denoise_audio(
+                torch.from_numpy(clip)).cpu().numpy()
+        rel = float(np.linalg.norm(outs["cuda"] - outs["cpu"])
+                    / (np.linalg.norm(outs["cpu"]) + 1e-12))
+        print(f"[mask fp32] card (kernels) vs CPU (plain): rel_err={rel:.3e}", flush=True)
+        check(np.isfinite(outs["cuda"]).all() and rel < SLICE_TOL, "fp32 mask slice card vs CPU")
+        gaps = {}
+        for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            streamer = StreamingDenoiser(runner("cuda", dtype), chunk_samples=2 * SR)
+            sess = streamer.session()
+            parts = [sess.process(signal[a:b]) for a, b in
+                     ((0, 1000), (1000, 5000), (5000, 12000), (12000, 24000))]
+            online = np.concatenate(parts + [sess.flush()])
+            offline = streamer.denoise(signal)
+            check(online.shape == offline.shape == signal.shape, f"{label} stream length")
+            gaps[label] = float(np.linalg.norm(online - offline)
+                                / (np.linalg.norm(offline) + 1e-12))
+    print(f"[mask fp32] streamed session vs offline StreamingDenoiser.denoise: "
+          f"rel_err={gaps['fp32']:.3e}; bf16 (not checked): rel_err={gaps['bf16']:.3e}",
+          flush=True)
+    check(gaps["fp32"] < SLICE_TOL, "fp32 streaming disagrees with offline")
 
 
 def deconv_bound_ms(shapes, itemsize: int) -> tuple[float, str]:
@@ -476,8 +657,69 @@ def phase_deconv(torch, rng):
     return {"name": "deconv_kernel", "route": "cuda",
             "source": "audiodenoiser_torch/csrc/deconv_kernel.cu",
             "replaces": "audiodenoiser_tpu/ops/pallas/deconv_kernel.py:117",
-            "launches": 0, "max_abs_err": train_err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": train_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def ola_bound_ms(batch: int, n_frames: int, n_fft: int, hop: int) -> tuple[float, str]:
+    """Least time for one overlap-add: the larger of its bytes (frames read
+    once, output written once) over the memory rate and its adds (one per
+    frame sample) over the fp32 non-tensor rate."""
+    out_len = (n_frames - 1) * hop + n_fft
+    t_bytes = 4 * batch * (n_frames * n_fft + out_len) / PEAK_BYTES_PER_S * 1e3
+    t_ops = batch * n_frames * n_fft / PEAK_FP32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_overlap_add(torch, rng):
+    """Phase 2, K4: the kernel against its plain version at three shapes;
+    times at the bench shape beside ``F.fold`` and the bound. No path of
+    the port (or of the JAX package) calls it: phases 3, 3b and 6 read its
+    launches and require 0."""
+    import torch.nn.functional as F
+
+    from audiodenoiser_torch.ops.cuda import overlap_add_kernel, overlap_add_plain
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    row = None
+    for batch, n_frames, n_fft, hop in OLA_SHAPES:
+        frames = torch.from_numpy(
+            rng.standard_normal((batch, n_frames, n_fft), dtype="float32")).to(dev)
+        ours = overlap_add_kernel(frames, hop)
+        ref = overlap_add_plain(frames, hop)
+        torch.cuda.synchronize()
+        out_len = (n_frames - 1) * hop + n_fft
+        check(ours.shape == ref.shape == (batch, out_len), f"K4 shape {tuple(ours.shape)}")
+        err = (ours - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        worst = max(worst, err)
+        print(f"[kernels] overlap_add_kernel B={batch} T={n_frames} n_fft={n_fft} "
+              f"hop={hop}: max_abs_err={err:.3e} max_rel_err={err / scale:.3e}", flush=True)
+        check(err <= KERNEL_TOL * scale, f"K4 disagrees with plain at hop {hop}")
+        if row is not None:
+            continue
+
+        def fold():
+            return F.fold(frames.transpose(1, 2), (1, out_len), (1, n_fft),
+                          stride=(1, hop)).reshape(batch, out_len)
+
+        check((fold() - ref).abs().max().item() <= KERNEL_TOL * scale,
+              "F.fold yardstick disagrees")
+        ms = time_ms(lambda: overlap_add_kernel(frames, hop))
+        plain_ms = time_ms(lambda: overlap_add_plain(frames, hop))
+        lib_ms = time_ms(fold)
+        bound, bound_by = ola_bound_ms(batch, n_frames, n_fft, hop)
+        print(f"[kernels] overlap_add_kernel bench: kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})",
+              flush=True)
+        row = {"name": "overlap_add_kernel", "route": "cuda",
+               "source": "audiodenoiser_torch/csrc/overlap_add_kernel.cu",
+               "replaces": "audiodenoiser_tpu/ops/pallas/overlap_add_kernel.py:58",
+               "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+    row["max_abs_err"] = worst
+    return row
 
 
 def phase_train_step_fp32(torch):
@@ -584,6 +826,7 @@ def phase_train_fit(torch, rows, tmp):
     check(k1 == forwards, f"K1 launched {k1} times, expected {forwards}")
     check(k3 == 4 * forwards, f"K3 launched {k3} times, expected 4 per forward")
     rows["deconv_kernel"]["launches"] = k3
+    count_off_path(rows, "fit")
 
     saved = os.path.join(tmp, "saved")
     os.makedirs(saved, exist_ok=True)
@@ -676,8 +919,11 @@ def main() -> None:
     rng = np.random.default_rng(0)
     rows = phase_kernels(torch, rng)
     rows["deconv_kernel"] = phase_deconv(torch, rng)
+    rows["overlap_add_kernel"] = phase_overlap_add(torch, rng)
     phase_serve(torch, rng, rows)
+    mask_variables = phase_mask_serve(torch, rng, rows)
     phase_slice_fp32(torch, rng)
+    phase_mask_fp32(torch, rng, mask_variables)
     phase_train_step_fp32(torch)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -691,14 +937,23 @@ def main() -> None:
     reset_launch_counts()
     bench_k3 = run_bench(batch_size=256, clip_seconds=2.0, iters=10, profile_iters=3,
                          pallas_deconv=True)
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = {k.__name__: k.launches for k in KERNELS[:3]}
     print(f"[bench pallas_deconv] {json.dumps(bench_k3)}; launches {launches}", flush=True)
     check(bench_k3["value"] > 0 and all(n > 0 for n in launches.values()),
           "the pallas_deconv bench did not run through K1, K2 and K3")
+    reset_launch_counts()
+    bench_mask = run_bench(batch_size=256, clip_seconds=2.0, iters=20, profile_iters=3,
+                           mode="complex_mask")
+    launches = {k.__name__: k.launches for k in KERNELS[:2]}
+    print(f"[bench complex_mask] {json.dumps(bench_mask)}; launches {launches}", flush=True)
+    check(bench_mask["value"] > 0 and all(n > 0 for n in launches.values()),
+          "the complex_mask bench did not run through K1 and K2")
     print(f"[bench] folded {bench['value']:.1f} frames/s ({bench['batch_ms']:.2f} ms a "
           f"batch) vs live-BN with K3 {bench_k3['value']:.1f} frames/s "
-          f"({bench_k3['batch_ms']:.2f} ms)", flush=True)
+          f"({bench_k3['batch_ms']:.2f} ms) vs folded complex_mask "
+          f"{bench_mask['value']:.1f} frames/s ({bench_mask['batch_ms']:.2f} ms)", flush=True)
 
+    check(all("launches" in r for r in rows.values()), "a kernel's launches were not read")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -186,3 +186,60 @@ def test_deconv_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(TypeError):
         deconv_kernel(torch.zeros(2, 8, 4, 4, device=dev, dtype=torch.float16)
                       .contiguous(memory_format=torch.channels_last), w, b)
+
+
+@pytest.mark.parametrize("batch,n_frames,n_fft,hop", [
+    (256, 126, 512, 128),   # bench shape
+    (3, 41, 512, 100),      # hop that does not divide n_fft
+    (10, 20, 512, 512),     # no overlap
+    (2, 7, 64, 100),        # hop past n_fft: gaps of zeros
+])
+def test_overlap_add_kernel_matches_plain(dev, batch, n_frames, n_fft, hop):
+    from audiodenoiser_torch.ops.cuda import overlap_add_kernel, overlap_add_plain
+
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(
+        rng.standard_normal((batch, n_frames, n_fft)).astype(np.float32)).to(dev)
+    before = overlap_add_kernel.launches
+    ours = overlap_add_kernel(frames, hop)
+    ref = overlap_add_plain(frames, hop)
+    torch.cuda.synchronize()
+    assert overlap_add_kernel.launches == before + 1
+    assert ours.shape == ref.shape == (batch, (n_frames - 1) * hop + n_fft)
+    assert _max_rel(ours, ref) < 1e-6
+
+
+def test_overlap_add_kernel_rejects_what_it_does_not_take(dev):
+    from audiodenoiser_torch.ops.cuda import overlap_add_kernel
+
+    with pytest.raises(TypeError):
+        overlap_add_kernel(torch.zeros(2, 4, 512, device=dev, dtype=torch.bfloat16), 128)
+    with pytest.raises(ValueError):
+        overlap_add_kernel(torch.zeros(2, 8, 512, device=dev)[:, ::2], 128)
+    with pytest.raises(ValueError):
+        overlap_add_kernel(torch.zeros(4, 512, device=dev), 128)
+
+
+def test_mask_runner_on_card_matches_cpu(dev):
+    """The complex-mask slice, fp32 on the card (kernels) against the CPU."""
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
+        fold_for_inference,
+        load_flax_variables,
+        random_flax_variables,
+    )
+
+    v = random_flax_variables(0, (8, 16, 32, 64), 128, in_channels=3, out_channels=2)
+    rng = np.random.default_rng(6)
+    audio = torch.from_numpy(
+        np.clip(0.2 * rng.standard_normal((2, 5000)), -1, 1).astype(np.float32))
+    outs = {}
+    for d in ("cuda", "cpu"):
+        model = load_flax_variables(ComplexMaskUNet(residual=True, features=(8, 16, 32, 64),
+                                                    bottleneck=128), v)
+        runner = DenoiserRunner(fold_for_inference(model.eval(), torch.float32), device=d)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            outs[d] = runner.denoise_audio(audio).cpu()
+    rel = (outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()
+    assert rel < 1e-4, rel

@@ -138,8 +138,7 @@ class TestIdentityBypass:
 
 class TestModes:
     @pytest.mark.parametrize("mode,item", [("griffin_lim", "A.7"),
-                                           ("reference_gl", "A.7"),
-                                           ("complex_mask", "A.8")])
+                                           ("reference_gl", "A.7")])
     def test_unported_modes_name_their_roadmap_item(self, port_runner, mode, item):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             port_runner.denoise_audio(torch.zeros(1, 1000), mode=mode)
@@ -203,7 +202,7 @@ class TestDeviceRules:
         assert out["unit"] == "frames/s" and "vs_baseline" not in out
 
 
-FORBIDDEN = ("jax", "flax", "optax", "audiodenoiser_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "audiodenoiser_tpu")
 
 
 def _port_sources():

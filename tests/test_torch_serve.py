@@ -94,7 +94,7 @@ class TestHTTP:
         (b"not a wav", "", 400),
         (None, "?mode=bogus", 400),
         (None, "?mode=griffin_lim", 501),  # ROADMAP A.7
-        (None, "?mode=complex_mask", 501),  # ROADMAP A.8
+        (None, "?mode=complex_mask", 501),  # this server's model is a magnitude U-Net
     ])
     def test_error_codes(self, server, body, query, code):
         url, _ = server
