@@ -12,11 +12,19 @@ from audiodenoiser_torch.ops.cuda.stft import stft_kernel, stft_plain
 KERNELS = (stft_kernel, istft_kernel, deconv_kernel, overlap_add_kernel)
 
 
+def variant_launches(kernel) -> dict[str, int]:
+    """Launches of each variant of a kernel's library, by variant name."""
+    return {v: getattr(kernel, f"{v}_launches") for v in getattr(kernel, "variants", ())}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        for v in getattr(k, "variants", ()):
+            setattr(k, f"{v}_launches", 0)
 
 
 __all__ = ["stft_kernel", "stft_plain", "istft_kernel", "istft_plain",
            "deconv_kernel", "conv_transpose_2x2", "conv_transpose_2x2_plain",
-           "overlap_add_kernel", "overlap_add_plain", "KERNELS", "reset_launch_counts"]
+           "overlap_add_kernel", "overlap_add_plain", "KERNELS", "reset_launch_counts",
+           "variant_launches"]

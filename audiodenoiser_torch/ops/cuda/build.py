@@ -2,13 +2,16 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own
 ``lib<name>-<hash>.so`` under ``audiodenoiser_torch/_build/`` (listed in
-``.gitignore``). The hash is that of the source text, so an edited source
-builds anew. All missing libraries are compiled at once, one ``nvcc`` per
-source in parallel, on first use; nothing is built at import time.
+``.gitignore``). The hash covers the source text, every shared header
+``csrc/*.cuh`` and the flags, so an edited source or header builds anew.
+All missing libraries are compiled at once, one ``nvcc`` per source in
+parallel, on first use; nothing is built at import time. The launch helpers
+below are what every wrapper needs around its ctypes call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +20,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -43,10 +48,12 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+def _target(name: str, csrc: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def sources() -> list[str]:
@@ -80,6 +87,40 @@ def build_all() -> float:
             if failed:
                 raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return time.perf_counter() - t0
+
+
+def on_device(device: torch.device):
+    """The CUDA device context a launch on ``device`` needs: none when that
+    device is already current (the common case, and the cheap one)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream on ``device``, through
+    PyTorch's own accessor: about a microsecond, against some ten for
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def sm_count(device: torch.device) -> int:
+    """The device's number of SMs, read once."""
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device.index] = n
+    return n
+
+
+def count_launch(kernel, variant: str) -> None:
+    """One launch of ``kernel`` through ``variant``: its total and the
+    variant's own counter."""
+    kernel.launches += 1
+    setattr(kernel, f"{variant}_launches", getattr(kernel, f"{variant}_launches") + 1)
 
 
 def load(name: str) -> ctypes.CDLL:

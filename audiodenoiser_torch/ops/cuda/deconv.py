@@ -8,8 +8,15 @@ and the result rounded to ``x.dtype`` once, as B3 does.
 
 - ``conv_transpose_2x2_plain``: the plain PyTorch version (four einsums
   with the taps, the fp32 bias, one cast, a pixel-shuffle interleave).
-- ``deconv_kernel``: launches the CUDA kernel for a CUDA tensor, takes
-  the plain version for a CPU tensor, raises on any other device.
+- ``deconv_kernel``: launches a CUDA kernel for a CUDA tensor, takes the
+  plain version for a CPU tensor, raises on any other device. The library
+  has three variants, chosen by ``deconv_variant`` from dtype, shape and
+  alignment alone: "wgmma" (TMA + wgmma, bf16 with Cin and Cout multiples
+  of 8, as at every U-Net layer), "wmma" (other bf16 shapes) and "fma"
+  (float32). Each counts its launches in ``deconv_kernel.<variant>_launches``
+  beside ``deconv_kernel.launches``. The packed weight and the fp32 bias are
+  cached on the parameter and made anew only when its ``_version`` (an
+  optimizer step), storage or the compute dtype changes.
 - ``conv_transpose_2x2``: the autograd Function the U-Net calls. Its
   forward is ``deconv_kernel``; its backward is B3's ``_bwd`` arithmetic in
   fp32 (dx a stride-2 convolution, dW a correlation, db a sum), which the
@@ -58,6 +65,47 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
         raise ValueError("x, weight and bias lie on different devices")
 
 
+def deconv_variant(dtype: torch.dtype, cin: int, cout: int, x_ptr: int = 0) -> str:
+    """The kernel variant for these operands: "fma" for float32, "wgmma"
+    for bf16 whose rows TMA can address (Cin and Cout multiples of 8, x
+    16-byte aligned), "wmma" for any other bf16."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if cin % 8 == 0 and cout % 8 == 0 and x_ptr % 16 == 0 else "wmma"
+
+
+def _cached(t: torch.Tensor, tag: tuple, make) -> torch.Tensor:
+    """``make()``, kept on ``t`` until t's version, storage or ``tag``
+    changes (an in-place optimizer step bumps ``t._version``). An inference
+    tensor keeps no version counter, so its operand is made each call."""
+    if t.is_inference():
+        return make()
+    cache = t.__dict__.setdefault("_deconv_cache", {})
+    key = (t._version, t.data_ptr())
+    hit = cache.get(tag)
+    if hit is None or hit[0] != key:
+        hit = (key, make())
+        cache[tag] = hit
+    return hit[1]
+
+
+def packed_weight(weight: torch.Tensor, dtype: torch.dtype, k_major: bool) -> torch.Tensor:
+    """The (Cin, Cout, 2, 2) weight as a GEMM operand in ``dtype``, column or
+    row (di*2+dj)*Cout + co: (4*Cout, Cin) when ``k_major`` (the wgmma
+    variant's B), else (Cin, 4*Cout). Cached on the weight."""
+    def make():
+        w = weight.detach()
+        w = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]) if k_major else \
+            w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+        return w.to(dtype).contiguous()
+    return _cached(weight, ("weight", dtype, k_major), make)
+
+
+def bias_f32(bias: torch.Tensor) -> torch.Tensor:
+    """The bias as contiguous float32, cached on the bias."""
+    return _cached(bias, ("bias",), lambda: bias.detach().float().contiguous())
+
+
 def deconv_kernel(x: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor) -> torch.Tensor:
     """ConvTranspose(k=2, s=2): (B, Cin, H, W) -> (B, Cout, 2H, 2W).
@@ -78,30 +126,43 @@ def deconv_kernel(x: torch.Tensor, weight: torch.Tensor,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    # (Cin, Cout, 2, 2) -> (Cin, 2, 2, Cout): GEMM column (di*2+dj)*Cout + co
-    wmat = weight.detach().permute(0, 2, 3, 1).reshape(cin, 4 * cout)
-    wmat = wmat.to(x.dtype).contiguous()
-    b32 = bias.detach().float().contiguous()
+    variant = deconv_variant(x.dtype, cin, cout, x.data_ptr())
+    wmat = packed_weight(weight, x.dtype, k_major=variant == "wgmma")
+    b32 = bias_f32(bias)
+    lib = _load()
+    with build.on_device(x.device):
+        stream = build.stream_handle(x.device)
+        if variant == "wgmma":
+            rc = lib.deconv2x2_wgmma_launch(
+                x.data_ptr(), wmat.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                batch, h, w, cin, cout, stream)
+        else:
+            rc = lib.deconv2x2_launch(
+                x.data_ptr(), wmat.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                int(variant == "wmma"), batch, h, w, cin, cout, stream)
+    if rc != 0:
+        raise RuntimeError(f"deconv_kernel ({variant}) launch failed with CUDA error {rc}")
+    build.count_launch(deconv_kernel, variant)
+    return out
+
+
+def _load() -> ctypes.CDLL:
     lib = build.load("deconv_kernel")
     if lib.deconv2x2_launch.argtypes is None:
         lib.deconv2x2_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.deconv2x2_launch.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.deconv2x2_launch(
-            x.data_ptr(), wmat.data_ptr(), b32.data_ptr(), out.data_ptr(),
-            int(x.dtype == torch.bfloat16), batch, h, w, cin, cout, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"deconv_kernel launch failed with CUDA error {rc}")
-    deconv_kernel.launches += 1
-    return out
+        lib.deconv2x2_wgmma_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+        lib.deconv2x2_wgmma_launch.restype = ctypes.c_int
+    return lib
 
 
-deconv_kernel.launches = 0
+deconv_kernel.variants = ("wgmma", "wmma", "fma")
+deconv_kernel.launches = deconv_kernel.wgmma_launches = 0
+deconv_kernel.wmma_launches = deconv_kernel.fma_launches = 0
 
 
 class _ConvTranspose2x2(torch.autograd.Function):

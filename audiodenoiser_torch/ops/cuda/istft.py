@@ -83,8 +83,8 @@ def istft_kernel(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
     out = torch.empty((batch, (n_frames - 1) * hop_length + n_fft),
                       dtype=torch.float32, device=re.device)
     sb, sk, st = re.stride()
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream(re.device).cuda_stream
+    with build.on_device(re.device):
+        stream = build.stream_handle(re.device)
         rc = lib.istft_launch(
             re.data_ptr(), im.data_ptr(), window.data_ptr(), out.data_ptr(),
             batch, n_frames, n_fft, hop_length, sb, sk, st, stream,

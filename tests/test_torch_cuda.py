@@ -29,24 +29,32 @@ def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
 @pytest.mark.parametrize("batch,length,n_fft,hop,win", [
     (256, 16512, 512, 128, "hann"),   # bench shape: 2 s clips, centre-padded
     (3, 25312, 512, 128, "hann"),     # 3.1 s: (L - n_fft) % hop != 0
+    (1, 16512, 512, 128, "hann"),     # a 2 s stream window: B=1, T=126
     (2, 2048, 512, 128, "ones"),      # rectangular window
+    (4, 5000, 1024, 256, "hann"),     # another power of two
+    (7, 9001, 256, 100, "hann"),      # odd log2(n_fft / 2): a radix-2 stage
     (5, 3000, 400, 100, "hann"),      # n_fft not a power of two
     (1, 1000, 255, 64, "hann"),       # odd n_fft
 ])
 def test_stft_kernel_matches_plain(dev, batch, length, n_fft, hop, win):
     from audiodenoiser_torch.dsp.stft import _resolve_window
-    from audiodenoiser_torch.ops.cuda import stft_kernel, stft_plain
+    from audiodenoiser_torch.ops.cuda import stft_kernel, stft_plain, variant_launches
+    from audiodenoiser_torch.ops.cuda.stft import stft_entry
 
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((batch, length)).astype(np.float32)).to(dev)
     w = torch.from_numpy(_resolve_window(win, n_fft, n_fft)).to(dev)
-    before = stft_kernel.launches
+    before = stft_kernel.launches, variant_launches(stft_kernel)
     ours = stft_kernel(x, w, n_fft, hop)
     ref = stft_plain(x, w, n_fft, hop)
     torch.cuda.synchronize()
-    assert stft_kernel.launches == before + 1
+    assert stft_kernel.launches == before[0] + 1
+    entry = "fft" if n_fft & (n_fft - 1) == 0 else "direct"
+    assert stft_entry(n_fft) == entry
+    assert {k: v - before[1][k] for k, v in variant_launches(stft_kernel).items()} == {
+        "fft": int(entry == "fft"), "direct": int(entry == "direct")}
     assert ours.shape == ref.shape
-    # fp32 direct DFT vs cuFFT: both within float rounding of the transform
+    # fp32 FFT or direct DFT vs cuFFT: both within float rounding of the transform
     assert _max_rel(torch.view_as_real(ours), torch.view_as_real(ref)) < 1e-5
 
 
@@ -126,9 +134,14 @@ def test_runner_on_card_matches_cpu(dev):
 
 
 DECONV_SHAPES = [
-    (16, 1024, 16, 4, 512),    # training step, batch 16, crop (256, 64)
+    (16, 1024, 16, 4, 512),    # the four upsamplings of a training step, batch 16,
+    (16, 512, 32, 8, 256),     # crop (256, 64)
+    (16, 256, 64, 16, 128),
     (16, 128, 128, 32, 64),
-    (256, 1024, 16, 7, 512),   # bench eval shape: odd W
+    (256, 1024, 16, 7, 512),   # the four of a bench batch: odd W
+    (256, 512, 32, 15, 256),
+    (256, 256, 64, 31, 128),
+    (256, 128, 128, 63, 64),
     (9, 128, 16, 4, 64),       # batch not a multiple of any tile
     (1, 16, 4, 63, 8),         # wide odd W, batch 1, narrow channels
     (2, 20, 3, 5, 6),          # Cin and 4*Cout not multiples of 8
@@ -138,7 +151,11 @@ DECONV_SHAPES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,cin,h,w,cout", DECONV_SHAPES)
 def test_deconv_kernel_matches_plain(dev, dtype, b, cin, h, w, cout):
-    from audiodenoiser_torch.ops.cuda import conv_transpose_2x2_plain, deconv_kernel
+    from audiodenoiser_torch.ops.cuda import (
+        conv_transpose_2x2_plain,
+        deconv_kernel,
+        variant_launches,
+    )
 
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((b, cin, h, w)).astype(np.float32)).to(dev)
@@ -146,12 +163,17 @@ def test_deconv_kernel_matches_plain(dev, dtype, b, cin, h, w, cout):
     wt = torch.from_numpy((rng.standard_normal((cin, cout, 2, 2))
                            / np.sqrt(cin)).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dev)
-    before = deconv_kernel.launches
+    before = deconv_kernel.launches, variant_launches(deconv_kernel)
     ours = deconv_kernel(x, wt, bias)
     # the plain version in fp32 from the same (bf16-rounded) inputs
     ref = conv_transpose_2x2_plain(x.float(), wt.to(dtype).float(), bias)
     torch.cuda.synchronize()
-    assert deconv_kernel.launches == before + 1
+    assert deconv_kernel.launches == before[0] + 1
+    # TMA + wgmma wherever Cin and Cout are multiples of 8 (every U-Net layer)
+    variant = ("fma" if dtype == torch.float32
+               else "wgmma" if cin % 8 == 0 and cout % 8 == 0 else "wmma")
+    rose = {k: v - before[1][k] for k, v in variant_launches(deconv_kernel).items()}
+    assert rose == {v: int(v == variant) for v in ("wgmma", "wmma", "fma")}
     assert ours.shape == (b, cout, 2 * h, 2 * w) and ours.dtype == dtype
     assert ours.is_contiguous(memory_format=torch.channels_last)
     # fp32: FMA order only; bf16: one rounding of the output
@@ -177,6 +199,34 @@ def test_deconv_backward_matches_autograd_of_plain(dev):
         assert ((a - r).norm() / r.norm()).item() < 1e-4
 
 
+def test_deconv_weight_pack_follows_the_optimizer(dev):
+    """The port's optimizer (clip + torch AdamW, foreach on the card) bumps
+    each parameter's version, so K3 repacks the weight after every step."""
+    from audiodenoiser_torch.models.unet import ConvTranspose2x2
+    from audiodenoiser_torch.ops.cuda import conv_transpose_2x2_plain
+    from audiodenoiser_torch.ops.cuda.deconv import packed_weight
+    from audiodenoiser_torch.train.loop import make_optimizer
+
+    torch.manual_seed(0)
+    layer = ConvTranspose2x2(64, 32, kernel=True).to(dev)
+    opt = make_optimizer(layer.parameters(), 1e-2)
+    x = torch.randn(4, 64, 8, 5, device=dev).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    for _ in range(2):
+        opt.zero_grad()
+        layer(x).float().square().sum().backward()
+        before = packed_weight(layer.weight, torch.bfloat16, True).clone()
+        opt.step()
+        wt = layer.weight.detach()
+        packed = packed_weight(layer.weight, torch.bfloat16, True)
+        assert not torch.equal(packed, before)
+        assert torch.equal(packed, wt.permute(2, 3, 1, 0).reshape(128, 64).to(torch.bfloat16))
+        with torch.no_grad():
+            ours = layer(x).float()
+        ref = conv_transpose_2x2_plain(x.float(), wt.to(torch.bfloat16).float(), layer.bias)
+        assert _max_rel(ours, ref.detach()) <= 1e-2
+
+
 def test_deconv_kernel_rejects_what_it_does_not_take(dev):
     from audiodenoiser_torch.ops.cuda import deconv_kernel
 
@@ -188,32 +238,38 @@ def test_deconv_kernel_rejects_what_it_does_not_take(dev):
                       .contiguous(memory_format=torch.channels_last), w, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("batch,n_frames,n_fft,hop", [
     (256, 126, 512, 128),   # bench shape
     (3, 41, 512, 100),      # hop that does not divide n_fft
     (10, 20, 512, 512),     # no overlap
     (2, 7, 64, 100),        # hop past n_fft: gaps of zeros
 ])
-def test_overlap_add_kernel_matches_plain(dev, batch, n_frames, n_fft, hop):
+def test_overlap_add_kernel_matches_plain(dev, dtype, batch, n_frames, n_fft, hop):
     from audiodenoiser_torch.ops.cuda import overlap_add_kernel, overlap_add_plain
 
     rng = np.random.default_rng(5)
     frames = torch.from_numpy(
-        rng.standard_normal((batch, n_frames, n_fft)).astype(np.float32)).to(dev)
+        rng.standard_normal((batch, n_frames, n_fft)).astype(np.float32)).to(dev).to(dtype)
     before = overlap_add_kernel.launches
     ours = overlap_add_kernel(frames, hop)
     ref = overlap_add_plain(frames, hop)
     torch.cuda.synchronize()
     assert overlap_add_kernel.launches == before + 1
     assert ours.shape == ref.shape == (batch, (n_frames - 1) * hop + n_fft)
-    assert _max_rel(ours, ref) < 1e-6
+    assert ours.dtype == ref.dtype == dtype
+    # both sum in fp32 and round once: f32 sums in another order; in bf16 the
+    # two fp32 sums can round to neighbouring bf16 values (one ulp: at most
+    # 2**-7 of the value)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert _max_rel(ours.float(), ref.float()) <= tol
 
 
 def test_overlap_add_kernel_rejects_what_it_does_not_take(dev):
     from audiodenoiser_torch.ops.cuda import overlap_add_kernel
 
     with pytest.raises(TypeError):
-        overlap_add_kernel(torch.zeros(2, 4, 512, device=dev, dtype=torch.bfloat16), 128)
+        overlap_add_kernel(torch.zeros(2, 4, 512, device=dev, dtype=torch.float64), 128)
     with pytest.raises(ValueError):
         overlap_add_kernel(torch.zeros(2, 8, 512, device=dev)[:, ::2], 128)
     with pytest.raises(ValueError):

@@ -150,3 +150,98 @@ def test_build_lists_the_source():
     assert {"stft_kernel", "istft_kernel", "deconv_kernel"} <= set(build.sources())
     src = (build.CSRC_DIR / "deconv_kernel.cu").read_text()
     assert 'extern "C" int deconv2x2_launch' in src and "torch/extension.h" not in src
+
+
+def test_build_hashes_the_shared_headers(tmp_path):
+    """Editing a csrc/*.cuh header changes every library's target name, so
+    both the header's users and the rest build anew; editing one source
+    changes only its own."""
+    import shutil
+
+    from audiodenoiser_torch.ops.cuda import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    names = build.sources()
+    assert "fft.cuh" in {p.name for p in csrc.glob("*.cuh")}
+    before = {n: build._target(n, csrc, tmp_path) for n in names}
+    assert before == {n: build._target(n, csrc, tmp_path) for n in names}  # deterministic
+    (csrc / "fft.cuh").write_text((csrc / "fft.cuh").read_text() + "\n// edited\n")
+    after = {n: build._target(n, csrc, tmp_path) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    (csrc / "deconv_kernel.cu").write_text((csrc / "deconv_kernel.cu").read_text() + "\n")
+    again = {n: build._target(n, csrc, tmp_path) for n in names}
+    assert [n for n in names if again[n] != after[n]] == ["deconv_kernel"]
+
+
+UNET_SHAPES = [  # (Cin, Cout) of the four upsamplings
+    (1024, 512), (512, 256), (256, 128), (128, 64)]
+
+
+@pytest.mark.parametrize("cin,cout", UNET_SHAPES)
+def test_dispatch_takes_wgmma_at_every_unet_layer(cin, cout):
+    from audiodenoiser_torch.ops.cuda.deconv import deconv_variant
+
+    assert deconv_variant(torch.bfloat16, cin, cout) == "wgmma"
+    assert deconv_variant(torch.float32, cin, cout) == "fma"
+
+
+@pytest.mark.parametrize("cin,cout,x_ptr", [(20, 6, 0), (16, 6, 0), (20, 8, 0), (64, 32, 8)])
+def test_dispatch_takes_wmma_where_tma_cannot_address_rows(cin, cout, x_ptr):
+    """Cin or Cout not a multiple of 8, or x not 16-byte aligned."""
+    from audiodenoiser_torch.ops.cuda.deconv import deconv_variant
+
+    assert deconv_variant(torch.bfloat16, cin, cout, x_ptr) == "wmma"
+    assert deconv_variant(torch.float32, cin, cout, x_ptr) == "fma"
+
+
+@pytest.mark.parametrize("k_major", [True, False])
+def test_packed_weight_holds_the_plain_taps(k_major):
+    from audiodenoiser_torch.ops.cuda.deconv import packed_weight
+
+    rng = np.random.default_rng(11)
+    wt = torch.from_numpy(rng.standard_normal((24, 16, 2, 2)).astype(np.float32))
+    packed = packed_weight(wt, torch.bfloat16, k_major)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    taps = wt.to(torch.bfloat16)
+    for di in (0, 1):
+        for dj in (0, 1):
+            rows = slice((di * 2 + dj) * 16, (di * 2 + dj + 1) * 16)
+            tap = taps[:, :, di, dj]  # (Cin, Cout)
+            got = packed[rows, :].t() if k_major else packed[:, rows]
+            torch.testing.assert_close(got, tap, rtol=0, atol=0)
+    assert packed.shape == ((64, 24) if k_major else (24, 64))
+
+
+def test_packed_weight_is_cached_until_an_optimizer_step():
+    from audiodenoiser_torch.ops.cuda.deconv import bias_f32, packed_weight
+
+    layer = torch.nn.ConvTranspose2d(16, 8, 2, stride=2)
+    packed = packed_weight(layer.weight, torch.bfloat16, True)
+    b32 = bias_f32(layer.bias)
+    assert packed_weight(layer.weight, torch.bfloat16, True) is packed
+    assert bias_f32(layer.bias) is b32
+    # another dtype or layout is its own entry
+    assert packed_weight(layer.weight, torch.float32, False).dtype == torch.float32
+    assert packed_weight(layer.weight, torch.bfloat16, True) is packed
+    # foreach: the multi-tensor update torch takes by default on the card
+    opt = torch.optim.AdamW(layer.parameters(), lr=0.1, foreach=True)
+    layer(torch.randn(2, 16, 3, 3)).square().sum().backward()
+    opt.step()
+    again = packed_weight(layer.weight, torch.bfloat16, True)
+    assert again is not packed and not torch.equal(again, packed)
+    torch.testing.assert_close(
+        again, layer.weight.detach().permute(2, 3, 1, 0).reshape(32, 16).to(torch.bfloat16),
+        rtol=0, atol=0)
+    assert bias_f32(layer.bias) is not b32
+    torch.testing.assert_close(bias_f32(layer.bias), layer.bias.detach(), rtol=0, atol=0)
+    assert packed_weight(layer.weight, torch.bfloat16, True) is again
+
+
+def test_inference_tensors_are_packed_each_call():
+    from audiodenoiser_torch.ops.cuda.deconv import packed_weight
+
+    with torch.inference_mode():
+        wt = torch.randn(8, 8, 2, 2)
+        first = packed_weight(wt, torch.bfloat16, True)
+        assert packed_weight(wt, torch.bfloat16, True) is not first

@@ -33,6 +33,32 @@ def test_plain_matches_jax(batch, hop):
         assert np.abs(ours - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("hop", [128, 100, 512])
+def test_bf16_plain_matches_jax_within_bf16_roundings(hop):
+    frames = _frames(3, 9, seed=hop)
+    bf = torch.from_numpy(frames).to(torch.bfloat16)
+    ours = overlap_add_plain(bf, hop)
+    assert ours.dtype == torch.bfloat16
+    pallas = overlap_add_pallas(jnp.asarray(bf.float().numpy(), jnp.bfloat16), hop, interpret=True)
+    assert pallas.dtype == jnp.bfloat16
+    ref = np.asarray(pallas.astype(jnp.float32))
+    magnitudes = overlap_add_plain(bf.double().abs().float(), hop).double().numpy()
+    roundings = -(-512 // hop) + 1
+    err = np.abs(ours.float().numpy().astype(np.float64) - ref)
+    assert ours.shape == (3, 8 * hop + 512)
+    assert (err <= roundings * 2.0 ** -9 * magnitudes + 1e-30).all()
+
+
+def test_kernel_returns_bf16_on_cpu():
+    bf = torch.from_numpy(_frames(2, 5)).to(torch.bfloat16)
+    out = overlap_add_kernel(bf, 128)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 4 * 128 + 512)
+    torch.testing.assert_close(out, overlap_add_plain(bf, 128), rtol=0, atol=0)
+    # one rounding of the float32 sum
+    torch.testing.assert_close(out, overlap_add_plain(bf.float(), 128).to(torch.bfloat16),
+                               rtol=0, atol=0)
+
+
 def test_gaps_past_n_fft_are_zero():
     """hop > n_fft leaves samples no frame covers: zeros."""
     frames = _frames(2, 4, n_fft=64)
