@@ -131,6 +131,32 @@ __device__ __forceinline__ void stockham_stage(const float2* __restrict__ in,
     }
 }
 
+// stockham_stage with each result, point p of frame t, handed to
+// store(p, t, value) instead of stored in a buffer.
+template <int R, class Store>
+__device__ __forceinline__ void stockham_stage_to(const float2* __restrict__ in, int m, int ns,
+                                                  int log_tt, const float2* __restrict__ tw,
+                                                  Store store)
+{
+    const int tt_mask = (1 << log_tt) - 1;
+    const int span = (m / R) << log_tt;
+    const int tw_step = 2 * (m / (R * ns));
+    for (int i = threadIdx.x; i < span; i += blockDim.x) {
+        const int t = i & tt_mask;
+        const int j = i >> log_tt;
+        const int k = j & (ns - 1);
+        float2 v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[r] = in[i + r * span];
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[r] = cmul(v[r], tw[r * k * tw_step]);
+        butterfly<R>(v);
+        const int dst = (j - k) * R + k;
+#pragma unroll
+        for (int r = 0; r < R; ++r) store(dst + r * ns, t, v[r]);
+    }
+}
+
 // The M-point complex FFT of every frame in buf; returns the buffer that
 // holds the result (buf or spare). Ends on a barrier.
 __device__ __forceinline__ float2* fft_frames(float2* buf, float2* spare, int m, int log_tt,
@@ -152,6 +178,50 @@ __device__ __forceinline__ float2* fft_frames(float2* buf, float2* spare, int m,
         __syncthreads();
     }
     return buf;
+}
+
+// A stage into spare, or, if it is the transform's last, through last.
+template <int R, class Last>
+__device__ __forceinline__ void stage_or_last(const float2* __restrict__ in, float2* spare, int m,
+                                              int ns, int log_tt, const float2* __restrict__ tw,
+                                              Last last)
+{
+    if (ns * R == m)
+        stockham_stage_to<R>(in, m, ns, log_tt, tw,
+                             [=](int p, int t, float2 v) { last(spare, p, t, v); });
+    else
+        stockham_stage<R>(in, spare, m, ns, log_tt, tw);
+}
+
+// fft_frames with the last stage's results handed to last(dst, p, t,
+// value) instead of stored, so the caller's epilogue runs in that stage's
+// registers; dst is the buffer (buf or spare) that the last stage does not
+// read, which last may overwrite; returns dst. Ends on a barrier.
+template <class Last>
+__device__ __forceinline__ float2* fft_frames_to(float2* buf, float2* spare, int m, int log_tt,
+                                              const float2* __restrict__ tw, Last last)
+{
+    if (m == 1) {  // no stage: the points are the transform
+        for (int i = threadIdx.x; i < (1 << log_tt); i += blockDim.x) last(spare, 0, i, buf[i]);
+        __syncthreads();
+        return spare;
+    }
+    int ns = 1;
+    const int rest = (__ffs(m) - 1) % 4;
+    if (rest != 0) {
+        if (rest == 1) stage_or_last<2>(buf, spare, m, ns, log_tt, tw, last);
+        else if (rest == 2) stage_or_last<4>(buf, spare, m, ns, log_tt, tw, last);
+        else stage_or_last<8>(buf, spare, m, ns, log_tt, tw, last);
+        float2* tmp = buf; buf = spare; spare = tmp;
+        ns = 1 << rest;
+        __syncthreads();
+    }
+    for (; ns < m; ns *= 16) {
+        stage_or_last<16>(buf, spare, m, ns, log_tt, tw, last);
+        float2* tmp = buf; buf = spare; spare = tmp;
+        __syncthreads();
+    }
+    return buf;  // the last stage's spare
 }
 
 // Bin k (0..m) of the N = 2m-point real DFT of frame t, from the m-point

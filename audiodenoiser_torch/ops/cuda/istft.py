@@ -2,8 +2,13 @@
 
 The counterpart of ``audiodenoiser_tpu.ops.pallas.istft_pallas``: returns
 the raw overlap-add signal; the squared-window envelope and the centre
-trim stay in ``dsp.stft.istft``. The wrapper launches the CUDA kernel for
-CUDA tensors and takes the plain PyTorch version for CPU tensors.
+trim stay in ``dsp.stft.istft``. The wrapper launches a CUDA kernel for
+CUDA tensors and takes the plain PyTorch version for CPU tensors; any other
+device raises. The library has two entries, chosen by shape alone:
+``istft_fft`` (a shared-memory inverse FFT) for a power-of-two ``n_fft``,
+``istft_direct`` (the direct inverse DFT) for any other. Each has its own
+launch counter beside ``istft_kernel.launches``: ``istft_kernel.fft_launches``
+and ``istft_kernel.direct_launches``.
 """
 
 from __future__ import annotations
@@ -14,7 +19,39 @@ import torch
 
 from audiodenoiser_torch.dsp.stft import overlap_add
 from audiodenoiser_torch.ops.cuda import build
-from audiodenoiser_torch.ops.cuda.stft import _SMEM_LIMIT
+from audiodenoiser_torch.ops.cuda.stft import _SMEM_LIMIT, stft_entry, twiddle_table
+
+_MAX_LOG_TT = 4  # at most 16 frames a block, halo included
+
+
+def istft_entry(n_fft: int) -> str:
+    """The kernel entry for this ``n_fft``: "fft" for a power of two,
+    "direct" for any other (the same rule as K1's)."""
+    return stft_entry(n_fft)
+
+
+def halo_frames(n_fft: int, hop_length: int) -> int:
+    """Frames that start before an output segment and spill into it."""
+    return (n_fft - 1) // hop_length
+
+
+def frames_per_block_log2(batch: int, n_frames: int, n_fft: int, hop_length: int,
+                          sm_count: int = 132) -> int:
+    """log2 of the frames TT a block of the FFT entry computes, its segment's
+    TT - H and the H halo frames: 16 where blocks of 16 still give every SM
+    two, else 8 (a 2 s stream window, B=1 and T=126, runs 26 blocks of 8
+    frames at 512/128), and never H or fewer. Raises ValueError when H >= 16."""
+    halo = halo_frames(n_fft, hop_length)
+    least = halo.bit_length()  # the smallest log2 with 2**log2 > halo
+    if least > _MAX_LOG_TT:
+        raise ValueError(
+            f"hop_length={hop_length} too small for n_fft={n_fft}: a segment would need "
+            f"{halo} halo frames, more than {(1 << _MAX_LOG_TT) - 1}")
+    out_len = (n_frames - 1) * hop_length + n_fft
+    seg = ((1 << _MAX_LOG_TT) - halo) * hop_length
+    if batch * -(-out_len // seg) >= 2 * sm_count:
+        return _MAX_LOG_TT
+    return max(_MAX_LOG_TT - 1, least)
 
 
 def istft_plain(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
@@ -43,6 +80,31 @@ def _check(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
         raise ValueError(f"bad hop_length={hop_length}")
 
 
+def _interleaved(re: torch.Tensor, im: torch.Tensor) -> bool:
+    """True when re and im are the real and imaginary lanes of one complex64
+    tensor: a bin is then one aligned 8-byte load."""
+    sb, sk, st = re.stride()
+    return (im.data_ptr() == re.data_ptr() + 4 and re.data_ptr() % 8 == 0
+            and st == 2 and sk % 2 == 0 and sb % 2 == 0)
+
+
+def fft_launch(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor, out: torch.Tensor,
+               n_fft: int, hop_length: int, log_tt: int) -> None:
+    """One launch of the FFT entry at 2**log_tt frames a block into ``out``
+    (arguments as ``istft_kernel`` has checked them); counts nothing."""
+    lib = _load()
+    batch, _, n_frames = re.shape
+    sb, sk, st = re.stride()
+    with build.on_device(re.device):
+        rc = lib.istft_fft_launch(
+            re.data_ptr(), im.data_ptr(), window.data_ptr(),
+            twiddle_table(n_fft, re.device).data_ptr(), out.data_ptr(), batch, n_frames,
+            n_fft, hop_length, log_tt, int(_interleaved(re, im)), sb, sk, st,
+            build.stream_handle(re.device))
+    if rc != 0:
+        raise RuntimeError(f"istft_kernel (fft) launch failed with CUDA error {rc}")
+
+
 def istft_kernel(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
                  n_fft: int = 512, hop_length: int = 128) -> torch.Tensor:
     """Windowed overlap-add of the inverse-DFT frames: (B, (T-1)*hop + n_fft).
@@ -63,36 +125,59 @@ def istft_kernel(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
     batch, _, n_frames = re.shape
     if not 1 <= batch <= 65535:
         raise ValueError(f"batch {batch} outside the kernel's grid (1..65535)")
-    lib = build.load("istft_kernel")
-    if lib.istft_launch.argtypes is None:
-        lib.istft_smem_bytes.argtypes = [ctypes.c_int]
-        lib.istft_smem_bytes.restype = ctypes.c_size_t
-        lib.istft_block_frames.argtypes = []
-        lib.istft_block_frames.restype = ctypes.c_int
-        lib.istft_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
-        )
-        lib.istft_launch.restype = ctypes.c_int
-    if (n_fft - 1) // hop_length >= lib.istft_block_frames():
-        raise ValueError(
-            f"hop_length={hop_length} too small for n_fft={n_fft}: a segment "
-            f"would need more than {lib.istft_block_frames() - 1} halo frames")
-    if lib.istft_smem_bytes(n_fft) > _SMEM_LIMIT:
-        raise ValueError(f"n_fft={n_fft} needs more shared memory than a block has")
+    lib = _load()
+    entry = istft_entry(n_fft)
     out = torch.empty((batch, (n_frames - 1) * hop_length + n_fft),
                       dtype=torch.float32, device=re.device)
-    sb, sk, st = re.stride()
-    with build.on_device(re.device):
-        stream = build.stream_handle(re.device)
-        rc = lib.istft_launch(
-            re.data_ptr(), im.data_ptr(), window.data_ptr(), out.data_ptr(),
-            batch, n_frames, n_fft, hop_length, sb, sk, st, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"istft_kernel launch failed with CUDA error {rc}")
-    istft_kernel.launches += 1
+    if entry == "fft":
+        log_tt = frames_per_block_log2(batch, n_frames, n_fft, hop_length,
+                                       build.sm_count(re.device))
+        least = halo_frames(n_fft, hop_length).bit_length()
+        # fewer frames a block where a long frame needs it
+        while lib.istft_fft_smem_bytes(n_fft, log_tt) > _SMEM_LIMIT:
+            if log_tt == least:
+                raise ValueError(f"n_fft={n_fft}, hop={hop_length} needs more shared "
+                                 "memory than a block has")
+            log_tt -= 1
+        fft_launch(re, im, window, out, n_fft, hop_length, log_tt)
+    else:
+        if halo_frames(n_fft, hop_length) >= lib.istft_direct_block_frames():
+            raise ValueError(
+                f"hop_length={hop_length} too small for n_fft={n_fft}: a segment "
+                f"would need more than {lib.istft_direct_block_frames() - 1} halo frames")
+        if lib.istft_direct_smem_bytes(n_fft) > _SMEM_LIMIT:
+            raise ValueError(f"n_fft={n_fft} needs more shared memory than a block has")
+        sb, sk, st = re.stride()
+        with build.on_device(re.device):
+            rc = lib.istft_direct_launch(
+                re.data_ptr(), im.data_ptr(), window.data_ptr(), out.data_ptr(),
+                batch, n_frames, n_fft, hop_length, sb, sk, st,
+                build.stream_handle(re.device))
+        if rc != 0:
+            raise RuntimeError(f"istft_kernel (direct) launch failed with CUDA error {rc}")
+    build.count_launch(istft_kernel, entry)
     return out
 
 
-istft_kernel.launches = 0
+def _load() -> ctypes.CDLL:
+    lib = build.load("istft_kernel")
+    if lib.istft_fft_launch.argtypes is None:
+        lib.istft_fft_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.istft_fft_smem_bytes.restype = ctypes.c_size_t
+        lib.istft_fft_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        lib.istft_fft_launch.restype = ctypes.c_int
+        lib.istft_direct_smem_bytes.argtypes = [ctypes.c_int]
+        lib.istft_direct_smem_bytes.restype = ctypes.c_size_t
+        lib.istft_direct_block_frames.argtypes = []
+        lib.istft_direct_block_frames.restype = ctypes.c_int
+        lib.istft_direct_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        lib.istft_direct_launch.restype = ctypes.c_int
+    return lib
+
+
+istft_kernel.variants = ("fft", "direct")
+istft_kernel.launches = istft_kernel.fft_launches = istft_kernel.direct_launches = 0

@@ -58,33 +58,56 @@ def test_stft_kernel_matches_plain(dev, batch, length, n_fft, hop, win):
     assert _max_rel(torch.view_as_real(ours), torch.view_as_real(ref)) < 1e-5
 
 
-@pytest.mark.parametrize("batch,n_frames,n_fft,hop,strided", [
-    (256, 126, 512, 128, True),   # bench shape, views of one complex tensor
-    (3, 194, 512, 128, False),    # 3.1 s clips, separate re / im
-    (2, 30, 512, 128, True),
-    (4, 17, 400, 100, False),     # n_fft not a power of two
-    (1, 9, 255, 64, True),        # odd n_fft: no Nyquist bin
-    (2, 40, 512, 32, False),      # 15 halo frames, the most a block takes
+@pytest.mark.parametrize("batch,n_frames,n_fft,hop,strided,edges", [
+    (256, 126, 512, 128, True, False),  # bench shape, views of one complex tensor: 16 frames a block
+    (3, 194, 512, 128, False, False),   # 3.1 s clips, separate re / im: 8 frames a block
+    (2, 30, 512, 128, True, False),
+    (4, 17, 400, 100, False, False),    # n_fft not a power of two: the direct entry
+    (1, 9, 255, 64, True, False),       # odd n_fft: no Nyquist bin
+    (2, 40, 512, 32, False, False),     # 15 halo frames, the most a block takes
+    (1, 126, 512, 128, True, False),    # a 2 s stream window
+    (64, 100, 512, 128, False, False),  # T not a multiple of a block's 13 own frames
+    (256, 126, 512, 128, True, True),   # large imaginary DC and Nyquist parts, ignored
+    (16, 126, 512, 128, True, True),    # 8 frames a block
+    (4, 126, 512, 128, False, True),    # separate re / im
+    (3, 20, 1024, 256, True, False),    # odd log2(n_fft / 2): a radix-2 stage
+    (5, 33, 256, 100, False, True),     # a radix-8 stage, hop not dividing n_fft
+    (2, 12, 4096, 1024, True, False),   # a radix-8 stage; 4 frames a block fit shared memory
+    (128, 40, 2048, 512, True, False),  # 16 frames would not fit shared memory: 8 a block
 ])
-def test_istft_kernel_matches_plain(dev, batch, n_frames, n_fft, hop, strided):
+def test_istft_kernel_matches_plain(dev, batch, n_frames, n_fft, hop, strided, edges):
     from audiodenoiser_torch.dsp.window import hann_window
-    from audiodenoiser_torch.ops.cuda import istft_kernel, istft_plain
+    from audiodenoiser_torch.ops.cuda import istft_kernel, istft_plain, variant_launches
+    from audiodenoiser_torch.ops.cuda.istft import istft_entry
 
     rng = np.random.default_rng(1)
     f = n_fft // 2 + 1
-    spec = torch.from_numpy((rng.standard_normal((batch, f, n_frames))
-                             + 1j * rng.standard_normal((batch, f, n_frames)))
-                            .astype(np.complex64)).to(dev)
+    spec = (rng.standard_normal((batch, f, n_frames))
+            + 1j * rng.standard_normal((batch, f, n_frames)))
+    if edges:  # irfft and the Pallas bases ignore these; a kernel that used them would not
+        spec[:, 0].imag = 50 * rng.standard_normal((batch, n_frames))
+        spec[:, -1].imag = 50 * rng.standard_normal((batch, n_frames))
+    spec = torch.from_numpy(spec.astype(np.complex64)).to(dev)
     parts = torch.view_as_real(spec)
     re, im = parts[..., 0], parts[..., 1]
     if not strided:
         re, im = re.contiguous(), im.contiguous()
+    # the reference on the spectrum as irfft defines it: cuFFT's C2R takes
+    # its input as Hermitian and need not ignore those imaginary parts
+    im_ref = im.clone()
+    im_ref[:, 0] = 0
+    if n_fft % 2 == 0:
+        im_ref[:, -1] = 0
     w = torch.from_numpy(hann_window(n_fft)).to(dev)
-    before = istft_kernel.launches
+    before = istft_kernel.launches, variant_launches(istft_kernel)
     ours = istft_kernel(re, im, w, n_fft, hop)
-    ref = istft_plain(re, im, w, n_fft, hop)
+    ref = istft_plain(re, im_ref, w, n_fft, hop)
     torch.cuda.synchronize()
-    assert istft_kernel.launches == before + 1
+    assert istft_kernel.launches == before[0] + 1
+    entry = "fft" if n_fft & (n_fft - 1) == 0 else "direct"
+    assert istft_entry(n_fft) == entry
+    assert {k: v - before[1][k] for k, v in variant_launches(istft_kernel).items()} == {
+        "fft": int(entry == "fft"), "direct": int(entry == "direct")}
     assert ours.shape == ref.shape == (batch, (n_frames - 1) * hop + n_fft)
     assert _max_rel(ours, ref) < 1e-5
 
