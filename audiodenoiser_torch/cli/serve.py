@@ -10,8 +10,10 @@ Usage (the recommended deployment, the universal complex-mask model):
 Loads ``{stem}_{noise_type}.ckpt`` (stem ``mask_denoiser`` for
 ``--model complex_mask``, ``unet_denoiser`` for ``--model unet``, which
 also takes the reference ``unet_denoiser_{noise_type}.pth``), folds its
-BatchNorm into the convolutions and serves ``POST /denoise`` in the
-model's mode, plus WOLA streaming sessions with one chunk
+BatchNorm into the convolutions and serves ``POST /denoise`` in
+``--mode`` (``?mode=`` per request; the magnitude model serves
+``noisy_phase``, ``griffin_lim`` and ``reference_gl``), plus WOLA
+streaming sessions in the model's own mode with one chunk
 (``bucket_seconds``) of latency:
 
   curl -s -X POST 'http://127.0.0.1:8800/stream/start'   # {"session": ID, ...}
@@ -33,11 +35,10 @@ UNPORTED_FLAGS = {
     "auto_route": "ROADMAP A.10 (noise router and specialists)",
 }
 # default modes of the JAX CLI that no ported model serves yet
-UNPORTED_MODES = {
-    "griffin_lim": "ROADMAP A.7 (Griffin-Lim reconstruction)",
-    "reference_gl": "ROADMAP A.7 (Griffin-Lim reconstruction)",
-    "auto": "ROADMAP A.10 (noise router and specialists)",
-}
+UNPORTED_MODES = {"auto": "ROADMAP A.10 (noise router and specialists)"}
+# the modes each model serves, its own first
+MODEL_MODES = {"unet": ("noisy_phase", "griffin_lim", "reference_gl"),
+               "complex_mask": ("complex_mask",)}
 
 
 def parse_args(argv=None):
@@ -50,9 +51,12 @@ def parse_args(argv=None):
     p.add_argument("--saved_models_dir", default="./saved_models")
     p.add_argument("--model", choices=["unet", "complex_mask"], default="unet")
     p.add_argument("--mode", default=None,
-                   choices=["noisy_phase", "complex_mask", *UNPORTED_MODES],
-                   help="default reconstruction mode; each model serves its "
-                   "own: noisy_phase, or complex_mask for --model complex_mask")
+                   choices=["noisy_phase", "complex_mask", "griffin_lim", "reference_gl",
+                            *UNPORTED_MODES],
+                   help="default reconstruction mode of /denoise: noisy_phase (the "
+                   "default), griffin_lim or reference_gl for --model unet, "
+                   "complex_mask for --model complex_mask; streams keep the "
+                   "model's own mode")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8800)
     p.add_argument("--bucket_seconds", type=float, default=2.0,
@@ -77,13 +81,13 @@ def parse_args(argv=None):
     for name, item in UNPORTED_FLAGS.items():
         if hasattr(args, name):
             raise SystemExit(f"--{name} is not ported yet: {item}")
-    own = "complex_mask" if args.model == "complex_mask" else "noisy_phase"
+    served = MODEL_MODES[args.model]
     if args.mode in UNPORTED_MODES:
         raise SystemExit(f"--mode {args.mode} is not ported yet: {UNPORTED_MODES[args.mode]}")
-    if args.mode not in (None, own):
+    if args.mode not in (None, *served):
         raise SystemExit(f"--mode {args.mode} needs another model: --model {args.model} "
-                         f"serves {own}")
-    args.mode = own
+                         f"serves {', '.join(served)}")
+    args.mode = args.mode or served[0]
     return args
 
 

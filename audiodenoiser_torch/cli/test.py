@@ -1,0 +1,206 @@
+"""CLI: per-noise-type evaluation on the GPU (port of ``cli/test.py``).
+
+  python -m audiodenoiser_torch.cli.test --test_data_dir ./data/test_processed \\
+      --saved_models_dir ./saved_models --output_dir ./data/test_output_ensemble
+  python -m audiodenoiser_torch.cli.test --model complex_mask --universal \\
+      --clean_dir ./data/test/clean --noise_dir ./data/test/noise --n_seeds 3
+
+``--model unet`` loads each noise type's specialist (or, with
+``--universal``, ``unet_denoiser_mixed``) and evaluates it on
+``cli.create_test_dataset``'s ``.npy`` set, reconstructing example wavs by
+Griffin-Lim in ``--gl_mode``; ``--model complex_mask`` evaluates the
+mask family in the waveform domain over the test wavs, ``--n_seeds``
+corruption draws each (``{nt}_metrics_multiseed.txt``). Both write the
+reference's artifact names. The flags are the JAX CLI's, plus
+``--device`` (default: the GPU); the routed mixture and the device mesh
+are not ported yet and exit naming their ROADMAP item. On the GPU, each
+noise type's K1/K2 launches are printed as one ``[launches]`` JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+# options of the JAX CLI whose machinery is not ported yet
+UNPORTED_FLAGS = {
+    "auto_route": "ROADMAP A.10 (noise router and specialists)",
+    "ep": "ROADMAP A.10 (expert-parallel routed evaluation)",
+}
+MESH_ITEM = "ROADMAP A.11 (parallelism)"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Specialized per-noise-type evaluation (CUDA)")
+    p.add_argument("--test_data_dir", default="./data/test_processed")
+    p.add_argument("--saved_models_dir", default="./saved_models")
+    p.add_argument("--output_dir", default="./data/test_output_ensemble")
+    p.add_argument("--sample_rate", type=int, default=8000)
+    p.add_argument("--n_fft", type=int, default=512)
+    p.add_argument("--hop_length", type=int, default=128)
+    p.add_argument(
+        "--noise_types",
+        nargs="+",
+        default=["white", "urban", "reverb", "noise_cancellation"],
+    )
+    p.add_argument("--num_audio_examples", type=int, default=5)
+    p.add_argument(
+        "--gl_mode",
+        choices=["reference_gl", "griffin_lim"],
+        default="reference_gl",
+        help="reference_gl replicates the reference's loop; griffin_lim is the "
+        "correct magnitude-reimposing algorithm.",
+    )
+    p.add_argument("--precision", choices=["bf16", "f32"], default="bf16")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--model", choices=["unet", "complex_mask"], default="unet",
+        help="unet: magnitude ensemble over test_processed npy artifacts; "
+        "complex_mask: waveform-domain eval of the mask_denoiser ensemble "
+        "over --clean_dir/--noise_dir wavs.",
+    )
+    p.add_argument("--clean_dir", default="./data/test/clean")
+    p.add_argument("--noise_dir", default="./data/test/noise")
+    p.add_argument(
+        "--universal", action="store_true",
+        help="evaluate the single universal model ({stem}_mixed.ckpt) on every "
+        "--noise_types entry, instead of one specialized model per type.",
+    )
+    p.add_argument("--mesh", choices=["auto", "on", "off"], default="auto",
+                   help="one device: 'on' is not ported yet")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="1 only: channel parallelism is not ported yet")
+    p.add_argument(
+        "--n_seeds", type=int, default=1,
+        help="waveform-domain evals only: repeat the eval with seeds "
+        "seed..seed+n-1 (fresh corruption draws) and report mean +- std "
+        "of every metric ({nt}_metrics_multiseed.txt).",
+    )
+    p.add_argument(
+        "--bypass_db", type=float, default=40.0,
+        help="identity-bypass gate for waveform-domain evals: clips whose "
+        "relative model-change energy is below -bypass_db are emitted "
+        "bit-exactly as the input. <=0 disables.",
+    )
+    p.add_argument("--device", default=None, help="default: the GPU")
+    for name, item in UNPORTED_FLAGS.items():
+        kind = {"action": "store_true"} if name == "auto_route" else {}
+        p.add_argument(f"--{name}", default=argparse.SUPPRESS,
+                       help=f"not ported yet: {item}", **kind)
+    args = p.parse_args(argv)
+    for name, item in UNPORTED_FLAGS.items():
+        if hasattr(args, name):
+            raise SystemExit(f"--{name} is not ported yet: {item}")
+    if args.mesh == "on" or args.model_parallel > 1:
+        raise SystemExit(f"--mesh on and --model_parallel > 1 are not ported yet: {MESH_ITEM}")
+    return args
+
+
+def _write_multiseed(path: str, noise_type: str, per_seed: list) -> dict:
+    """Mean and std of every metric over the seeds, written as the JAX CLI
+    writes them; returns ``{key: mean, key_std: std}``."""
+    import numpy as np
+
+    keys = sorted(set.intersection(*(set(m) for m in per_seed)))
+    agg = {k: (float(np.mean([m[k] for m in per_seed])), float(np.std([m[k] for m in per_seed])))
+           for k in keys}
+    with open(path, "w") as f:
+        f.write(f"Multi-seed ({len(per_seed)} corruption draws) waveform metrics for "
+                f"'{noise_type}' (mean +- std):\n")
+        for k in keys:
+            mu, sd = agg[k]
+            # pesq_* is the calibrated approximation, not conformant P.862
+            f.write(f"{k.replace('pesq', 'pesq_approx')}: {mu:.3f} +- {sd:.3f}\n")
+    print(f"multi-seed ({len(per_seed)}x): SI-SDR {agg['si_sdr_noisy'][0]:.2f} -> "
+          f"{agg['si_sdr'][0]:.2f} +- {agg['si_sdr'][1]:.2f} dB")
+    return {k: mu for k, (mu, _) in agg.items()} | {f"{k}_std": sd for k, (_, sd) in agg.items()}
+
+
+def _report_launches(noise_type: str, device) -> None:
+    """On the GPU, print the K1/K2 launches of one noise type's eval, by
+    entry, and zero the counters for the next."""
+    from audiodenoiser_torch.ops.cuda import (
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+        variant_launches,
+    )
+
+    if device.type == "cuda":
+        counts = {k.__name__: variant_launches(k) for k in (stft_kernel, istft_kernel)}
+        print(f"[launches] {noise_type} {json.dumps(counts)}", flush=True)
+    reset_launch_counts()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    import torch
+
+    from audiodenoiser_torch.device import resolve_device
+    from audiodenoiser_torch.eval.runner import (
+        DenoiserRunner,
+        load_model_for_noise,
+        test_noise_type_waveform,
+        test_single_noise_type,
+    )
+    from audiodenoiser_torch.ops.cuda import reset_launch_counts
+
+    device = resolve_device(args.device)
+    print("Starting specialized test for each noise type...")
+    os.makedirs(args.output_dir, exist_ok=True)
+    results = {}
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
+    loaded = None
+    if args.universal:  # one mixed-corruption model for every noise type
+        try:
+            loaded = load_model_for_noise("mixed", args.saved_models_dir, dtype=dtype,
+                                          device=device, stem=stem)
+        except FileNotFoundError:
+            print(f"Universal model '{stem}_mixed' not found. Nothing to do.")
+            return results
+    # one runner per distinct model
+    runner = None if loaded is None else DenoiserRunner(
+        loaded, args.n_fft, args.hop_length, device=device)
+    reset_launch_counts()
+    for noise_type in args.noise_types:
+        try:
+            model = loaded or load_model_for_noise(noise_type, args.saved_models_dir,
+                                                   dtype=dtype, device=device, stem=stem)
+        except FileNotFoundError:
+            print(f"Model for noise type '{noise_type}' not found. Skipping.")
+            continue
+        if args.model == "unet":
+            results[noise_type] = test_single_noise_type(
+                model, noise_type, test_data_dir=args.test_data_dir,
+                output_dir=args.output_dir, sample_rate=args.sample_rate, n_fft=args.n_fft,
+                hop_length=args.hop_length, num_audio_examples=args.num_audio_examples,
+                gl_mode=args.gl_mode, seed=args.seed, device=device)
+            _report_launches(noise_type, device)
+            continue
+        if loaded is None:
+            runner = DenoiserRunner(model, args.n_fft, args.hop_length, device=device)
+        per_seed = []
+        for k in range(max(1, args.n_seeds)):
+            m = test_noise_type_waveform(
+                model, noise_type, clean_dir=args.clean_dir, noise_dir=args.noise_dir,
+                output_dir=args.output_dir, sample_rate=args.sample_rate, n_fft=args.n_fft,
+                hop_length=args.hop_length, num_audio_examples=args.num_audio_examples,
+                seed=args.seed + k, bypass_db=args.bypass_db, write_artifacts=(k == 0),
+                runner=runner)
+            if m is not None:
+                per_seed.append(m)
+        _report_launches(noise_type, device)
+        if not per_seed:
+            continue
+        results[noise_type] = per_seed[0]
+        if len(per_seed) > 1:
+            results[noise_type] = _write_multiseed(
+                os.path.join(args.output_dir, f"{noise_type}_metrics_multiseed.txt"),
+                noise_type, per_seed)
+    return results
+
+
+if __name__ == "__main__":
+    main()

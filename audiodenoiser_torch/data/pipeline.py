@@ -78,6 +78,11 @@ class NoiseBank:
         pos = starts[:, None] + torch.arange(self.target_len, device=self.device)
         return self.bank[idx[:, None], pos]
 
+    def sample(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
+        """``batch_size`` length-``target_len`` segments drawn from ``generator``."""
+        draws = self.draw(generator, batch_size)
+        return self.segments(draws["bank_idx"], draws["bank_start"])
+
 
 def pad_or_truncate_device(x: torch.Tensor, target: tuple[int, int]) -> torch.Tensor:
     """Zero-pad at the end / truncate the last two axes to ``target``."""

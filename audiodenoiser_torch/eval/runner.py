@@ -1,48 +1,55 @@
-"""The fused denoise paths (port of ``eval/runner.py``).
+"""The fused denoise paths and the evaluation drivers (port of
+``eval/runner.py``).
 
 ``DenoiserRunner.denoise_audio`` pads the clip to a hop multiple and takes
 the centre-padded STFT through the K1 kernel, then, by mode:
 
 - ``noisy_phase`` (a magnitude U-Net): ``magphase``, the model on the
-  magnitude, a clamp at zero, the noisy phase back on;
+  magnitude, a clamp at zero, the noisy phase back on, one iSTFT;
+- ``griffin_lim`` / ``reference_gl`` (a magnitude U-Net): the clamped
+  denoised magnitude through ``dsp.griffin_lim`` in its ``correct`` /
+  ``reference`` mode, every transform through K1 and K2;
 - ``complex_mask`` (a ``ComplexMaskUNet``): ``[mag, cos, sin]`` features,
-  the model's bounded complex mask times the noisy spectrogram;
+  the model's bounded complex mask times the noisy spectrogram, one iSTFT.
 
-and inverts through the K2 kernel. On a CUDA device the kernels launch; on
-the CPU their plain versions run. A runner serves the one mode its model
-computes.
+The iSTFT goes through the K2 kernel. On a CUDA device the kernels launch;
+on the CPU their plain versions run. A magnitude model serves its three
+modes, a mask model ``complex_mask`` alone.
 
 ``load_model_for_noise`` / ``load_model_from_path`` read the JAX
 package's ``{stem}_{noise}.ckpt`` exports with their ``.json`` sidecars,
 and the reference's ``unet_denoiser_{noise}.pth``, and fold the model for
-inference.
+inference. ``test_single_noise_type`` evaluates a magnitude model on the
+test set's ``.npy`` artifacts, ``test_noise_type_waveform`` any model in
+the waveform domain; both write the reference's artifact names.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 import audiodenoiser_torch.dsp.stft as stft_lib
 from audiodenoiser_torch.device import DeviceLike, resolve_device
+from audiodenoiser_torch.dsp.griffin_lim import griffin_lim, initial_phase
+from audiodenoiser_torch.eval.metrics import pesq, si_sdr, stoi
+from audiodenoiser_torch.losses.spectral import combined_perceptual_loss
 from audiodenoiser_torch.models.complex_mask import ComplexMaskUNet, mask_spectrogram
 from audiodenoiser_torch.models.convert import load_flax_variables
 from audiodenoiser_torch.models.folded import FoldedUNet, fold_for_inference
 from audiodenoiser_torch.models.unet import UNet, width_kwargs
 from audiodenoiser_torch.train.checkpoints import load_exported
 
-MODES = ("noisy_phase", "complex_mask")
-# reconstruction modes of the JAX runner that this port has not reached,
-# with the ROADMAP item that ports each
-UNPORTED_MODES = {
-    "griffin_lim": "ROADMAP A.7 (Griffin-Lim reconstruction)",
-    "reference_gl": "ROADMAP A.7 (Griffin-Lim reconstruction)",
-}
+# Griffin-Lim reconstruction modes of a magnitude model, by griffin_lim mode
+GL_MODES = {"griffin_lim": "correct", "reference_gl": "reference"}
+MODES = ("noisy_phase", "complex_mask", *GL_MODES)
 # sidecar options of UNet variants the port has not reached
 UNPORTED_SIDECAR = ("s2d_stem", "s2d_skip", "attn_bottleneck")
 
@@ -56,6 +63,21 @@ def identity_bypass(out: torch.Tensor, orig: torch.Tensor,
     ref = torch.sum(torch.square(orig), dim=-1)
     change_db = 10.0 * torch.log10(diff / (ref + 1e-12) + 1e-20)
     return torch.where((change_db < -thresh_db)[..., None], orig, out)
+
+
+def batch_metric_mean(fn, clean, audio, sample_rate) -> float:
+    """Mean of a per-clip metric over a batch, skipping each clip that
+    ``fn`` cannot score (STOI and PESQ raise ValueError on clips too short
+    or silent). Raises ValueError only when no clip is scorable."""
+    vals = []
+    for i in range(clean.shape[0]):
+        try:
+            vals.append(fn(clean[i], audio[i], sample_rate))
+        except ValueError:
+            continue
+    if not vals:
+        raise ValueError("no clip scorable")
+    return float(np.mean(vals))
 
 
 def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
@@ -115,10 +137,10 @@ class DenoiserRunner:
     """Spectrogram and waveform denoising through ``model`` on ``device``.
 
     ``model`` is moved to ``device``. A magnitude model maps (N, 1, F, T)
-    to (N, 1, F, T) and serves ``noisy_phase``; a complex-mask model (one
-    with a ``mask_bound``) maps (N, 3, F, T) features to an (N, 2, F, T)
-    mask and serves ``complex_mask``. The STFT and iSTFT always take the
-    kernel path.
+    to (N, 1, F, T) and serves ``noisy_phase`` (its own mode),
+    ``griffin_lim`` and ``reference_gl``; a complex-mask model (one with a
+    ``mask_bound``) maps (N, 3, F, T) features to an (N, 2, F, T) mask and
+    serves ``complex_mask``. The STFT and iSTFT always take the kernel path.
     """
 
     def __init__(self, model: nn.Module, n_fft: int = 512, hop_length: int = 128,
@@ -140,21 +162,24 @@ class DenoiserRunner:
 
     @torch.inference_mode()
     def denoise_audio(self, audio, mode: Optional[str] = None, center: bool = True,
-                      bypass_db: Optional[float] = None) -> torch.Tensor:
+                      bypass_db: Optional[float] = None, gl_iters: int = 50,
+                      generator: Optional[torch.Generator] = None,
+                      theta: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(..., samples) noisy audio -> denoised audio of the same shape,
         on the runner's device. ``mode`` defaults to the runner's own.
 
         The clip is zero-padded to a hop multiple first: the iSTFT of a
         centre-padded STFT reconstructs only ``floor(n/hop)*hop`` samples.
-        ``bypass_db`` enables :func:`identity_bypass`.
+        ``bypass_db`` enables :func:`identity_bypass`. The Griffin-Lim modes
+        run ``gl_iters`` iterations from the initial phase ``theta`` (the
+        padded clips' (N, F, T)), else one drawn from ``generator``, else
+        from a CPU generator seeded with 0: one phase for every call, as the
+        JAX service's constant key.
         """
         mode = self.mode if mode is None else mode
-        if mode in UNPORTED_MODES:
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet: {UNPORTED_MODES[mode]}")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
-        if mode != self.mode:
+        if mode != self.mode and not (mode in GL_MODES and self.mode == "noisy_phase"):
             raise NotImplementedError(
                 f"mode {mode!r} needs a {'complex-mask' if mode == 'complex_mask' else 'magnitude'}"
                 f" model; this runner's model serves {self.mode!r}")
@@ -164,24 +189,352 @@ class DenoiserRunner:
         rem = (-n) % self.hop
         if rem and center:
             audio = F.pad(audio, (0, rem))
-        out = self._reconstruct(audio, center)
+        out = self._reconstruct(audio, center, mode, gl_iters, generator, theta)
         if rem and center:
             out = out[..., :n]
         if bypass_db is not None:
             out = identity_bypass(out, orig, bypass_db)
         return out
 
-    def _reconstruct(self, audio: torch.Tensor, center: bool) -> torch.Tensor:
+    def _reconstruct(self, audio: torch.Tensor, center: bool, mode: str, gl_iters: int,
+                     generator: Optional[torch.Generator],
+                     theta: Optional[torch.Tensor]) -> torch.Tensor:
         lead, n = audio.shape[:-1], audio.shape[-1]
         spec = stft_lib.stft(audio.reshape(-1, n), self.n_fft, self.hop,
                              center=center, precision="kernel")
-        if self.mode == "complex_mask":
+        if mode == "complex_mask":
             rec = mask_spectrogram(self.model, spec)
         else:
             mag, phase = stft_lib.magphase(spec)
             # magnitudes are non-negative
             den = self.model(mag[:, None])[:, 0].float().clamp_min(0.0)
+            if mode in GL_MODES:
+                if theta is None and generator is None:
+                    generator = torch.Generator().manual_seed(0)
+                out = griffin_lim(den, generator, n_fft=self.n_fft, hop_length=self.hop,
+                                  n_iter=gl_iters, mode=GL_MODES[mode], length=n,
+                                  theta=theta, precision="kernel")
+                return out.reshape(*lead, n)
             rec = den * phase
         out = stft_lib.istft(rec, self.hop, n_fft=self.n_fft, center=center,
                              length=n, precision="kernel")
         return out.reshape(*lead, n)
+
+
+def _plot_comparison(noisy, denoised, clean, path):
+    """The reference's three-panel magma spectrogram PNG; warns and skips
+    when matplotlib is not installed."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        warnings.warn("matplotlib unavailable; skipping spectrogram PNGs")
+        return
+
+    plt.figure(figsize=(12, 6))
+    for pos, (spec, title) in enumerate(
+        [(noisy, "Noisy Spectrogram"), (denoised, "Denoised Spectrogram"),
+         (clean, "Clean Spectrogram")],
+        start=1,
+    ):
+        plt.subplot(1, 3, pos)
+        plt.title(title)
+        plt.imshow(spec, aspect="auto", origin="lower", cmap="magma")
+        plt.colorbar(format="%+2.0f dB")
+    plt.tight_layout()
+    plt.savefig(path)
+    plt.close()
+
+
+def _mean_si_sdr(estimate, reference, device) -> float:
+    est = torch.as_tensor(estimate, dtype=torch.float32).to(device)
+    ref = torch.as_tensor(reference, dtype=torch.float32).to(device)
+    return float(si_sdr(est, ref).mean())
+
+
+@torch.inference_mode()
+def test_single_noise_type(
+    model: nn.Module,
+    noise_type: str,
+    test_data_dir: str,
+    output_dir: str,
+    sample_rate: int = 8000,
+    n_fft: int = 512,
+    hop_length: int = 128,
+    num_audio_examples: int = 5,
+    gl_mode: str = "reference_gl",
+    seed: int = 0,
+    compute_si_sdr: bool = True,
+    eval_batch_size: int = 64,
+    device: DeviceLike = None,
+) -> Optional[dict]:
+    """Per-noise-type evaluation of a magnitude model on the test set's
+    ``clean_{nt}.npy`` / ``noisy_{nt}.npy`` (and, when present,
+    ``clean_audio.npy`` / ``noisy_audio_{nt}.npy``). Writes
+    ``{nt}_noisy_{i}.wav``, ``{nt}_denoised_{i}.wav`` (Griffin-Lim in
+    ``gl_mode``, both from one initial phase drawn with ``seed``),
+    ``{nt}_metrics.txt`` and ``{nt}_spectrogram_{i}.png``; returns the
+    metrics: the combined loss and its parts, and the SI-SDR and PESQ
+    extensions."""
+    from audiodenoiser_torch.data.wav_io import write_wav
+
+    print(f"\n=== Testing model on noise type: {noise_type} ===")
+    clean_path = os.path.join(test_data_dir, f"clean_{noise_type}.npy")
+    noisy_path = os.path.join(test_data_dir, f"noisy_{noise_type}.npy")
+    if not (os.path.exists(clean_path) and os.path.exists(noisy_path)):
+        print(f"Skipping {noise_type}, missing {clean_path} or {noisy_path}")
+        return None
+
+    clean = np.load(clean_path)  # (N, F, T)
+    noisy = np.load(noisy_path)
+    n = len(noisy)
+    print(f"Found {n} test samples for noise type '{noise_type}'")
+    os.makedirs(output_dir, exist_ok=True)
+
+    runner = DenoiserRunner(model, n_fft, hop_length, device=device)
+    dev = runner.device
+    gl = dict(n_fft=n_fft, hop_length=hop_length, n_iter=50,
+              mode=GL_MODES[gl_mode], precision="kernel")
+    k = min(num_audio_examples, n)
+    # one initial phase for both reconstructions, as JAX's two calls share a key
+    theta = initial_phase((k, *noisy.shape[1:]), torch.Generator().manual_seed(seed), dev)
+
+    if k > 0:
+        noisy_audio = griffin_lim(torch.from_numpy(noisy[:k]).to(dev), theta=theta,
+                                  **gl).cpu().numpy()
+        for i in range(k):
+            write_wav(os.path.join(output_dir, f"{noise_type}_noisy_{i}.wav"),
+                      noisy_audio[i], sample_rate)
+
+    # batched, the tail padded to a whole batch so the model sees one shape
+    if n <= eval_batch_size:
+        denoised = runner.denoise_spectrogram(torch.from_numpy(noisy)).cpu().numpy()
+    else:
+        outs = []
+        for s in range(0, n, eval_batch_size):
+            chunk = noisy[s : s + eval_batch_size]
+            pad = eval_batch_size - len(chunk)
+            if pad:
+                chunk = np.concatenate([chunk, np.zeros((pad, *chunk.shape[1:]), chunk.dtype)])
+            out = runner.denoise_spectrogram(torch.from_numpy(chunk)).cpu().numpy()
+            outs.append(out[: eval_batch_size - pad])
+        denoised = np.concatenate(outs, axis=0)
+
+    total, s, m, l1 = combined_perceptual_loss(
+        torch.from_numpy(denoised)[:, None].to(dev), torch.from_numpy(clean)[:, None].to(dev))
+    metrics = {"total": float(total), "stft": float(s), "mel": float(m), "l1": float(l1)}
+    print(f"\nLoss metrics for noise type '{noise_type}':")
+    print(f"Total Loss: {metrics['total']:.6f}")
+    print(f"STFT Loss: {metrics['stft']:.6f}")
+    print(f"Mel Loss: {metrics['mel']:.6f}")
+    print(f"L1 Loss: {metrics['l1']:.6f}")
+
+    def zero_phase_audio(mags):
+        spec = torch.from_numpy(mags).to(dev).to(torch.complex64)
+        return stft_lib.istft(spec, hop_length, n_fft=n_fft, center=True, precision="kernel")
+
+    if compute_si_sdr and k > 0:
+        # a spectral proxy: zero-phase iSTFTs of the magnitudes
+        metrics["si_sdr"] = _mean_si_sdr(zero_phase_audio(denoised[:k]),
+                                         zero_phase_audio(clean[:k]), dev)
+        print(f"SI-SDR (mag-only recon): {metrics['si_sdr']:.3f} dB")
+
+    # with the test set's waveforms: denoised magnitude + the noisy phase,
+    # one iSTFT, scored against the real clean waveform
+    na_path = os.path.join(test_data_dir, f"noisy_audio_{noise_type}.npy")
+    ca_path = os.path.join(test_data_dir, "clean_audio.npy")
+    if compute_si_sdr and os.path.exists(na_path) and os.path.exists(ca_path):
+        noisy_audio = np.load(na_path)
+        clean_audio_true = np.load(ca_path)
+        naud = torch.from_numpy(noisy_audio).to(dev)
+        spec = stft_lib.stft(naud, n_fft, hop_length, center=True, precision="kernel")
+        _, phase = stft_lib.magphase(spec)
+        mag = torch.from_numpy(denoised).to(dev)
+        t = min(mag.shape[-1], phase.shape[-1])
+        rec = mag[..., :t].clamp_min(0.0) * phase[..., :t]
+        recon = stft_lib.istft(rec, hop_length, n_fft=n_fft, center=True,
+                               length=naud.shape[-1], precision="kernel").cpu().numpy()
+        # the artifact spectrograms fix the frame count, so the iSTFT covers
+        # only (T-1)*hop samples: score both signals on the covered region
+        covered = max(hop_length, (denoised.shape[-1] - 1) * hop_length)
+        covered = min(covered, recon.shape[-1])
+        metrics["si_sdr_noisy_phase"] = _mean_si_sdr(
+            recon[..., :covered], clean_audio_true[..., :covered], dev)
+        metrics["si_sdr_noisy_input"] = _mean_si_sdr(
+            noisy_audio[..., :covered], clean_audio_true[..., :covered], dev)
+        print(f"SI-SDR (noisy-phase recon vs clean waveform): "
+              f"{metrics['si_sdr_noisy_input']:.3f} -> "
+              f"{metrics['si_sdr_noisy_phase']:.3f} dB")
+        try:
+            metrics["pesq_noisy_input"] = batch_metric_mean(
+                pesq, clean_audio_true[:, :covered], noisy_audio[:, :covered], sample_rate)
+            metrics["pesq_noisy_phase"] = batch_metric_mean(
+                pesq, clean_audio_true[:, :covered], recon[:, :covered], sample_rate)
+            print(f"PESQ-approx (noisy-phase recon vs clean waveform): "
+                  f"{metrics['pesq_noisy_input']:.3f} -> "
+                  f"{metrics['pesq_noisy_phase']:.3f}")
+        except ValueError as e:
+            print(f"PESQ skipped: {e}")
+
+    with open(os.path.join(output_dir, f"{noise_type}_metrics.txt"), "w") as f:
+        f.write(f"Perceptual metrics for noise type '{noise_type}':\n")
+        f.write(f"Total Loss: {metrics['total']:.6f}\n")
+        f.write(f"STFT Loss: {metrics['stft']:.6f}\n")
+        f.write(f"Mel Loss: {metrics['mel']:.6f}\n")
+        f.write(f"L1 Loss: {metrics['l1']:.6f}\n")
+        if "si_sdr" in metrics:
+            f.write(f"SI-SDR (mag-only recon): {metrics['si_sdr']:.3f} dB\n")
+        if "si_sdr_noisy_phase" in metrics:
+            f.write(f"SI-SDR (noisy input): {metrics['si_sdr_noisy_input']:.3f} dB\n")
+            f.write(f"SI-SDR (noisy-phase recon): {metrics['si_sdr_noisy_phase']:.3f} dB\n")
+        if "pesq_noisy_phase" in metrics:
+            f.write(f"PESQ-approx (noisy input): {metrics['pesq_noisy_input']:.3f}\n")
+            f.write(f"PESQ-approx (noisy-phase recon): {metrics['pesq_noisy_phase']:.3f}\n")
+
+    if k > 0:
+        den = torch.from_numpy(np.maximum(denoised[:k], 0.0)).to(dev)
+        den_audio_gl = griffin_lim(den, theta=theta, **gl).cpu().numpy()
+        for i in range(k):
+            write_wav(os.path.join(output_dir, f"{noise_type}_denoised_{i}.wav"),
+                      den_audio_gl[i], sample_rate)
+
+    for i in range(k):
+        _plot_comparison(noisy[i], denoised[i], clean[i],
+                         os.path.join(output_dir, f"{noise_type}_spectrogram_{i}.png"))
+    return metrics
+
+
+@torch.inference_mode()
+def test_noise_type_waveform(
+    model: Optional[nn.Module],
+    noise_type: str,
+    clean_dir: str,
+    noise_dir: str,
+    output_dir: str,
+    mode: str = "complex_mask",
+    sample_rate: int = 8000,
+    n_fft: int = 512,
+    hop_length: int = 128,
+    snr_db: float = 8.0,
+    reverb_wet_level: float = 0.35,
+    num_audio_examples: int = 5,
+    seed: int = 0,
+    bypass_db: Optional[float] = 40.0,
+    write_artifacts: bool = True,
+    runner: Optional[DenoiserRunner] = None,
+    device: DeviceLike = None,
+) -> Optional[dict]:
+    """Waveform-domain evaluation: corrupt the clean wavs on the device
+    (draws from a generator seeded with ``seed``), denoise through the
+    runner's fused path in ``mode`` (K1, model, K2), and score the combined
+    spectral loss, SI-SDR (mean, clamped at 30 dB, median), STOI and PESQ.
+    Writes ``{nt}_metrics.txt`` and example wavs unless ``write_artifacts``
+    is off. ``bypass_db`` (None or <= 0 disables) applies
+    :func:`identity_bypass`. ``runner`` is reused when given, else one is
+    built for ``model`` on ``device``."""
+    from audiodenoiser_torch.data.builders import _corrupt_and_featurize
+    from audiodenoiser_torch.data.pipeline import NoiseBank
+    from audiodenoiser_torch.data.wav_io import load_wav_list, read_wav, write_wav
+
+    print(f"\n=== Waveform eval ({mode}) on noise type: {noise_type} ===")
+    clean_files = load_wav_list(clean_dir)
+    if not clean_files:
+        print(f"Skipping {noise_type}, no wavs in {clean_dir}")
+        return None
+    if runner is None:
+        runner = DenoiserRunner(model, n_fft, hop_length, device=device)
+    dev = runner.device
+    clips = [read_wav(f, sample_rate=sample_rate)[0] for f in clean_files]
+    min_len = min(len(c) for c in clips)
+    clean = torch.from_numpy(np.stack([c[:min_len] for c in clips])).to(dev)
+    noise_files = load_wav_list(noise_dir) if os.path.isdir(noise_dir) else []
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if noise_files and noise_type == "urban":
+        segs = NoiseBank([read_wav(f, sample_rate=sample_rate)[0] for f in noise_files],
+                         target_len=min_len, device=dev).sample(gen, clean.shape[0])
+    else:
+        segs = torch.zeros_like(clean)
+    noisy_audio, clean_mag, _ = _corrupt_and_featurize(
+        clean, segs, noise_type, n_fft, hop_length, True, sample_rate, snr_db,
+        reverb_wet_level, generator=gen)
+
+    if bypass_db is not None and bypass_db <= 0:
+        bypass_db = None
+    den_audio = runner.denoise_audio(noisy_audio, mode=mode, bypass_db=bypass_db)
+    den_mag = stft_lib.stft(den_audio, n_fft, hop_length, center=True,
+                            precision="kernel").abs()
+
+    total, s, m, l1 = combined_perceptual_loss(den_mag[:, None], clean_mag[:, None])
+    sdr_n_clips = si_sdr(noisy_audio, clean).cpu().numpy()
+    sdr_d_clips = si_sdr(den_audio, clean).cpu().numpy()
+    sdr_noisy = float(sdr_n_clips.mean())
+    sdr_den = float(sdr_d_clips.mean())
+    # SI-SDR is unbounded on clips a stochastic corruption left untouched,
+    # so the robust aggregates stand beside the mean: a per-clip clamp at
+    # 30 dB and the median
+    clamp = 30.0
+    metrics = {
+        "total": float(total), "stft": float(s), "mel": float(m),
+        "l1": float(l1), "si_sdr_noisy": sdr_noisy, "si_sdr": sdr_den,
+        "si_sdr30_noisy": float(np.minimum(sdr_n_clips, clamp).mean()),
+        "si_sdr30": float(np.minimum(sdr_d_clips, clamp).mean()),
+        "si_sdr_median_noisy": float(np.median(sdr_n_clips)),
+        "si_sdr_median": float(np.median(sdr_d_clips)),
+    }
+    print(f"Total Loss: {metrics['total']:.6f}")
+    print(f"SI-SDR: {sdr_noisy:.3f} dB (noisy) -> {sdr_den:.3f} dB (denoised)")
+    print(f"SI-SDR (clamped@30): {metrics['si_sdr30_noisy']:.3f} -> "
+          f"{metrics['si_sdr30']:.3f} dB | median: "
+          f"{metrics['si_sdr_median_noisy']:.3f} -> {metrics['si_sdr_median']:.3f} dB")
+    clean_np = clean.cpu().numpy()
+    noisy_np = noisy_audio.cpu().numpy()
+    den_np = den_audio.cpu().numpy()
+    try:  # per-clip degenerate inputs drop out of the mean
+        metrics["stoi_noisy"] = batch_metric_mean(stoi, clean_np, noisy_np, sample_rate)
+        metrics["stoi"] = batch_metric_mean(stoi, clean_np, den_np, sample_rate)
+        print(f"STOI: {metrics['stoi_noisy']:.4f} (noisy) -> {metrics['stoi']:.4f} (denoised)")
+    except ValueError as e:  # every clip too short or silent
+        print(f"STOI skipped: {e}")
+    try:
+        metrics["pesq_noisy"] = batch_metric_mean(pesq, clean_np, noisy_np, sample_rate)
+        metrics["pesq"] = batch_metric_mean(pesq, clean_np, den_np, sample_rate)
+        print(f"PESQ-approx: {metrics['pesq_noisy']:.3f} (noisy) -> "
+              f"{metrics['pesq']:.3f} (denoised)")
+    except ValueError as e:  # every clip shorter than the 64 ms minimum
+        print(f"PESQ skipped: {e}")
+
+    if not write_artifacts:  # multi-seed repeats: metrics only
+        return metrics
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, f"{noise_type}_metrics.txt"), "w") as f:
+        f.write(f"Waveform-domain metrics ({mode}) for noise type '{noise_type}':\n")
+        f.write(f"Total Loss: {metrics['total']:.6f}\n")
+        f.write(f"STFT Loss: {metrics['stft']:.6f}\n")
+        f.write(f"Mel Loss: {metrics['mel']:.6f}\n")
+        f.write(f"L1 Loss: {metrics['l1']:.6f}\n")
+        f.write(f"SI-SDR noisy: {sdr_noisy:.3f} dB\n")
+        f.write(f"SI-SDR denoised: {sdr_den:.3f} dB\n")
+        f.write(f"SI-SDR clamped@30 noisy: {metrics['si_sdr30_noisy']:.3f} dB\n")
+        f.write(f"SI-SDR clamped@30 denoised: {metrics['si_sdr30']:.3f} dB\n")
+        f.write(f"SI-SDR median noisy: {metrics['si_sdr_median_noisy']:.3f} dB\n")
+        f.write(f"SI-SDR median denoised: {metrics['si_sdr_median']:.3f} dB\n")
+        if "stoi" in metrics:
+            f.write(f"STOI noisy: {metrics['stoi_noisy']:.4f}\n")
+            f.write(f"STOI denoised: {metrics['stoi']:.4f}\n")
+        if "pesq" in metrics:
+            f.write(f"PESQ-approx noisy: {metrics['pesq_noisy']:.3f}\n")
+            f.write(f"PESQ-approx denoised: {metrics['pesq']:.3f}\n")
+            f.write(
+                "# PESQ-approx is a calibrated approximation of ITU-T "
+                "P.862, valid for\n# internal deltas only — NOT comparable "
+                "to published P.862 scores.\n"
+            )
+    k = min(num_audio_examples, clean.shape[0])
+    for i in range(k):
+        write_wav(os.path.join(output_dir, f"{noise_type}_noisy_{i}.wav"),
+                  noisy_np[i], sample_rate)
+        write_wav(os.path.join(output_dir, f"{noise_type}_denoised_{i}.wav"),
+                  den_np[i], sample_rate)
+    return metrics

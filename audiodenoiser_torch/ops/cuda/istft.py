@@ -56,7 +56,16 @@ def frames_per_block_log2(batch: int, n_frames: int, n_fft: int, hop_length: int
 
 def istft_plain(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
                 n_fft: int = 512, hop_length: int = 128) -> torch.Tensor:
-    """``torch.fft.irfft`` + window + ``overlap_add``: (B, F, T) -> (B, L)."""
+    """``torch.fft.irfft`` + window + ``overlap_add``: (B, F, T) -> (B, L).
+
+    The imaginary parts of the DC bin and, for an even ``n_fft``, of the
+    Nyquist bin are dropped first, as irfft on the CPU, B2's bases and K2
+    drop them: cuFFT's C2R takes its input as Hermitian and does not ignore
+    them at every ``n_fft``."""
+    im = im.clone()
+    im[:, 0] = 0
+    if n_fft % 2 == 0:
+        im[:, -1] = 0
     spec = torch.complex(re, im).transpose(-1, -2)
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
     return overlap_add(frames, hop_length)

@@ -11,7 +11,9 @@
   (HTTP 503) instead of growing without bound.
 - ``make_http_server``: ``GET /healthz``, ``GET /metrics`` (Prometheus
   text with a latency histogram) and ``POST /denoise`` with WAV bytes in
-  and out (``X-Latency-Ms`` header, ``?mode=``); with a ``stream_factory``
+  and out (``X-Latency-Ms`` header, ``?mode=``: the Griffin-Lim modes
+  draw their initial phase from one constant seed, as the JAX service's
+  constant key does); with a ``stream_factory``
   also the chunked streaming API, ``POST /stream/start``,
   ``POST /stream/{id}`` and ``POST /stream/{id}/flush``.
 """

@@ -38,6 +38,20 @@ from the root of a checkout. Phases, each fatal on failure:
    (plain versions) for one 2 s clip and compare; the same for the mask
    slice, and a streamed fp32 mask session against the offline
    ``StreamingDenoiser.denoise`` of the same signal;
+4c. evaluation: the plain iSTFT on the card ignores imaginary DC and
+   Nyquist parts (n_fft 512 and 2048) and K2 agrees with it on the spectrum
+   it was given; Griffin-Lim (50 iterations, 5 clips of 3 s, both modes)
+   through K1 and K2 on the card against the plain versions on the CPU from
+   one magnitude and initial phase, K1 launched 50 and K2 51 times a call
+   through their FFT entries, and its time a call with the kernels and with
+   ``torch.fft``; ``python -m audiodenoiser_torch.cli.create_test_dataset``
+   on 8 synthetic 3 s wavs and 3 noise wavs; three ``cli.test`` runs over
+   that set (the full-width U-Net's specialists in ``reference_gl`` and
+   ``griffin_lim``, and the universal mask model over the four noise types
+   and 2 seeds), their artifacts, metrics and each specialist's K1/K2
+   launches; one ``/denoise`` request each in ``?mode=griffin_lim`` and
+   ``?mode=reference_gl`` on ``cli.serve --mode griffin_lim``, each against
+   a direct runner call on the batch the service formed;
 5. one full-width fp32 training step (mixer with K1, U-Net with K3) on the
    card against the CPU from the same weights, chunks and noise draws (the
    two featurizations within one float16 rounding, then one batch for both);
@@ -1062,13 +1076,13 @@ def phase_train_fit(torch, rows, tmp):
         print(f"[train profile] {prof}", flush=True)
 
 
-def _write_wav_dir(path: str, n_files: int):
+def _write_wav_dir(path: str, n_files: int, seconds: float = 4.0):
     from audiodenoiser_torch.data.wav_io import write_wav
     from audiodenoiser_torch.train.bench import synth_chunks
 
     os.makedirs(path, exist_ok=True)
     for i, chunk in enumerate(synth_chunks(2 * n_files, seed=3).reshape(n_files, -1)):
-        write_wav(os.path.join(path, f"clean_{i}.wav"), chunk, SR)
+        write_wav(os.path.join(path, f"clean_{i}.wav"), chunk[: int(seconds * SR)], SR)
 
 
 def phase_train_cli(tmp):
@@ -1090,6 +1104,314 @@ def phase_train_cli(tmp):
     check(os.path.exists(os.path.join(export, "unet_denoiser_white.pth")),
           "cli.train wrote no export")
     print(f"[train cli] exit 0 in {time.perf_counter() - t0:.1f} s, export written", flush=True)
+
+
+GL_ITERS = 50
+GL_TOL = {"reference": 1e-4, "correct": 1e-3}  # tests/test_torch_griffin_lim.py
+# K1 and K2 launches of one specialist's test_single_noise_type (5 example
+# clips): two Griffin-Lim calls of 50 iterations (K1 50, K2 51 each), two
+# zero-phase iSTFTs for the magnitude-only SI-SDR, and the noisy-phase
+# reconstruction's STFT and iSTFT
+SPECIALIST_LAUNCHES = {"stft_kernel": {"fft": 2 * GL_ITERS + 1, "direct": 0},
+                       "istft_kernel": {"fft": 2 * (GL_ITERS + 1) + 3, "direct": 0}}
+# ... and of the universal mask model over one noise type at --n_seeds 2:
+# per seed, the corruption's two STFTs, the runner's STFT and iSTFT, and the
+# denoised clips' STFT
+MASK_EVAL_LAUNCHES = {"stft_kernel": {"fft": 2 * 4, "direct": 0},
+                      "istft_kernel": {"fft": 2 * 1, "direct": 0}}
+
+
+def eval_istft_edges(torch, rng):
+    """C.1 on the card: the plain iSTFT drops imaginary DC and Nyquist parts
+    as irfft on the CPU does, and K2 agrees with it on the very spectrum it
+    was given."""
+    from audiodenoiser_torch.dsp.window import hann_window
+    from audiodenoiser_torch.ops.cuda import istft_kernel, istft_plain
+
+    for n_fft, hop in ((512, 128), (2048, 512)):
+        shape = (16, n_fft // 2 + 1, 60)
+        spec = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        zeroed = spec.copy()
+        zeroed[:, [0, -1]] = zeroed[:, [0, -1]].real
+        spec[:, [0, -1]] += 50j * rng.standard_normal((16, 2, 60))
+        re, im = torch.view_as_real(torch.from_numpy(spec.astype("complex64")).cuda()).unbind(-1)
+        re_z, im_z = torch.view_as_real(
+            torch.from_numpy(zeroed.astype("complex64")).cuda()).unbind(-1)
+        w = torch.from_numpy(hann_window(n_fft)).cuda()
+        plain = istft_plain(re, im, w, n_fft, hop)
+        plain_zeroed = istft_plain(re_z, im_z, w, n_fft, hop)
+        kernel = istft_kernel(re, im, w, n_fft, hop)
+        torch.cuda.synchronize()
+        scale = plain_zeroed.abs().max().item()
+        gap = (plain - plain_zeroed).abs().max().item() / scale
+        err = (kernel - plain).abs().max().item() / plain.abs().max().item()
+        print(f"[eval] C.1 n_fft={n_fft}: istft_plain with imaginary DC/Nyquist parts vs "
+              f"zeroed max_rel_err={gap:.3e}; K2 vs istft_plain on that spectrum "
+              f"max_rel_err={err:.3e}", flush=True)
+        check(gap <= 1e-6, f"istft_plain used imaginary DC/Nyquist parts at n_fft {n_fft}")
+        check(err <= 1e-5, f"K2 disagrees with istft_plain at n_fft {n_fft}")
+
+
+def eval_griffin_lim(torch, card):
+    """Griffin-Lim on the card (K1 and K2) against the CPU (plain versions),
+    from one magnitude and one initial phase, at 1, 5 and 50 iterations;
+    exact launch counts at 50; the time a call with either precision."""
+    from audiodenoiser_torch.dsp.griffin_lim import griffin_lim, initial_phase
+    from audiodenoiser_torch.dsp.stft import stft
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+    from audiodenoiser_torch.train.bench import synth_chunks
+
+    clips = synth_chunks(10, seed=6).reshape(5, -1)[:, : 3 * SR]  # 5 clips of 3 s
+    mag = stft(torch.from_numpy(clips), N_FFT, HOP).abs()
+    theta = initial_phase(mag.shape, torch.Generator().manual_seed(2))
+    mag_d, theta_d = mag.cuda(), theta.cuda()
+    for mode in ("reference", "correct"):
+        errs = {}
+        for n_iter in (1, 5, GL_ITERS):
+            kw = dict(n_iter=n_iter, mode=mode, length=3 * SR, precision="kernel")
+            reset_launch_counts()
+            card_out = griffin_lim(mag_d, theta=theta_d, **kw)
+            torch.cuda.synchronize()
+            launches = {k.__name__: k.launches for k in (stft_kernel, istft_kernel)}
+            check(launches == {"stft_kernel": n_iter, "istft_kernel": n_iter + 1},
+                  f"Griffin-Lim ({mode}, {n_iter} iterations) launched {launches}")
+            require_variants(f"Griffin-Lim ({mode}, {n_iter} iterations)",
+                             {"stft_kernel": "fft", "istft_kernel": "fft"})
+            cpu_out = griffin_lim(mag, theta=theta, **kw)
+            card_out = card_out.cpu()
+            check(bool(torch.isfinite(card_out).all()), "non-finite Griffin-Lim output")
+            errs[n_iter] = ((card_out - cpu_out).norm() / cpu_out.norm()).item()
+        print(f"[eval] Griffin-Lim {mode}, card (K1, K2) vs CPU (plain), rel_err by "
+              f"iterations: {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}",
+              flush=True)
+        check(errs[GL_ITERS] < GL_TOL[mode], f"Griffin-Lim ({mode}) card vs CPU")
+    times = {}
+    for precision in ("kernel", "fft"):
+        times[precision] = time_ms(lambda: griffin_lim(
+            mag_d, theta=theta_d, n_iter=GL_ITERS, length=3 * SR, precision=precision),
+            reps=10, warmup=2)
+    print(f"[eval] Griffin-Lim, {GL_ITERS} iterations, 5 clips of 3 s, ms a call: "
+          f"precision=kernel {times['kernel']:.3f}, precision=fft {times['fft']:.3f} "
+          f"({card})", flush=True)
+
+
+def _noise_wavs(path):
+    """3 noise wavs of 1, 3 and 5 s: one tiled, one as long as a clip, one
+    snipped at a random start."""
+    import numpy as np
+
+    from audiodenoiser_torch.data.wav_io import write_wav
+
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(7)
+    for i, seconds in enumerate((1, 3, 5)):
+        write_wav(os.path.join(path, f"noise_{i}.wav"),
+                  np.clip(0.3 * rng.standard_normal(seconds * SR), -1, 1), SR)
+
+
+def _start_cli(label, args, log_dir):
+    """Start ``python -m <args>`` from the checkout, its output to a file,
+    and a thread that notes the moment it exits."""
+    env = {**os.environ, "PYTHONPATH": HERE}
+    log = open(os.path.join(log_dir, f"{re.sub(r'[^a-z0-9]+', '_', label)}.log"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE, env=env,
+                            stdout=log, stderr=subprocess.STDOUT, text=True)
+    ended = []
+    watcher = threading.Thread(target=lambda: ended.append((proc.wait(), time.perf_counter())),
+                               daemon=True)
+    watcher.start()
+    return label, proc, log, t0, watcher, ended
+
+
+def _finish_cli(started):
+    """Wait for a started CLI: its output and wall seconds, start to exit;
+    fails the run unless it exited 0 within 600 s."""
+    label, proc, log, t0, watcher, ended = started
+    watcher.join(timeout=600)
+    check(bool(ended), f"{label} ran past 600 s")
+    log.seek(0)
+    out = log.read()
+    for line in out.strip().splitlines()[-4:]:
+        print(f"[{label}] {line}", flush=True)
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}")
+    return out, ended[0][1] - t0
+
+
+def _metrics_file_numbers(path):
+    """Every number of a metrics file: ``name: value[ dB][ +- std]`` lines."""
+    numbers = []
+    for line in open(path).read().splitlines():
+        m = re.match(r"^[^#].*?: (\S+)(?: dB)?(?: \+- (\S+))?$", line)
+        if m:
+            numbers += [float(x) for x in m.groups() if x is not None]
+    return numbers
+
+
+def eval_cli(tmp, mask_variables, card):
+    """``cli.create_test_dataset`` and three ``cli.test`` runs, each in a
+    subprocess on the card, over full-width seeded models the port exported."""
+    clean_dir, noise_dir = os.path.join(tmp, "test", "clean"), os.path.join(tmp, "test", "noise")
+    _write_wav_dir(clean_dir, 8, seconds=3.0)
+    _noise_wavs(noise_dir)
+    data = os.path.join(tmp, "test_processed")
+    saved = _export_eval_models(tmp, mask_variables)
+    # two at a time, to overlap each process's start (torch, CUDA): the
+    # mask run reads the wavs and runs beside the test set's build, then
+    # the two specialist runs read that set side by side
+    cli_test = ["audiodenoiser_torch.cli.test", "--saved_models_dir", saved, "--test_data_dir",
+                data, "--clean_dir", clean_dir, "--noise_dir", noise_dir]
+    noise_types = ("white", "urban", "reverb", "noise_cancellation")
+    runs = (("--model complex_mask --universal --n_seeds 2", noise_types, MASK_EVAL_LAUNCHES),
+            ("--model unet --gl_mode reference_gl", ("white", "reverb"), SPECIALIST_LAUNCHES),
+            ("--model unet --gl_mode griffin_lim", ("urban",), SPECIALIST_LAUNCHES))
+
+    def start_test(i):
+        label, types, _ = runs[i]
+        return _start_cli(f"cli.test {label}", [
+            *cli_test, "--output_dir", os.path.join(tmp, f"out_{i}"), *label.split(),
+            "--noise_types", *types], tmp)
+
+    create = _start_cli("create_test_dataset", [
+        "audiodenoiser_torch.cli.create_test_dataset", "--clean_dir", clean_dir,
+        "--noise_dir", noise_dir, "--output_dir", data], tmp)
+    started = [create, start_test(0)]
+    try:
+        _, wall = _finish_cli(create)
+        started += [start_test(1), start_test(2)]
+        check_eval_runs(tmp, data, runs, started[1:], wall, card)
+    finally:  # a failed check leaves no process running
+        for _, proc, log, *_ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return saved
+
+
+def check_eval_runs(tmp, data, runs, started, create_wall, card):
+    """The test set's files, then each ``cli.test`` run's artifacts, metrics
+    and launches."""
+    import importlib.util
+
+    import numpy as np
+
+    noise_types = runs[0][1]
+    frames = 1 + 3 * SR // HOP
+    want = {"clean_audio.npy": (8, 3 * SR)}
+    for nt in noise_types:
+        want.update({f"clean_{nt}.npy": (8, N_FFT // 2 + 1, frames),
+                     f"noisy_{nt}.npy": (8, N_FFT // 2 + 1, frames),
+                     f"noisy_audio_{nt}.npy": (8, 3 * SR)})
+    check(sorted(os.listdir(data)) == sorted(want), f"test set files {os.listdir(data)}")
+    for name, shape in want.items():
+        a = np.load(os.path.join(data, name))
+        check(a.shape == shape and a.dtype == np.float32 and bool(np.isfinite(a).all()),
+              f"{name}: {a.shape} {a.dtype}")
+    print(f"[eval] cli.create_test_dataset wrote {len(want)} arrays of the expected names, "
+          f"shapes and dtypes in {create_wall:.1f} s, beside the mask run ({card})", flush=True)
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    for i, (label, types, launches) in enumerate(runs):
+        stdout, wall = _finish_cli(started[i])
+        out_dir = os.path.join(tmp, f"out_{i}")
+        seen = {m.group(1): json.loads(m.group(2))
+                for m in re.finditer(r"^\[launches\] (\S+) (.*)$", stdout, re.M)}
+        mask = "complex_mask" in label
+        for nt in types:
+            check(seen.get(nt) == launches,
+                  f"cli.test {label}: {nt} launched {seen.get(nt)}, expected {launches}")
+            names = [f"{nt}_metrics.txt"] + [f"{nt}_{kind}_{i}.wav" for i in range(5)
+                                              for kind in ("noisy", "denoised")]
+            if mask:
+                names.append(f"{nt}_metrics_multiseed.txt")
+            elif plots:
+                names += [f"{nt}_spectrogram_{i}.png" for i in range(5)]
+            missing = [n for n in names if not os.path.exists(os.path.join(out_dir, n))]
+            check(not missing, f"cli.test {label} wrote no {missing}")
+            for name in names:
+                if name.endswith(".txt"):
+                    numbers = _metrics_file_numbers(os.path.join(out_dir, name))
+                    check(len(numbers) >= 4 and all(math.isfinite(x) for x in numbers),
+                          f"cli.test {label}: {name} holds {numbers}")
+        print(f"[eval] cli.test {label}: exit 0 in {wall:.1f} s, two runs at a time ({card}); "
+              f"{len(os.listdir(out_dir))} artifacts, every metric finite"
+              f"{'' if plots or mask else ' (no matplotlib: no PNGs)'}; launches a noise "
+              f"type {json.dumps(launches)} as counted from the code", flush=True)
+
+
+def _export_eval_models(tmp, mask_variables):
+    """The full-width exports ``cli.test`` reads: one seeded magnitude U-Net
+    as the white, urban and reverb specialists, and the mask deployment."""
+    from audiodenoiser_torch.models import random_flax_variables
+    from audiodenoiser_torch.train.checkpoints import export_model
+
+    saved = os.path.join(tmp, "saved_models")
+    os.makedirs(saved)
+    unet = random_flax_variables(8)
+    export_model(os.path.join(saved, "unet_denoiser_white.ckpt"), unet["params"],
+                 unet["batch_stats"])
+    for nt in ("urban", "reverb"):  # one set of weights for every specialist
+        os.link(os.path.join(saved, "unet_denoiser_white.ckpt"),
+                os.path.join(saved, f"unet_denoiser_{nt}.ckpt"))
+    export_model(os.path.join(saved, "mask_denoiser_mixed.ckpt"), mask_variables["params"],
+                 mask_variables["batch_stats"])
+    with open(os.path.join(saved, "mask_denoiser_mixed.json"), "w") as f:
+        json.dump({"width_mult": 1.0, "mask_bound": 2.0, "residual": True}, f)
+    return saved
+
+
+def eval_http(torch, rng, saved):
+    """``cli.serve --model unet --mode griffin_lim``: one request in each
+    Griffin-Lim mode, each against a direct runner call on the padded batch
+    of one, which draws the same initial phase (the constant seed)."""
+    import numpy as np
+
+    from audiodenoiser_torch.cli.serve import build_server, parse_args
+    from audiodenoiser_torch.data.wav_io import read_wav
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+
+    service, server, name = build_server(parse_args([
+        "--model", "unet", "--noise_type", "white", "--saved_models_dir", saved,
+        "--mode", "griffin_lim", "--port", "0", "--max_seconds", "10"]))
+    try:
+        runner = service.runner
+        check(name == "unet_denoiser_white" and service.default_mode == "griffin_lim"
+              and runner.mode == "noisy_phase", "cli.serve built the wrong deployment")
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        clip = np.clip(0.2 * rng.standard_normal(int(2.6 * SR)), -1, 1).astype(np.float32)
+        sent = read_wav(io.BytesIO(_wav(clip)))[0]
+        padded = np.zeros((1, service._bucket_len(len(sent))), np.float32)
+        padded[0, : len(sent)] = sent
+        for mode in ("griffin_lim", "reference_gl"):
+            reset_launch_counts()
+            answer = _post(url, _wav(clip), f"?mode={mode}")
+            launches = {k.__name__: k.launches for k in (stft_kernel, istft_kernel)}
+            check(launches == {"stft_kernel": 1 + GL_ITERS, "istft_kernel": GL_ITERS + 1},
+                  f"?mode={mode} launched {launches}")
+            require_variants(f"the ?mode={mode} request",
+                             {"stft_kernel": "fft", "istft_kernel": "fft"})
+            direct = runner.denoise_audio(torch.from_numpy(padded), mode=mode)[0, : len(sent)]
+            check_answer(f"?mode={mode}", sent, answer, direct)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def phase_eval(torch, rng, mask_variables, card):
+    """Phase 4c: the evaluation path on the card."""
+    eval_istft_edges(torch, rng)
+    eval_griffin_lim(torch, card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        t0 = time.perf_counter()
+        saved = eval_cli(tmp, mask_variables, card)
+        eval_http(torch, rng, saved)
+        print(f"[eval] phase 4c's files, CLIs and requests in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> None:
@@ -1127,6 +1449,9 @@ def main() -> None:
     mask_variables = phase_mask_serve(torch, rng, rows)
     phase_slice_fp32(torch, rng)
     phase_mask_fp32(torch, rng, mask_variables)
+    t0 = time.perf_counter()
+    phase_eval(torch, rng, mask_variables, card)
+    print(f"[eval] phase 4c in {time.perf_counter() - t0:.1f} s", flush=True)
     phase_train_step_fp32(torch)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:

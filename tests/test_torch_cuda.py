@@ -92,16 +92,10 @@ def test_istft_kernel_matches_plain(dev, batch, n_frames, n_fft, hop, strided, e
     re, im = parts[..., 0], parts[..., 1]
     if not strided:
         re, im = re.contiguous(), im.contiguous()
-    # the reference on the spectrum as irfft defines it: cuFFT's C2R takes
-    # its input as Hermitian and need not ignore those imaginary parts
-    im_ref = im.clone()
-    im_ref[:, 0] = 0
-    if n_fft % 2 == 0:
-        im_ref[:, -1] = 0
     w = torch.from_numpy(hann_window(n_fft)).to(dev)
     before = istft_kernel.launches, variant_launches(istft_kernel)
     ours = istft_kernel(re, im, w, n_fft, hop)
-    ref = istft_plain(re, im_ref, w, n_fft, hop)
+    ref = istft_plain(re, im, w, n_fft, hop)
     torch.cuda.synchronize()
     assert istft_kernel.launches == before[0] + 1
     entry = "fft" if n_fft & (n_fft - 1) == 0 else "direct"
@@ -110,6 +104,31 @@ def test_istft_kernel_matches_plain(dev, batch, n_frames, n_fft, hop, strided, e
         "fft": int(entry == "fft"), "direct": int(entry == "direct")}
     assert ours.shape == ref.shape == (batch, (n_frames - 1) * hop + n_fft)
     assert _max_rel(ours, ref) < 1e-5
+
+
+@pytest.mark.parametrize("n_fft,hop", [(512, 128), (2048, 512), (255, 64)])
+def test_istft_plain_ignores_imaginary_dc_and_nyquist(dev, n_fft, hop):
+    """cuFFT's C2R takes its input as Hermitian and used these parts at
+    n_fft 2048; the plain version drops them, as irfft on the CPU does."""
+    from audiodenoiser_torch.dsp.window import hann_window
+    from audiodenoiser_torch.ops.cuda import istft_plain
+
+    rng = np.random.default_rng(3)
+    f = n_fft // 2 + 1
+    re = torch.from_numpy(rng.standard_normal((3, f, 20)).astype(np.float32)).to(dev)
+    im = torch.from_numpy(rng.standard_normal((3, f, 20)).astype(np.float32)).to(dev)
+    im_zeroed = im.clone()
+    im_zeroed[:, 0] = 0
+    im[:, 0] += 50
+    if n_fft % 2 == 0:  # an odd n_fft has no Nyquist bin: its last bin counts
+        im_zeroed[:, -1] = 0
+        im[:, -1] -= 50
+    w = torch.from_numpy(hann_window(n_fft)).to(dev)
+    ours = istft_plain(re, im, w, n_fft, hop)
+    ref = istft_plain(re, im_zeroed, w, n_fft, hop)
+    assert _max_rel(ours, ref) < 1e-6
+    cpu = istft_plain(re.cpu(), im.cpu(), w.cpu(), n_fft, hop)
+    assert _max_rel(ours.cpu(), cpu) < 1e-5
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
@@ -322,3 +341,59 @@ def test_mask_runner_on_card_matches_cpu(dev):
             outs[d] = runner.denoise_audio(audio).cpu()
     rel = (outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()
     assert rel < 1e-4, rel
+
+
+def test_denoise_waveform_on_card_matches_cpu(dev):
+    """``denoise_waveform`` in fp32 through the kernels on the card against
+    the plain versions on the CPU: its mask makes the DC and Nyquist bins
+    complex, which the plain iSTFT drops on both devices."""
+    from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
+        denoise_waveform,
+        load_flax_variables,
+        random_flax_variables,
+    )
+
+    v = random_flax_variables(3, (8, 16, 32, 64), 128, in_channels=3, out_channels=2)
+    rng = np.random.default_rng(4)
+    audio = torch.from_numpy(np.clip(0.2 * rng.standard_normal((2, 7000)), -1, 1)
+                             .astype(np.float32))
+    outs = {}
+    for d in ("cuda", "cpu"):
+        model = load_flax_variables(ComplexMaskUNet(mask_bound=2.0, residual=True,
+                                                    features=(8, 16, 32, 64),
+                                                    bottleneck=128), v).eval().to(d)
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            outs[d] = denoise_waveform(model, audio.to(d)).cpu()
+    rel = (outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()
+    assert rel < 1e-4, rel
+
+
+@pytest.mark.parametrize("mode", ["reference", "correct"])
+def test_griffin_lim_on_card_matches_cpu(dev, mode):
+    """Griffin-Lim at 50 iterations through K1 and K2 on the card against the
+    plain versions on the CPU, on one magnitude and one initial phase: K1
+    launches n_iter times and K2 n_iter + 1, all through their FFT entries.
+    Bounds as tests/test_torch_griffin_lim.py holds the CPU to JAX: 1e-4 in
+    ``reference`` mode, 1e-3 in ``correct`` mode."""
+    from audiodenoiser_torch.dsp.griffin_lim import griffin_lim, initial_phase
+    from audiodenoiser_torch.dsp.stft import stft
+    from audiodenoiser_torch.ops.cuda import (
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+        variant_launches,
+    )
+    from audiodenoiser_torch.train.bench import synth_chunks
+
+    mag = stft(torch.from_numpy(synth_chunks(3, seed=5)), 512, 128).abs()
+    theta = initial_phase(mag.shape, torch.Generator().manual_seed(1))
+    reset_launch_counts()
+    ours = griffin_lim(mag.to(dev), theta=theta.to(dev), n_iter=50, mode=mode,
+                       length=16000, precision="kernel").cpu()
+    assert variant_launches(stft_kernel) == {"fft": 50, "direct": 0}
+    assert variant_launches(istft_kernel) == {"fft": 51, "direct": 0}
+    ref = griffin_lim(mag, theta=theta, n_iter=50, mode=mode, length=16000,
+                      precision="kernel")
+    rel = (ours - ref).norm() / ref.norm()
+    assert rel < {"reference": 1e-4, "correct": 1e-3}[mode], rel

@@ -137,11 +137,29 @@ class TestIdentityBypass:
 
 
 class TestModes:
-    @pytest.mark.parametrize("mode,item", [("griffin_lim", "A.7"),
-                                           ("reference_gl", "A.7")])
-    def test_unported_modes_name_their_roadmap_item(self, port_runner, mode, item):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            port_runner.denoise_audio(torch.zeros(1, 1000), mode=mode)
+    @pytest.mark.parametrize("mode,gl_mode", [("griffin_lim", "correct"),
+                                              ("reference_gl", "reference")])
+    def test_unported_modes_name_their_roadmap_item(self, variables, port_runner, mode,
+                                                    gl_mode):
+        """The Griffin-Lim modes, once refused naming ROADMAP A.7, are served
+        by a magnitude model: the port's runner against the JAX runner on
+        JAX's initial phase (5 iterations; tests/test_torch_griffin_lim.py
+        holds 50). A mask model refuses them naming the mode it serves."""
+        audio = _audio((2, 3000), seed=4)
+        key = jax.random.key(1)
+        ref = np.asarray(_jax_runner(variables, "fft").denoise_audio(
+            jnp.asarray(audio), key, mode=mode, gl_iters=5))
+        theta = np.array(jax.random.uniform(key, (2, 257, 1 + 3072 // 128),
+                                            minval=0.0, maxval=2.0 * np.pi))
+        ours = port_runner.denoise_audio(torch.from_numpy(audio), mode=mode, gl_iters=5,
+                                         theta=torch.from_numpy(theta)).numpy()
+        assert ours.shape == ref.shape == audio.shape
+        assert _rel(ours, ref) < 1e-4, (gl_mode, _rel(ours, ref))
+        from audiodenoiser_torch.models import ComplexMaskUNet
+
+        mask = DenoiserRunner(ComplexMaskUNet(mask_bound=2.0, **NARROW).eval(), device="cpu")
+        with pytest.raises(NotImplementedError, match="serves 'complex_mask'"):
+            mask.denoise_audio(torch.zeros(1, 1000), mode=mode)
 
     def test_unknown_mode_is_value_error(self, port_runner):
         with pytest.raises(ValueError, match="unknown mode"):

@@ -330,13 +330,17 @@ class TestServeCLI:
             _cli(mask_dir, *flag)
 
     @pytest.mark.parametrize("model,mode,message", [
-        ("complex_mask", "griffin_lim", "ROADMAP A.7"),
-        ("unet", "reference_gl", "ROADMAP A.7"),
+        ("complex_mask", "griffin_lim", "serves complex_mask"),
+        ("unet", "reference_gl", None),  # a magnitude model serves the Griffin-Lim modes
         ("complex_mask", "auto", "ROADMAP A.10"),
         ("complex_mask", "noisy_phase", "serves complex_mask"),
         ("unet", "complex_mask", "serves noisy_phase"),
     ])
     def test_mode_must_be_the_models_own(self, model, mode, message):
+        """A mode the model does not serve exits naming the modes it does."""
+        if message is None:
+            assert serve_cli.parse_args(["--model", model, "--mode", mode]).mode == mode
+            return
         with pytest.raises(SystemExit, match=message):
             serve_cli.parse_args(["--model", model, "--mode", mode])
 
