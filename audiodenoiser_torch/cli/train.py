@@ -1,23 +1,30 @@
-"""CLI: train the U-Net denoiser on the GPU (port of ``cli/train.py``).
+"""CLI: train a denoiser on the GPU (port of ``cli/train.py``).
 
 Usage:
   python -m audiodenoiser_torch.cli.train --base_dataset_path data/train_processed \
       --noise_type white --epochs 50 --export_dir ./saved_models
   python -m audiodenoiser_torch.cli.train --base_dataset_path data \
       --pipeline on_device --noise_type white --steps_per_epoch 500
+  python -m audiodenoiser_torch.cli.train --base_dataset_path data \
+      --model complex_mask --pipeline on_device --noise_type mixed --export_dir ./saved_models
 
 ``--pipeline npy`` reads prebuilt (noisy, clean) spectrogram pairs;
 ``--pipeline on_device`` synthesizes noise and STFTs (the K1 kernel) on
 the card from a folder of clean wavs (``clean/``, and ``noise/`` for
-urban or mixed). The best model is exported as the reference-layout
-``unet_denoiser_{noise_type}.pth`` that ``cli.serve`` loads. Flags of the
-JAX CLI that are not ported yet are accepted by name and stop the run
-with the ROADMAP item that ports them.
+urban or mixed). The magnitude U-Net's best model is exported as the
+reference-layout ``unet_denoiser_{noise_type}.pth``. ``--model
+complex_mask`` (on-device pipeline only) trains the complex-mask U-Net on
+raw waveform pairs (``train.mask``) and exports
+``mask_denoiser_{noise_type}.ckpt`` with its ``.json`` sidecar (mask
+bound, residual head, SI-SDR weight and clamp). ``cli.serve`` loads
+either. Flags of the JAX CLI that are not ported yet are accepted by name
+and stop the run with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import shutil
 import time
@@ -44,10 +51,6 @@ UNPORTED = {
     "pp_microbatches": "ROADMAP A.11 (parallelism)",
     "sample_rate": "ROADMAP A.6 (on-device pipeline at other rates)",
     "chunk_seconds": "ROADMAP A.6 (on-device pipeline at other window lengths)",
-    "si_sdr_weight": "ROADMAP A.8 (complex-mask family)",
-    "si_sdr_clamp": "ROADMAP A.8 (complex-mask family)",
-    "mask_bound": "ROADMAP A.8 (complex-mask family)",
-    "mask_residual": "ROADMAP A.8 (complex-mask family)",
     "distill_from": "ROADMAP A.10 (distillation)",
     "distill_weight": "ROADMAP A.10 (distillation)",
     "distill_features": "ROADMAP A.10 (distillation)",
@@ -55,8 +58,7 @@ UNPORTED = {
 }
 _UNPORTED_SWITCHES = {"resume", "remat", "export_quantized", "attn_bottleneck",
                       "s2d_stem", "fsdp"}
-UNPORTED_MODELS = {"complex_mask": "ROADMAP A.8 (complex-mask family)",
-                   "router": "ROADMAP A.10 (router)"}
+UNPORTED_MODELS = {"router": "ROADMAP A.10 (router)"}
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
 
 
@@ -78,7 +80,8 @@ def parse_args(argv=None):
                    help="'all' trains the four specialists in turn; 'mixed' one "
                    "universal model (needs --pipeline on_device)")
     p.add_argument("--pipeline", choices=["npy", "on_device"], default="npy")
-    p.add_argument("--model", choices=["unet", *UNPORTED_MODELS], default="unet")
+    p.add_argument("--model", choices=["unet", "complex_mask", *UNPORTED_MODELS],
+                   default="unet")
     p.add_argument("--precision", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps_per_epoch", type=int, default=None,
@@ -88,7 +91,20 @@ def parse_args(argv=None):
     p.add_argument("--augment", action="store_true",
                    help="on_device pipeline: gain, polarity and time-shift augmentation")
     p.add_argument("--export_dir", type=str, default=None,
-                   help="also export the best model as unet_denoiser_{noise_type}.pth here")
+                   help="also export the best model here, as unet_denoiser_{noise_type}.pth "
+                   "or (complex_mask) mask_denoiser_{noise_type}.ckpt + .json")
+    p.add_argument("--si_sdr_weight", type=float, default=None,
+                   help="complex_mask: weight of the negative-SI-SDR term (default 0.5; "
+                   "0 keeps the spectral and waveform terms only)")
+    p.add_argument("--si_sdr_clamp", type=float, default=30.0,
+                   help="complex_mask: saturate each clip's SI-SDR reward at this many dB "
+                   "(<= 0: no clamp), so clips the corruption left untouched add nothing")
+    p.add_argument("--mask_bound", type=float, default=None,
+                   help="complex_mask: tanh bound K of the mask (default 8 for "
+                   "noise_cancellation and mixed, 2 otherwise)")
+    p.add_argument("--mask_residual", choices=["on", "off"], default="on",
+                   help="complex_mask: mask = identity + bounded deviation, with a "
+                   "zero-initialised head (an exact pass-through at the start)")
     p.add_argument("--device", type=str, default=None, help="default: the GPU")
     for name in UNPORTED:
         if name in _UNPORTED_SWITCHES:
@@ -120,6 +136,9 @@ def _check_ported(args) -> None:
     if args.model in UNPORTED_MODELS:
         raise SystemExit(f"--model {args.model} is not ported yet: "
                          f"{UNPORTED_MODELS[args.model]}")
+    if args.model == "complex_mask" and args.pipeline != "on_device":
+        raise SystemExit("--model complex_mask requires --pipeline on_device "
+                         "(it trains on waveform pairs)")
     if args.noise_type == "mixed" and args.pipeline != "on_device":
         raise SystemExit("--noise_type mixed requires --pipeline on_device")
     if args.augment and args.pipeline != "on_device":
@@ -186,16 +205,19 @@ def _on_device_batches(args, device):
     val_steps = max(1, n_steps // 10)
     print(f"On-device pipeline: {len(mixer)} clean chunks, {n_steps} steps/epoch, "
           f"noise type {args.noise_type}.")
+    # the mask family trains on the raw waveforms of the same draws
+    attr = "sample_audio" if args.model == "complex_mask" else "sample"
+    draw, val_draw = getattr(mixer, attr), getattr(val_mixer, attr)
 
     def train_batches(epoch):
         gen = torch.Generator(device=mixer.device).manual_seed(args.seed * 100_003 + epoch)
         for _ in range(n_steps):
-            yield mixer.sample(gen, args.batch_size)
+            yield draw(gen, args.batch_size)
 
     def val_batches():
         gen = torch.Generator(device=mixer.device).manual_seed(10_000_019 + args.seed)
         for _ in range(val_steps):
-            yield val_mixer.sample(gen, args.batch_size)
+            yield val_draw(gen, args.batch_size)
 
     return train_batches, val_batches
 
@@ -226,14 +248,54 @@ def main(argv=None):
         train_batches, val_batches = _npy_batches(args)
     else:
         train_batches, val_batches = _on_device_batches(args, device)
-    result = fit(cfg, train_batches, val_batches)
+    fit_kwargs, mask_meta = {}, None
+    if args.model == "complex_mask":
+        fit_kwargs, mask_meta = _mask_family(args, device)
+    result = fit(cfg, train_batches, val_batches, **fit_kwargs)
 
+    if mask_meta is not None and result["exported_best"]:
+        # beside the run's checkpoint too: a loader of best_model.ckpt
+        # needs the head's bound and residual flag to rebuild the model
+        with open(os.path.splitext(result["best_path"])[0] + ".json", "w") as f:
+            json.dump(mask_meta, f)
     if args.export_dir and args.noise_type and os.path.exists(result["best_path"]):
         os.makedirs(args.export_dir, exist_ok=True)
-        dst = os.path.join(args.export_dir, f"unet_denoiser_{args.noise_type}.pth")
+        stem, ext = (("mask_denoiser", ".ckpt") if mask_meta is not None
+                     else ("unet_denoiser", ".pth"))
+        dst = os.path.join(args.export_dir, f"{stem}_{args.noise_type}{ext}")
         shutil.copyfile(result["best_path"], dst)
+        if mask_meta is not None:
+            with open(os.path.splitext(dst)[0] + ".json", "w") as f:
+                json.dump(mask_meta, f)
         print(f"Exported best model to {dst}")
     return result
+
+
+def _mask_family(args, device):
+    """``fit``'s state factory and steps for ``--model complex_mask``, and
+    the sidecar that records the head, with the JAX CLI's per-type
+    defaults: SI-SDR weight 0.5, clamp 30 dB, bound 8 where the stream
+    holds noise_cancellation (undoing its 0.2x attenuation needs ~5x gain),
+    else 2; a residual head starts as a zero-initialised pass-through."""
+    import torch
+
+    from audiodenoiser_torch.train import mask as mask_lib
+
+    si_w = 0.5 if args.si_sdr_weight is None else args.si_sdr_weight
+    si_clamp = args.si_sdr_clamp if args.si_sdr_clamp > 0 else None
+    bound = args.mask_bound
+    if bound is None:
+        bound = 8.0 if args.noise_type in ("noise_cancellation", "mixed") else 2.0
+    residual = args.mask_residual == "on"
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    meta = {"mask_bound": bound, "si_sdr_weight": si_w, "si_sdr_clamp": si_clamp,
+            "residual": residual}
+    factory = lambda: mask_lib.create_mask_train_state(
+        args.seed, mask_lib.ComplexMaskUNet(dtype=dtype, mask_bound=bound, residual=residual,
+                                            zero_out_init=residual),
+        learning_rate=args.learning_rate, device=device)
+    return {"state_factory": factory,
+            "steps": mask_lib.make_mask_steps(si_w, si_clamp)}, meta
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """On-device input pipeline: noise mixing + STFT on the card (port of
-``data/pipeline.py``: ``NoiseBank`` and ``OnDeviceMixer.sample``).
+``data/pipeline.py``: ``NoiseBank``, ``OnDeviceMixer.sample`` and
+``OnDeviceMixer.sample_audio``).
 
 The clean 2 s chunks live in device memory; each training step draws a
 random batch, augments it (optionally), synthesizes the corruption and
@@ -8,13 +9,16 @@ trip. The STFT (``center=False``) is the K1 kernel on the card. The
 output is the reference's (256, 64) training crop, (B, 1, 256, 64)
 float32, after the reference loader's float16 round trip.
 
-Randomness is split from the arithmetic: ``draw(generator, batch)``
-makes every random tensor a batch needs, ``sample_from(draws)`` is
-deterministic given them, and ``sample`` is the two together. A test can
-so give the port the JAX package's own draws.
+``sample_audio`` returns the raw (noisy, clean) (B, 16000) waveforms of
+the same draws instead, with no STFT: the complex-mask family's stream.
 
-Not ported yet (ROADMAP A.6): ``sample_audio`` (the complex-mask stream)
-and ``sample_labeled`` (the router stream).
+Randomness is split from the arithmetic: ``draw(generator, batch)``
+makes every random tensor a batch needs, ``sample_from(draws)`` and
+``sample_audio_from(draws)`` are deterministic given them, and ``sample``
+and ``sample_audio`` are draw and arithmetic together. A test can so give
+the port the JAX package's own draws.
+
+Not ported yet (ROADMAP A.6): ``sample_labeled`` (the router stream).
 """
 
 from __future__ import annotations
@@ -180,11 +184,16 @@ class OnDeviceMixer:
         return pad_or_truncate_device(mag, self.target_size)[:, None]
 
     @torch.no_grad()
-    def sample_from(self, draws: Draws) -> tuple[torch.Tensor, torch.Tensor]:
-        """(noisy, clean) (B, 1, F, T) float32 magnitudes from ``draws``."""
+    def sample_audio_from(self, draws: Draws) -> tuple[torch.Tensor, torch.Tensor]:
+        """(noisy, clean) (B, chunk) float32 waveforms from ``draws``."""
         draws = {k: v.to(self.device) for k, v in draws.items()}
         clean = self._augmented(self.clean[draws["idx"]], draws)
-        noisy = self._corrupt(clean, draws)
+        return self._corrupt(clean, draws), clean
+
+    @torch.no_grad()
+    def sample_from(self, draws: Draws) -> tuple[torch.Tensor, torch.Tensor]:
+        """(noisy, clean) (B, 1, F, T) float32 magnitudes from ``draws``."""
+        noisy, clean = self.sample_audio_from(draws)
         b = clean.shape[0]
         feats = self._featurize(torch.cat([noisy, clean]))  # one K1 launch
         return feats[:b], feats[b:]
@@ -192,3 +201,8 @@ class OnDeviceMixer:
     def sample(self, generator: torch.Generator, batch_size: int):
         """(noisy, clean) (B, 1, 256, 64) float32 batches."""
         return self.sample_from(self.draw(generator, batch_size))
+
+    def sample_audio(self, generator: torch.Generator, batch_size: int):
+        """(noisy, clean) (B, chunk) float32 waveform batches, the input of
+        the complex-mask family (``train.mask``)."""
+        return self.sample_audio_from(self.draw(generator, batch_size))

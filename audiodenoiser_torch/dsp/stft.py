@@ -17,7 +17,9 @@ Semantics are those of ``audiodenoiser_tpu.dsp.stft``:
 transforms go through ``ops.cuda.stft_kernel`` / ``istft_kernel``, which
 launch the CUDA kernels for CUDA tensors and take the same plain versions
 for CPU tensors. The envelope division and the trim stay outside the
-kernels.
+kernels. With autograd on, the kernel iSTFT goes through
+``ops.cuda.istft_with_grad``, whose backward is the STFT kernel; the
+kernel STFT has no gradient and refuses an input that needs one.
 """
 
 from __future__ import annotations
@@ -51,7 +53,10 @@ def _resolve_window(window: WindowSpec, win_length: int, n_fft: int) -> np.ndarr
 
 @functools.lru_cache(maxsize=64)
 def _device_array(key: bytes, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.frombuffer(key, np.float32).copy()).to(device)
+    # a normal tensor even when first asked for under inference_mode (the
+    # serving paths): a training step's autograd saves these for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.frombuffer(key, np.float32).copy()).to(device)
 
 
 def _on(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -198,9 +203,12 @@ def istft(
     w = _on(w_np, spec.device)
     lead = spec.shape[:-2]
     sb = spec.reshape(-1, *spec.shape[-2:]).to(torch.complex64)
-    from audiodenoiser_torch.ops.cuda import istft_kernel, istft_plain
+    from audiodenoiser_torch.ops.cuda import istft_kernel, istft_plain, istft_with_grad
 
-    transform = istft_kernel if precision == "kernel" else istft_plain
+    if precision == "kernel":
+        transform = istft_with_grad if torch.is_grad_enabled() else istft_kernel
+    else:
+        transform = istft_plain
     parts = torch.view_as_real(sb)
     y = transform(parts[..., 0], parts[..., 1], w, n_fft, hop_length)
     n_frames = spec.shape[-1]

@@ -8,6 +8,7 @@ from audiodenoiser_torch.models.complex_mask import (
     spectrogram_features,
 )
 from audiodenoiser_torch.models.convert import (
+    flax_from_state_dict,
     load_flax_variables,
     random_flax_variables,
     state_dict_from_flax,
@@ -17,5 +18,5 @@ from audiodenoiser_torch.models.unet import UNet, count_params, scaled_widths, w
 
 __all__ = ["UNet", "ComplexMaskUNet", "FoldedUNet", "fold_for_inference", "count_params",
            "scaled_widths", "width_kwargs", "spectrogram_features", "apply_mask",
-           "denoise_waveform", "state_dict_from_flax", "random_flax_variables",
+           "denoise_waveform", "state_dict_from_flax", "flax_from_state_dict", "random_flax_variables",
            "load_flax_variables"]

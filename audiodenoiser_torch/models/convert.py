@@ -18,6 +18,8 @@ with ``k[::-1, ::-1]`` before the kernel goes to (Cin, Cout, kh, kw).
 BatchNorm gains the ``num_batches_tracked`` that a strict load expects.
 The channel counts come from the kernels, so a complex-mask tree (a
 3-channel first conv, a 2-channel head) converts the same way.
+``flax_from_state_dict`` is the inverse: the tree that the JAX package's
+``export_model`` writes, from a trained model's state_dict.
 """
 
 from __future__ import annotations
@@ -75,6 +77,52 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
                 f"upconv{k}.conv")
     _conv(params["out"], out, "out")
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _conv_inv(sd, prefix: str) -> dict:
+    return {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)),
+            "bias": _np(sd[f"{prefix}.bias"]).copy()}
+
+
+def _deconv_inv(sd, prefix: str) -> dict:
+    k = _np(sd[f"{prefix}.weight"]).transpose(2, 3, 0, 1)[::-1, ::-1]  # redo the flip
+    return {"kernel": np.ascontiguousarray(k), "bias": _np(sd[f"{prefix}.bias"]).copy()}
+
+
+def _double_inv(sd, prefix: str):
+    p, s = {}, {}
+    for i, (ci, bi) in enumerate(((0, 1), (3, 4))):
+        p[f"conv{i}"] = _conv_inv(sd, f"{prefix}.double_conv.{ci}")
+        bn = f"{prefix}.double_conv.{bi}"
+        p[f"bn{i}"] = {"scale": _np(sd[f"{bn}.weight"]).copy(),
+                       "bias": _np(sd[f"{bn}.bias"]).copy()}
+        s[f"bn{i}"] = {"mean": _np(sd[f"{bn}.running_mean"]).copy(),
+                       "var": _np(sd[f"{bn}.running_var"]).copy()}
+    return p, s
+
+
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's ``UNet`` / ``ComplexMaskUNet`` state_dict (any device) ->
+    ``{"params", "batch_stats"}`` of float32 numpy arrays in the Flax tree
+    layout, the inverse of ``state_dict_from_flax`` (``num_batches_tracked``
+    has no Flax counterpart and is dropped)."""
+    levels = sum(1 for k in state_dict if k.startswith("downconv") and k.endswith(
+        ".conv.double_conv.0.weight"))
+    params, stats = {}, {}
+    for k in range(1, levels + 1):
+        params[f"down{k - 1}"], stats[f"down{k - 1}"] = _double_inv(
+            state_dict, f"downconv{k}.conv")
+    params["bottleneck"], stats["bottleneck"] = _double_inv(state_dict, "bottleneck")
+    for k in range(1, levels + 1):
+        params[f"up{k - 1}_deconv"] = _deconv_inv(state_dict, f"upconv{k}.up")
+        params[f"up{k - 1}_conv"], stats[f"up{k - 1}_conv"] = _double_inv(
+            state_dict, f"upconv{k}.conv")
+    params["out"] = _conv_inv(state_dict, "out")
+    return {"params": params, "batch_stats": stats}
 
 
 def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:

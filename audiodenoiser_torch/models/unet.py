@@ -141,18 +141,21 @@ class UNet(nn.Module):
     Fully convolutional: accepts any (freq, time) of at least 16 on each
     side, including the whole-clip eval shape (257, T). ``dtype`` is the
     compute dtype; ``pallas_deconv`` (the JAX option's name) routes the
-    four upsamplings through the K3 kernel.
+    four upsamplings through the K3 kernel. ``zero_out_init`` starts the
+    1x1 head's kernel at zero (``train.loop.init_flax_like`` keeps it so),
+    which makes a fresh residual mask head an exact pass-through.
     """
 
     def __init__(self, features: Sequence[int] = (64, 128, 256, 512),
                  bottleneck: int = 1024, in_channels: int = 1,
                  out_channels: int = 1, dtype: torch.dtype = torch.float32,
-                 pallas_deconv: bool = False):
+                 pallas_deconv: bool = False, zero_out_init: bool = False):
         super().__init__()
         self.features = tuple(features)
         self.bottleneck_width = bottleneck
         self.dtype = dtype
         self.pallas_deconv = pallas_deconv
+        self.zero_out_init = zero_out_init
         cin = in_channels
         for k, f in enumerate(self.features, start=1):
             self.add_module(f"downconv{k}", Down(cin, f))
@@ -163,6 +166,8 @@ class UNet(nn.Module):
             self.add_module(f"upconv{k}", Up(cin, f, pallas_deconv))
             cin = f
         self.out = Conv2d(cin, out_channels, 1)
+        if zero_out_init:
+            nn.init.zeros_(self.out.weight)
         # channels_last kernels make the convolutions keep channels_last
         # activations (a 1-channel input alone cannot say which it is)
         self.to(memory_format=torch.channels_last)

@@ -5,7 +5,7 @@ from audiodenoiser_torch.ops.cuda.deconv import (
     conv_transpose_2x2_plain,
     deconv_kernel,
 )
-from audiodenoiser_torch.ops.cuda.istft import istft_kernel, istft_plain
+from audiodenoiser_torch.ops.cuda.istft import istft_kernel, istft_plain, istft_with_grad
 from audiodenoiser_torch.ops.cuda.overlap_add import overlap_add_kernel, overlap_add_plain
 from audiodenoiser_torch.ops.cuda.stft import stft_kernel, stft_plain
 
@@ -24,7 +24,7 @@ def reset_launch_counts() -> None:
             setattr(k, f"{v}_launches", 0)
 
 
-__all__ = ["stft_kernel", "stft_plain", "istft_kernel", "istft_plain",
+__all__ = ["stft_kernel", "stft_plain", "istft_kernel", "istft_plain", "istft_with_grad",
            "deconv_kernel", "conv_transpose_2x2", "conv_transpose_2x2_plain",
            "overlap_add_kernel", "overlap_add_plain", "KERNELS", "reset_launch_counts",
            "variant_launches"]

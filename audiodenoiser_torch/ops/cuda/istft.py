@@ -9,6 +9,10 @@ device raises. The library has two entries, chosen by shape alone:
 ``istft_direct`` (the direct inverse DFT) for any other. Each has its own
 launch counter beside ``istft_kernel.launches``: ``istft_kernel.fft_launches``
 and ``istft_kernel.direct_launches``.
+
+``istft_with_grad`` is K2 with a gradient (``_ISTFT``), whose backward is
+K1. ``istft_kernel`` itself has none: called directly on an input that
+requires a gradient, with autograd on, it raises on every device.
 """
 
 from __future__ import annotations
@@ -19,7 +23,13 @@ import torch
 
 from audiodenoiser_torch.dsp.stft import overlap_add
 from audiodenoiser_torch.ops.cuda import build
-from audiodenoiser_torch.ops.cuda.stft import _SMEM_LIMIT, stft_entry, twiddle_table
+from audiodenoiser_torch.ops.cuda.stft import (
+    _SMEM_LIMIT,
+    refuse_grad,
+    stft_entry,
+    stft_kernel,
+    twiddle_table,
+)
 
 _MAX_LOG_TT = 4  # at most 16 frames a block, halo included
 
@@ -123,6 +133,7 @@ def istft_kernel(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
     they must share their strides.
     """
     _check(re, im, window, n_fft, hop_length)
+    refuse_grad("istft_kernel", re, im, window)
     if re.device.type == "cpu":
         return istft_plain(re, im, window, n_fft, hop_length)
     if re.device.type != "cuda":
@@ -166,6 +177,50 @@ def istft_kernel(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
             raise RuntimeError(f"istft_kernel (direct) launch failed with CUDA error {rc}")
     build.count_launch(istft_kernel, entry)
     return out
+
+
+def _bin_weights(n_fft: int, device: torch.device) -> torch.Tensor:
+    """c_k / n_fft for the n_fft//2 + 1 bins of a real inverse DFT: c_k is 1
+    at DC and, for an even n_fft, at the Nyquist bin, 2 elsewhere."""
+    c = torch.full((n_fft // 2 + 1,), 2.0, dtype=torch.float32, device=device)
+    c[0] = 1.0
+    if n_fft % 2 == 0:
+        c[-1] = 1.0
+    return c / n_fft
+
+
+class _ISTFT(torch.autograd.Function):
+    """K2 with its gradient. The adjoint of [inverse real DFT -> window ->
+    overlap-add] is [frame -> window -> real DFT], K1 at ``center=False``,
+    scaled per bin by ``c_k / n_fft``. The imaginary DC/Nyquist parts,
+    which the forward ignores, get a gradient of exactly 0."""
+
+    @staticmethod
+    def forward(ctx, re, im, window, n_fft, hop_length):
+        ctx.save_for_backward(window)
+        ctx.n_fft, ctx.hop_length = n_fft, hop_length
+        return istft_kernel(re, im, window, n_fft, hop_length)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (window,) = ctx.saved_tensors
+        n_fft = ctx.n_fft
+        # the incoming gradient may be strided or expanded; K1 takes rows
+        spec = stft_kernel(grad.float().contiguous(), window, n_fft, ctx.hop_length)
+        parts = torch.view_as_real(spec) * _bin_weights(n_fft, grad.device)[:, None, None]
+        parts[:, 0, :, 1] = 0
+        if n_fft % 2 == 0:
+            parts[:, -1, :, 1] = 0
+        return parts[..., 0], parts[..., 1], None, None, None
+
+
+def istft_with_grad(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
+                    n_fft: int = 512, hop_length: int = 128) -> torch.Tensor:
+    """``istft_kernel`` that autograd differentiates with respect to ``re``
+    and ``im``: K2 forward, K1 backward on the card, their plain versions
+    on the CPU."""
+    return _ISTFT.apply(re, im, window, n_fft, hop_length)
 
 
 def _load() -> ctypes.CDLL:

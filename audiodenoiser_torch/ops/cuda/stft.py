@@ -7,6 +7,10 @@ two entries, chosen by shape alone: ``stft_fft`` (a shared-memory FFT) for a
 power-of-two ``n_fft``, ``stft_direct`` (the direct DFT) for any other.
 Each has its own launch counter beside ``stft_kernel.launches``:
 ``stft_kernel.fft_launches`` and ``stft_kernel.direct_launches``.
+
+``stft_kernel`` has no gradient: on an input that requires one, with
+autograd on, it raises on every device rather than return a result cut
+off from the graph.
 """
 
 from __future__ import annotations
@@ -76,6 +80,17 @@ def _check(x: torch.Tensor, window: torch.Tensor, n_fft: int,
         raise ValueError(f"signal too short to frame: {x.shape[-1]} < {n_fft}")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record ``name``: its CUDA kernel writes
+    through a raw pointer and has no backward, so a result would come back
+    cut off from the graph on the card (and attached on the CPU)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no gradient: only the iSTFT is differentiable, through "
+            "dsp.stft.istft(precision='kernel') (ROADMAP A.8); detach the input or "
+            "run under torch.no_grad()")
+
+
 def stft_kernel(x: torch.Tensor, window: torch.Tensor, n_fft: int = 512,
                 hop_length: int = 128) -> torch.Tensor:
     """STFT of pre-padded rows: (B, L) f32 -> complex64 (B, n_fft//2+1, T).
@@ -85,6 +100,7 @@ def stft_kernel(x: torch.Tensor, window: torch.Tensor, n_fft: int = 512,
     pair that ``stft_pallas`` returns.
     """
     _check(x, window, n_fft, hop_length)
+    refuse_grad("stft_kernel", x, window)
     if x.device.type == "cpu":
         return stft_plain(x, window, n_fft, hop_length)
     if x.device.type != "cuda":

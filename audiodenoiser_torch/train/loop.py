@@ -7,6 +7,8 @@ validation means, scalar logs and a best-validation export. One
 backward, the clip, the AdamW update and the BatchNorm running-stat
 update. Batches are (B, 1, F, T) float32, from ``.npy`` pairs
 (``data.dataset``) or synthesized on the card (``data.pipeline``).
+``fit`` also runs another family's ``(train_step, eval_step)`` pair: the
+complex-mask steps of ``train.mask`` on raw waveform batches.
 
 Not ported yet: the device mesh and FSDP (ROADMAP A.11); width_mult, the
 s2d stem and the attention bottleneck (A.10); EMA, resume, gradient
@@ -28,7 +30,7 @@ from torch import nn
 
 from audiodenoiser_torch.device import DeviceLike, device_name, resolve_device
 from audiodenoiser_torch.losses import CombinedLossOutput, combined_perceptual_loss
-from audiodenoiser_torch.models.convert import state_dict_from_flax
+from audiodenoiser_torch.models.convert import flax_from_state_dict, state_dict_from_flax
 from audiodenoiser_torch.models.unet import UNet
 from audiodenoiser_torch.train import checkpoints as ckpt_lib
 from audiodenoiser_torch.train.logging_utils import ScalarWriter, setup_logger
@@ -100,7 +102,8 @@ def init_flax_like(model: nn.Module, seed: SeedLike = 0) -> nn.Module:
     """Flax's default initialisers from a seeded generator: LeCun-normal
     (truncated at two standard deviations, fan-in of kh*kw*Cin) for conv
     and transposed-conv kernels, zero biases, BatchNorm scale 1, bias 0,
-    statistics 0 and 1. Not Flax's bits: the same distribution."""
+    statistics 0 and 1; the 1x1 head's kernel zero for a model built with
+    ``zero_out_init``. Not Flax's bits: the same distribution."""
     gen = _generator(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -114,6 +117,8 @@ def init_flax_like(model: nn.Module, seed: SeedLike = 0) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
+    if getattr(model, "zero_out_init", False):
+        model.out.weight.zero_()
     return model
 
 
@@ -136,17 +141,21 @@ def create_train_state(seed: SeedLike = 0, model: Optional[nn.Module] = None,
     return TrainState(model=model, optimizer=tx)
 
 
-def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor):
-    """One update in place; returns ``(state, losses)`` with the losses
-    as device scalars (no host synchronisation)."""
-    model = state.model.train()
+def apply_update(state: TrainState, losses: CombinedLossOutput):
+    """The backward of ``losses.total``, the clip and AdamW, in place;
+    returns ``(state, losses)`` with the losses detached, as device
+    scalars (no host synchronisation)."""
     state.optimizer.zero_grad()
-    out = model(noisy)
-    losses = combined_perceptual_loss(out, clean)
     losses.total.backward()
     state.grad_norm = state.optimizer.step()
     state.step += 1
     return state, CombinedLossOutput(*(t.detach() for t in losses))
+
+
+def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor):
+    """One update in place; returns ``(state, losses)``."""
+    out = state.model.train()(noisy)
+    return apply_update(state, combined_perceptual_loss(out, clean))
 
 
 @torch.no_grad()
@@ -180,14 +189,23 @@ def _epoch_mean(losses: list) -> float:
 def fit(config: FitConfig,
         train_batches: Callable[[int], Iterator[tuple[Any, Any]]],
         val_batches: Callable[[], Iterator[tuple[Any, Any]]],
-        state_factory: Optional[Callable[[], TrainState]] = None) -> dict:
+        state_factory: Optional[Callable[[], TrainState]] = None,
+        steps: Optional[tuple[Callable, Callable]] = None) -> dict:
     """Run the training loop; returns a summary dict.
 
     ``train_batches(epoch)`` / ``val_batches()`` yield (noisy, clean)
-    (B, 1, F, T) batches, numpy arrays or tensors. ``state_factory``
+    batches, numpy arrays or tensors: (B, 1, F, T) magnitudes for the
+    default steps, what ``steps`` takes otherwise. ``state_factory``
     supplies the model and optimizer (how a ``UNet(pallas_deconv=True)``
     reaches training); by default a full-width ``UNet`` in the configured
-    precision, initialised from ``config.seed``.
+    precision, initialised from ``config.seed``. ``steps`` is a
+    ``(train_step, eval_step)`` pair (``train.mask.make_mask_steps``);
+    by default the magnitude U-Net's.
+
+    The best model is exported as ``checkpoints/best_model.ckpt`` (the JAX
+    package's ``.ckpt``) for the complex-mask family, a model with a
+    ``mask_bound``, and as the reference-layout ``best_model.pth`` for the
+    magnitude U-Net.
     """
     run_name = config.run_name or f"UNET_Run_{int(time.time())}"
     run_dir = os.path.join(config.output_path, run_name)
@@ -215,8 +233,10 @@ def fit(config: FitConfig,
     def place(x):
         return torch.as_tensor(x).to(device, dtype=torch.float32, non_blocking=True)
 
+    step_fn, eval_fn = steps if steps is not None else (train_step, eval_step)
+    masked = getattr(state.model, "mask_bound", None) is not None
     writer = ScalarWriter(os.path.join(run_dir, "tensorboard_logs"))
-    best_path = os.path.join(ckpt_dir, "best_model.pth")
+    best_path = os.path.join(ckpt_dir, "best_model.ckpt" if masked else "best_model.pth")
     best_val = float("inf")
     exported_best = False
     history = []
@@ -228,7 +248,7 @@ def fit(config: FitConfig,
         steps_since_log = 0
         train_losses = []
         for noisy, clean in train_batches(epoch):
-            state, losses = train_step(state, place(noisy), place(clean))
+            state, losses = step_fn(state, place(noisy), place(clean))
             train_losses.append(losses)
             global_step += 1
             steps_since_log += 1
@@ -244,7 +264,7 @@ def fit(config: FitConfig,
         train_loss = _epoch_mean(train_losses)
         writer.add_scalar("Loss/train", train_loss, epoch)
 
-        val_losses = [eval_step(state, place(noisy), place(clean))
+        val_losses = [eval_fn(state, place(noisy), place(clean))
                       for noisy, clean in val_batches()]
         val_loss = _epoch_mean(val_losses)
         if not val_losses:
@@ -261,7 +281,11 @@ def fit(config: FitConfig,
 
         if val_loss < best_val:
             best_val = val_loss
-            ckpt_lib.export_pth(best_path, state.model)
+            if masked:
+                tree = flax_from_state_dict(state.model.state_dict())
+                ckpt_lib.export_model(best_path, tree["params"], tree["batch_stats"])
+            else:
+                ckpt_lib.export_pth(best_path, state.model)
             ckpt_lib.record_best_val(best_path, best_val, epoch)
             exported_best = True
             logger.info(f"New best model saved to {best_path} (Val Loss: {best_val:.6f})")

@@ -61,6 +61,21 @@ from the root of a checkout. Phases, each fatal on failure:
    held to the weights the optimizer left and a K3 forward on them against
    the plain version, the export served, then the steady step rate and its
    device profile; and ``python -m audiodenoiser_torch.cli.train`` on wavs;
+6c. complex-mask training: K2's gradient (its backward is K1) at the mask
+   step's shape against autograd through the plain iSTFT, imaginary
+   DC/Nyquist parts getting exactly 0; one full-width fp32 mask train step
+   on the card against the CPU (the losses, the loss's gradient with
+   respect to the mask, the CPU's gradients through the card's AdamW; the
+   parameter gradients of each device against a float64 backward on the
+   card, which at two levels the card's meet per tensor within 1e-4);
+   ``fit`` of the full-width bf16 residual ``ComplexMaskUNet``
+   (bound 8, K3) on the ``mixed`` mixer's waveforms, 2 epochs of 10 steps,
+   K1 2 launches a train step and 1 a validation step, K2 1 a step, K3 4 a
+   forward (FFT entries and TMA + wgmma only, K4 0), its ``.ckpt`` served by
+   ``cli.serve --model complex_mask`` (2 requests against direct calls);
+   ``cli.train --model complex_mask --noise_type mixed`` in a subprocess;
+   the mask training bench (``train.bench.run_mask_train_bench``) and its
+   device profile;
 7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded,
    with ``pallas_deconv`` (K1, K2 and K3 counted; K1 and K2 through their
    FFT entries and K3 through TMA + wgmma only) and in ``complex_mask`` mode
@@ -160,14 +175,20 @@ def device_ms(fn, reps: int = 10) -> float:
     """Device time of one call of ``fn``: its kernels' own time, summed by
     the profiler over ``reps`` calls after a warm-up. Events around a short
     call measure the host's launch cost instead (tens of microseconds for
-    one wrapper call)."""
+    one wrapper call). A profile that sees no device time at all, which the
+    card's profiler now and then returns for a short window, is taken
+    again, up to three times in all."""
     import torch
 
     from audiodenoiser_torch.eval.bench import device_breakdown
 
     for _ in range(3):
         fn()
-    busy = device_breakdown(fn, reps, torch.device("cuda"))["device_busy_ms"]
+    for attempt in range(3):
+        busy = device_breakdown(fn, reps, torch.device("cuda"))["device_busy_ms"]
+        if isinstance(busy, float):
+            break
+        print(f"[profile] no device time in profile {attempt + 1} of 3", flush=True)
     check(isinstance(busy, float), "the profiler saw no device time")
     return busy
 
@@ -955,6 +976,7 @@ def phase_train_step_fp32(torch):
 def _categories(top):
     """Device ms per step by kind of kernel, from profiler kernel names."""
     kinds = (("K3 deconv", ("deconv_wgmma", "deconv_bf16", "deconv_f32")),
+             ("K2 istft", ("istft_fft", "istft_direct")),  # before K1: a substring
              ("K1 stft", ("stft_fft", "stft_direct")),
              ("optimizer", ("multi_tensor", "adam", "foreach")),
              ("convolutions", ("conv", "xmma", "cudnn", "gemm", "cutlass", "wgrad",
@@ -1104,6 +1126,352 @@ def phase_train_cli(tmp):
     check(os.path.exists(os.path.join(export, "unet_denoiser_white.pth")),
           "cli.train wrote no export")
     print(f"[train cli] exit 0 in {time.perf_counter() - t0:.1f} s, export written", flush=True)
+
+
+MASK_SIDECAR = {"mask_bound": 8.0, "si_sdr_weight": 0.5, "si_sdr_clamp": 30.0,
+                "residual": True}  # cli.train's defaults for --noise_type mixed
+BN_FED_BIASES = ("double_conv.0.bias", "double_conv.3.bias")
+
+
+def mask_istft_grad(torch, rng):
+    """Phase 6c (a): K2's gradient (K1 on the cotangent) at the mask step's
+    shape against autograd through the plain iSTFT on the card; large
+    imaginary DC/Nyquist parts get exactly 0."""
+    from audiodenoiser_torch.dsp.stft import istft
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+
+    parts = rng.standard_normal((16, N_FFT // 2 + 1, 126, 2)).astype("float32")
+    parts[:, [0, -1], :, 1] = 50.0
+    spec0 = torch.view_as_complex(torch.from_numpy(parts)).cuda()
+    g = torch.from_numpy(rng.standard_normal((16, 2 * SR)).astype("float32")).cuda()
+    grads = {}
+    for precision in ("kernel", "fft"):
+        spec = spec0.clone().requires_grad_()
+        reset_launch_counts()
+        (istft(spec, HOP, n_fft=N_FFT, length=2 * SR, precision=precision) * g).sum().backward()
+        torch.cuda.synchronize()
+        grads[precision] = torch.view_as_real(spec.grad)
+        if precision == "kernel":
+            check(stft_kernel.fft_launches == 1 and istft_kernel.fft_launches == 1,
+                  "K2's forward and backward did not run K2 and K1 once each")
+    ours, ref = grads["kernel"], grads["fft"]
+    err = (ours - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    edge = ours[:, [0, -1], :, 1].abs().max().item()
+    print(f"[mask train] K2 gradient vs autograd of istft_plain, B=16 257x126 -> 16000: "
+          f"max_abs_err {err:.3e} max_rel_err {err / scale:.3e}; imaginary DC/Nyquist "
+          f"gradient max {edge}", flush=True)
+    check(err <= 1e-5 * scale, "K2's gradient disagrees with autograd of the plain iSTFT")
+    check(edge == 0.0, "K2's gradient reached the imaginary DC/Nyquist parts")
+
+
+def _mask_mixer(torch, n_chunks, seed, device):
+    from audiodenoiser_torch.data.pipeline import NoiseBank, OnDeviceMixer
+    from audiodenoiser_torch.train.bench import synth_chunks, synth_noise_clips
+
+    bank = NoiseBank(synth_noise_clips(6, seed + 1), device=device)
+    return OnDeviceMixer(synth_chunks(n_chunks, seed), "mixed", noise_bank=bank, device=device)
+
+
+def _mask_step(torch, widths, variables, noisy, clean, dev):
+    """One fp32 mask train step on ``dev`` from ``variables``: its losses,
+    its gradients (before the clip) and updated weights by name, the U-Net's
+    input and the loss's gradient with respect to the U-Net's output."""
+    from torch import nn
+
+    from audiodenoiser_torch.models import ComplexMaskUNet
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
+
+    class Tap(nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, x):
+            y = self.model(x)
+            y.retain_grad()
+            self.x, self.y = x, y
+            return y
+
+    model = ComplexMaskUNet(**widths, mask_bound=8.0, residual=True, pallas_deconv=True)
+    state = create_mask_train_state(0, model, variables=variables, device=dev)
+    state.model = tap = Tap(state.model)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        state, losses = make_mask_steps(0.5, 30.0)[0](state, noisy.to(dev), clean.to(dev))
+    clip = min(1.0, 1.0 / float(state.grad_norm))  # the step scaled the gradients by it
+    return ([float(x) for x in losses],
+            {n: (p.grad.detach().cpu() / clip, p.detach().cpu())
+             for n, p in model.named_parameters()},
+            tap.x.detach().cpu(), tap.y.grad.detach().cpu())
+
+
+def _f64_grads(torch, widths, variables, x, g):
+    """The U-Net's parameter gradients for input ``x`` and output cotangent
+    ``g``, in float64 on the card (cuDNN): the arbiter of fp32 gradients."""
+    from audiodenoiser_torch.models import ComplexMaskUNet, state_dict_from_flax
+
+    model = ComplexMaskUNet(**widths, mask_bound=8.0, residual=True, dtype=torch.float64)
+    model.load_state_dict(state_dict_from_flax(variables))
+    model = model.double().cuda().train()
+    model(x.double().cuda()).backward(g.double().cuda())
+    return {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def _rel_by_name(torch, ours, ref):
+    """Relative L2 by tensor, and over all tensors together, of gradients
+    ``ours`` against ``ref``, leaving out the conv biases that feed
+    train-mode BN: their gradient is exactly 0, rounding noise on every side."""
+    names = [n for n in ref if not n.endswith(BN_FED_BIASES)]
+    by_name = {n: float((ours[n].double() - ref[n].double()).norm() / ref[n].double().norm())
+               for n in names}
+    diff = sum(float((ours[n].double() - ref[n].double()).square().sum()) for n in names)
+    total = sum(float(ref[n].double().square().sum()) for n in names)
+    return by_name, (diff / total) ** 0.5
+
+
+def _worst(errs, k=3):
+    return ", ".join(f"{n} {e:.3e}" for n, e in sorted(errs.items(), key=lambda kv: -kv[1])[:k])
+
+
+def mask_step_fp32(torch):
+    """Phase 6c (b): one full-width fp32 mask train step on the card (K1, K2
+    and its gradient, K3) against the CPU (plain versions), from one weight
+    tree and one batch of the mixed mixer's waveforms. Each device's
+    parameter gradients are also held to a float64 backward of its own
+    cotangent on the card: at full width this step's fp32 gradient is
+    ill-conditioned (on both devices), so that arbiter, and not the CPU,
+    decides; at the two-level width the card's gradient meets it per tensor."""
+    from audiodenoiser_torch.models import ComplexMaskUNet, random_flax_variables
+    from audiodenoiser_torch.ops.cuda import (
+        deconv_kernel,
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+    )
+    from audiodenoiser_torch.train.mask import create_mask_train_state
+
+    variables = random_flax_variables(0, in_channels=3, out_channels=2)
+    noisy, clean = _mask_mixer(torch, 8, 4, "cpu").sample_audio(
+        torch.Generator().manual_seed(6), 2)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got[dev] = (*_mask_step(torch, {}, variables, noisy, clean, dev),
+                    time.perf_counter() - t0)
+        if dev == "cuda":
+            counts = (stft_kernel.launches, istft_kernel.launches, deconv_kernel.launches)
+            check(counts == (2, 1, 4), f"the fp32 card mask step launched K1, K2, K3 {counts}")
+    (lc, pc, xc, gc, tc), (lp, pp, xp, gp, tp) = got["cuda"], got["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    cot_err = float((gc - gp).norm() / gp.norm())
+    card_cpu, card_cpu_all = _rel_by_name(torch, {n: g for n, (g, _) in pc.items()},
+                                          {n: g for n, (g, _) in pp.items()})
+    weight_err = max(float((pc[n][1] - w).norm() / w.norm()) for n, (_, w) in pp.items())
+    f64 = {}
+    for dev, x, g, params in (("cuda", xc, gc, pc), ("cpu", xp, gp, pp)):
+        f64[dev] = _rel_by_name(torch, {n: gr for n, (gr, _) in params.items()},
+                                _f64_grads(torch, {}, variables, x, g))
+    # the optimizer alone: the CPU's clipped gradients through the card's AdamW
+    state = create_mask_train_state(0, ComplexMaskUNet(mask_bound=8.0, residual=True),
+                                    variables=variables, device="cuda")
+    for n, p in state.model.named_parameters():
+        p.grad = pp[n][0].cuda()  # the optimizer clips them as the CPU's step did
+    state.optimizer.step()
+    opt_err = max(float((p.detach().cpu() - pp[n][1]).norm() / pp[n][1].norm())
+                  for n, p in state.model.named_parameters())
+    del state
+    print(f"[mask train fp32] full width, card vs CPU (steps {tc:.2f} s / {tp:.2f} s): losses "
+          f"{[round(x, 6) for x in lc]} vs {[round(x, 6) for x in lp]} (max rel "
+          f"{loss_err:.3e}); the loss's gradient w.r.t. the mask rel L2 {cot_err:.3e}; "
+          f"parameter gradients rel L2 {card_cpu_all:.3e} over all, worst {_worst(card_cpu)}; "
+          f"updated weights max rel L2 {weight_err:.3e}; the CPU's gradients through the "
+          f"card's AdamW vs the CPU's update {opt_err:.3e}", flush=True)
+    for dev in ("cuda", "cpu"):
+        errs, overall = f64[dev]
+        print(f"[mask train fp32] full width, {dev} fp32 gradients vs a float64 backward of "
+              f"its own cotangent: rel L2 {overall:.3e} over all, median "
+              f"{sorted(errs.values())[len(errs) // 2]:.3e}, worst {_worst(errs)}", flush=True)
+    check(all(math.isfinite(x) for x in lc) and loss_err <= TRAIN_TOL, "fp32 mask step losses")
+    check(cot_err <= TRAIN_TOL, "fp32 mask step: the loss's gradient w.r.t. the mask")
+    check(f64["cuda"][1] <= f64["cpu"][1],
+          "fp32 mask step: the card's gradients are further from float64 than the CPU's")
+    check(opt_err <= TRAIN_TOL, "fp32 mask step: the card's AdamW")
+
+    # two levels: a width where the card's fp32 gradient meets float64 per
+    # tensor; the CPU's, printed only, does not (ROADMAP C.2)
+    narrow = dict(features=(8, 16), bottleneck=32)
+    small = random_flax_variables(0, **narrow, in_channels=3, out_channels=2)
+    for dev in ("cuda", "cpu"):
+        _, params, x, g = _mask_step(torch, narrow, small, noisy, clean, dev)
+        errs, overall = _rel_by_name(torch, {n: gr for n, (gr, _) in params.items()},
+                                     _f64_grads(torch, narrow, small, x, g))
+        print(f"[mask train fp32] two levels (8, 16)/32, {dev} fp32 gradients vs float64: "
+              f"rel L2 {overall:.3e} over all, worst {_worst(errs)}", flush=True)
+        if dev == "cuda":
+            check(max(errs.values()) <= TRAIN_TOL,
+                  "fp32 mask step at two levels: the card's gradients vs float64")
+
+
+def mask_fit(torch, rows, tmp):
+    """Phase 6c (c): ``fit`` of the full-width bf16 residual mask model (K3)
+    on the mixed mixer's waveforms, its launches, and its ``.ckpt`` served
+    by ``cli.serve --model complex_mask``."""
+    import numpy as np
+
+    from audiodenoiser_torch.cli.serve import build_server, parse_args
+    from audiodenoiser_torch.data.wav_io import read_wav
+    from audiodenoiser_torch.models import ComplexMaskUNet
+    from audiodenoiser_torch.ops.cuda import (
+        deconv_kernel,
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+    )
+    from audiodenoiser_torch.train.loop import FitConfig, fit
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
+
+    batch, steps, val_steps, epochs = 16, 10, 2, 2
+    mixer, val_mixer = _mask_mixer(torch, 64, 7, "cuda"), _mask_mixer(torch, 8, 9, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = FitConfig(run_name="mask", output_path=os.path.join(tmp, "mask_runs"),
+                    epochs=epochs, batch_size=batch, precision="bf16", log_every=10)
+    factory = lambda: create_mask_train_state(0, ComplexMaskUNet(
+        dtype=torch.bfloat16, pallas_deconv=True, mask_bound=8.0, residual=True,
+        zero_out_init=True))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(cfg, lambda e: (mixer.sample_audio(gen, batch) for _ in range(steps)),
+              lambda: (val_mixer.sample_audio(gen, batch) for _ in range(val_steps)),
+              state_factory=factory, steps=make_mask_steps(0.5, 30.0))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k1, k2, k3 = stft_kernel.launches, istft_kernel.launches, deconv_kernel.launches
+    forwards = epochs * (steps + val_steps)
+    want = (2 * epochs * steps + epochs * val_steps, forwards, 4 * forwards)
+    print(f"[mask train fit] {epochs} epochs x {steps} steps at batch {batch} in {fit_s:.2f} s "
+          f"(validation, export and first-step set-up included); history {res['history']}; "
+          f"launches K1={k1} K2={k2} K3={k3}, expected {want}", flush=True)
+    check(all(math.isfinite(h["train"]) and math.isfinite(h["val"]) for h in res["history"]),
+          "non-finite loss in the mask fit")
+    check((k1, k2, k3) == want, "the mask fit's K1/K2/K3 launches")
+    seen = require_variants("the mask fit", {"stft_kernel": "fft", "istft_kernel": "fft",
+                                             "deconv_kernel": "wgmma"})
+    for name, n in (("stft_kernel", k1), ("istft_kernel", k2), ("deconv_kernel", k3)):
+        rows[name]["mask_train_launches"] = n
+        rows[name]["mask_train_variant_launches"] = seen[name]
+    count_off_path(rows, "the mask fit")
+    check(res["best_path"].endswith("best_model.ckpt"), f"fit exported {res['best_path']}")
+
+    saved = os.path.join(tmp, "mask_saved")
+    os.makedirs(saved, exist_ok=True)
+    shutil.copyfile(res["best_path"], os.path.join(saved, "mask_denoiser_mixed.ckpt"))
+    with open(os.path.join(saved, "mask_denoiser_mixed.json"), "w") as f:
+        json.dump(MASK_SIDECAR, f)
+    service, server, name = build_server(parse_args([
+        "--model", "complex_mask", "--noise_type", "mixed", "--saved_models_dir", saved,
+        "--port", "0", "--max_seconds", "10"]))
+    try:
+        runner = service.runner
+        check(name == "mask_denoiser_mixed" and runner.model.mask_bound == 8.0
+              and runner.model.mask_residual, "cli.serve did not load the trained mask model")
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        clips = [np.clip(mixer.clean[i, : int(s * SR)].cpu().numpy(), -1, 1)
+                 for i, s in ((0, 1.3), (1, 2.0))]
+        for clip in clips:
+            answer = _post(url, _wav(clip), "?mode=complex_mask")
+            sent = read_wav(io.BytesIO(_wav(clip)))[0]
+            padded = np.zeros((1, service._bucket_len(len(sent))), np.float32)
+            padded[0, : len(sent)] = sent
+            direct = runner.denoise_audio(torch.from_numpy(padded))[0, : len(sent)]
+            check_answer(f"trained mask {len(clip) / SR:.1f} s", sent, answer, direct)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def mask_cli_start(tmp):
+    """Phase 6c (d), started: ``cli.train --model complex_mask --noise_type
+    mixed`` on wavs, 1 epoch of 3 steps, in a subprocess."""
+    data = os.path.join(tmp, "mask_wavs")
+    _write_wav_dir(os.path.join(data, "clean"), 12)
+    _noise_wavs(os.path.join(data, "noise"))
+    export = os.path.join(tmp, "mask_cli_saved")
+    args = ["audiodenoiser_torch.cli.train", "--base_dataset_path", data,
+            "--model", "complex_mask", "--pipeline", "on_device", "--noise_type", "mixed",
+            "--epochs", "1", "--steps_per_epoch", "3",
+            "--output_path", os.path.join(tmp, "mask_cli_runs"), "--export_dir", export]
+    return export, _start_cli("mask train cli", args, tmp)
+
+
+def mask_cli_finish(export, started):
+    _, wall = _finish_cli(started)
+    ckpt = os.path.join(export, "mask_denoiser_mixed.ckpt")
+    sidecar = os.path.join(export, "mask_denoiser_mixed.json")
+    check(os.path.exists(ckpt) and os.path.exists(sidecar),
+          "cli.train --model complex_mask wrote no .ckpt and sidecar")
+    with open(sidecar) as f:
+        meta = json.load(f)
+    print(f"[mask train cli] exit 0 in {wall:.1f} s; {os.path.getsize(ckpt)} byte .ckpt, "
+          f"sidecar {meta}", flush=True)
+    check(meta == MASK_SIDECAR, f"cli.train's sidecar {meta} != {MASK_SIDECAR}")
+
+
+def mask_bench(torch):
+    """Phase 6c (e): the mask training bench and its device profile."""
+    from audiodenoiser_torch.ops.cuda import (
+        deconv_kernel,
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+    )
+    from audiodenoiser_torch.train.bench import run_mask_train_bench
+
+    warmup, steps, profiled = 3, 20, 3
+    reset_launch_counts()
+    bench = run_mask_train_bench(16, steps=steps, warmup=warmup, profile_iters=profiled)
+    require_variants("the mask training bench", {"stft_kernel": "fft", "istft_kernel": "fft",
+                                                 "deconv_kernel": "wgmma"})
+    n = warmup + steps + profiled
+    per_step = {k.__name__: k.launches / n for k in (stft_kernel, istft_kernel, deconv_kernel)}
+    prof = bench.pop("profile")
+    print(f"[mask train bench] {json.dumps(bench)}; launches a step {per_step}", flush=True)
+    check(math.isfinite(bench["last_loss"]), "non-finite loss in the mask training bench")
+    check(per_step == {"stft_kernel": 2.0, "istft_kernel": 1.0, "deconv_kernel": 4.0},
+          "the mask training bench's launches a step")
+    if isinstance(prof.get("device_busy_ms"), float):
+        cats = _categories(prof["top"])
+        print(f"[mask train profile] wall {prof['wall_ms']:.2f} ms/step, device busy "
+              f"{prof['device_busy_ms']:.2f} ms, idle {prof['idle_share']:.3f}; by kind "
+              + json.dumps({k: round(v, 4) for k, v in sorted(cats.items(),
+                                                               key=lambda kv: -kv[1])}),
+              flush=True)
+        for row in prof["top"][:15]:
+            print(f"[mask train profile] {row['ms']:.4f} ms {row['share']:.3f} {row['kernel']}",
+                  flush=True)
+    else:
+        print(f"[mask train profile] {prof}", flush=True)
+
+
+def phase_mask_train(torch, rng, rows):
+    """Phase 6c: complex-mask training on the card."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mask_train_")
+    started = None
+    try:
+        t0 = time.perf_counter()
+        export, started = mask_cli_start(tmp)  # beside (a)-(c), to overlap its start
+        mask_istft_grad(torch, rng)
+        mask_step_fp32(torch)
+        mask_fit(torch, rows, tmp)
+        mask_cli_finish(export, started)
+        mask_bench(torch)
+        print(f"[mask train] phase 6c in {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        if started is not None and started[1].poll() is None:  # a check failed first
+            started[1].kill()
+            started[1].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 GL_ITERS = 50
@@ -1459,6 +1827,7 @@ def main() -> None:
         phase_train_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_mask_train(torch, rng, rows)
     reset_launch_counts()
     bench = run_bench(batch_size=256, clip_seconds=2.0, iters=20, profile_iters=3)
     print(f"[bench] {json.dumps(bench)}", flush=True)

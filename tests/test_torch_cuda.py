@@ -397,3 +397,112 @@ def test_griffin_lim_on_card_matches_cpu(dev, mode):
                       precision="kernel")
     rel = (ours - ref).norm() / ref.norm()
     assert rel < {"reference": 1e-4, "correct": 1e-3}[mode], rel
+
+
+@pytest.mark.parametrize("n_fft,hop", [(512, 128), (2048, 512)])
+def test_istft_gradient_matches_autograd_of_plain(dev, n_fft, hop):
+    """K2's gradient (K1 on the cotangent, scaled per bin) against autograd
+    through the plain iSTFT on the card; the imaginary DC/Nyquist parts get
+    exactly 0, and the backward is one K1 launch through its FFT entry."""
+    from audiodenoiser_torch.dsp.stft import istft
+    from audiodenoiser_torch.ops.cuda import (
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+        variant_launches,
+    )
+
+    rng = np.random.default_rng(7)
+    f, t = n_fft // 2 + 1, 40
+    parts = rng.standard_normal((3, f, t, 2)).astype(np.float32)
+    parts[:, [0, -1], :, 1] = 50.0  # large imaginary DC/Nyquist parts, ignored
+    spec0 = torch.view_as_complex(torch.from_numpy(parts)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((3, 6000)).astype(np.float32)).to(dev)
+    grads = {}
+    for precision in ("kernel", "fft"):
+        spec = spec0.clone().requires_grad_()
+        reset_launch_counts()
+        y = istft(spec, hop, n_fft=n_fft, length=6000, precision=precision)
+        (y * g).sum().backward()
+        torch.cuda.synchronize()
+        launches = (variant_launches(stft_kernel), variant_launches(istft_kernel))
+        grads[precision] = torch.view_as_real(spec.grad)
+        if precision == "kernel":
+            assert launches == ({"fft": 1, "direct": 0}, {"fft": 1, "direct": 0})
+        else:
+            assert stft_kernel.launches == istft_kernel.launches == 0
+    ours, ref = grads["kernel"], grads["fft"]
+    assert _max_rel(ours, ref) < 1e-5
+    assert float(ours[:, [0, -1], :, 1].abs().max()) == 0.0
+    with pytest.raises(RuntimeError, match="A.8"):
+        stft_kernel(g.clone().requires_grad_(), torch.ones(n_fft, device=dev), n_fft, hop)
+
+
+def test_mask_step_on_card_matches_cpu(dev):
+    """One fp32 mask train step (K1, K2 and its gradient, K3 both ways) on
+    the card against the CPU's plain versions, from one weight tree and the
+    same waveforms, at two levels: losses and the loss's gradient with
+    respect to the mask within 1e-4 relative; every parameter gradient of
+    the card within 1e-4 relative L2 of a float64 backward of the same
+    cotangent (on the CPU the fp32 backward of this step lies further from
+    it, so the CPU is not the arbiter of the U-Net's gradients; a conv bias
+    feeding train-mode BN has a gradient of exactly 0 and is left out)."""
+    from torch import nn
+
+    from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
+        random_flax_variables,
+        state_dict_from_flax,
+    )
+    from audiodenoiser_torch.ops.cuda import (
+        deconv_kernel,
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+    )
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
+
+    class Tap(nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, x):
+            y = self.model(x)
+            y.retain_grad()
+            self.x, self.y = x, y
+            return y
+
+    widths = dict(features=(8, 16), bottleneck=32)
+    v = random_flax_variables(2, **widths, in_channels=3, out_channels=2)
+    clean = torch.from_numpy(synth_chunks(2, seed=6))
+    noisy = (clean + 0.1 * torch.randn(clean.shape, generator=torch.Generator().manual_seed(3))
+             ).clamp(-1, 1)
+    train_step, _ = make_mask_steps(0.5, 30.0)
+    got = {}
+    for d in ("cuda", "cpu"):
+        model = ComplexMaskUNet(**widths, mask_bound=8.0, residual=True, pallas_deconv=True)
+        state = create_mask_train_state(0, model, variables=v, device=d)
+        state.model = tap = Tap(state.model)
+        reset_launch_counts()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            state, losses = train_step(state, noisy.to(d), clean.to(d))
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert (stft_kernel.launches, istft_kernel.launches) == (2, 1)
+            assert deconv_kernel.launches == 2
+        clip = min(1.0, 1.0 / float(state.grad_norm))  # the step scaled the gradients
+        got[d] = ([float(x) for x in losses], tap.x.detach(), tap.y.grad.detach(),
+                  {n: p.grad / clip for n, p in model.named_parameters()})
+    (lc, x, g, grads), (lp, _, gp, _) = got["cuda"], got["cpu"]
+    for a, b in zip(lc, lp):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    assert float((g.cpu() - gp).norm() / gp.norm()) < 1e-4
+    ref = ComplexMaskUNet(**widths, mask_bound=8.0, residual=True, dtype=torch.float64)
+    ref.load_state_dict(state_dict_from_flax(v))
+    ref = ref.double().to(dev).train()
+    ref(x.double()).backward(g.double())
+    for name, p in ref.named_parameters():
+        if not name.endswith(("double_conv.0.bias", "double_conv.3.bias")):
+            assert float((grads[name].double() - p.grad).norm() / p.grad.norm()) < 1e-4, name

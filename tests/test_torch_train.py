@@ -465,7 +465,7 @@ class TestTrainCLI:
         assert out["steps"] == 2
 
     @pytest.mark.parametrize("flag", [["--resume"], ["--ema_decay", "0.999"],
-                                      ["--model", "complex_mask"], ["--width_mult", "0.5"]])
+                                      ["--model", "router"], ["--width_mult", "0.5"]])
     def test_unported_flags_name_their_roadmap_item(self, tmp_path, flag):
         from audiodenoiser_torch.cli.train import main
 
