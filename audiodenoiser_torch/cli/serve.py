@@ -1,4 +1,4 @@
-"""CLI: serve a BN-folded denoiser over HTTP on the GPU.
+"""CLI: serve a denoiser over HTTP on the GPU.
 
 Usage (the recommended deployment, the universal complex-mask model):
   python -m audiodenoiser_torch.cli.serve --model complex_mask \\
@@ -10,35 +10,43 @@ Usage (the recommended deployment, the universal complex-mask model):
 Loads ``{stem}_{noise_type}.ckpt`` (stem ``mask_denoiser`` for
 ``--model complex_mask``, ``unet_denoiser`` for ``--model unet``, which
 also takes the reference ``unet_denoiser_{noise_type}.pth``), folds its
-BatchNorm into the convolutions and serves ``POST /denoise`` in
-``--mode`` (``?mode=`` per request; the magnitude model serves
-``noisy_phase``, ``griffin_lim`` and ``reference_gl``), plus WOLA
-streaming sessions in the model's own mode with one chunk
-(``bucket_seconds``) of latency:
+BatchNorm into the convolutions (``--no-fold``: the live-BN eval model)
+and serves ``POST /denoise`` in ``--mode`` (``?mode=`` per request; the
+magnitude model serves ``noisy_phase``, ``griffin_lim`` and
+``reference_gl``), plus streaming sessions in the model's own mode:
 
   curl -s -X POST 'http://127.0.0.1:8800/stream/start'   # {"session": ID, ...}
   curl -s -X POST --data-binary @samples.f32 'http://127.0.0.1:8800/stream/ID'
   curl -s -X POST 'http://127.0.0.1:8800/stream/ID/flush'
 
-with raw little-endian float32 samples at 8 kHz in and out.
+with raw little-endian float32 samples at ``--sample_rate`` in and out
+(``?rate=`` at start: the client's own rate, resampled in the stream).
+Sessions are WOLA with one chunk (``bucket_seconds``) of latency;
+``--stream_latency_ms`` makes them low-latency sessions of that budget,
+``--stream_pool N|auto`` serves them from one pool whose live streams
+advance in one batch per hop. ``POST /admin/reload`` reloads the
+checkpoint from ``--saved_models_dir`` without dropping traffic: open
+sessions finish on their generation.
 """
 
 from __future__ import annotations
 
 import argparse
+import threading
 
-SAMPLE_RATE = 8000
 # options of the JAX CLI whose machinery is not ported yet
 UNPORTED_FLAGS = {
-    "stream_latency_ms": "ROADMAP A.9 (low-latency streaming sessions)",
-    "stream_pool": "ROADMAP A.9 (pooled multi-stream sessions)",
     "auto_route": "ROADMAP A.10 (noise router and specialists)",
+    "mesh": "ROADMAP A.11 (parallelism)",
+    "model_parallel": "ROADMAP A.11 (parallelism)",
 }
 # default modes of the JAX CLI that no ported model serves yet
 UNPORTED_MODES = {"auto": "ROADMAP A.10 (noise router and specialists)"}
 # the modes each model serves, its own first
 MODEL_MODES = {"unet": ("noisy_phase", "griffin_lim", "reference_gl"),
                "complex_mask": ("complex_mask",)}
+# --precision_path -> the runner's precision: JAX's Pallas path is the kernels
+PRECISION_PATHS = {"auto": "kernel", "pallas": "kernel", "matmul": "matmul", "fft": "fft"}
 
 
 def parse_args(argv=None):
@@ -59,13 +67,33 @@ def parse_args(argv=None):
                    "model's own mode")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8800)
+    p.add_argument("--sample_rate", type=int, default=8000)
     p.add_argument("--bucket_seconds", type=float, default=2.0,
                    help="requests are padded to multiples of this many "
                    "seconds so the device sees few shapes; also the chunk "
-                   "of the /stream sessions")
+                   "of the WOLA sessions and the low-latency sessions' window")
     p.add_argument("--max_seconds", type=float, default=60.0)
     p.add_argument("--precision", choices=["bf16", "f32"], default="bf16",
-                   help="compute dtype of the folded U-Net")
+                   help="compute dtype of the U-Net")
+    p.add_argument("--precision_path", choices=list(PRECISION_PATHS), default="auto",
+                   help="STFT/iSTFT path: auto and pallas take the CUDA kernels "
+                   "(K1/K2), fft the torch.fft versions, matmul the real-DFT-basis "
+                   "STFT with the FFT iSTFT")
+    p.add_argument("--fold", action=argparse.BooleanOptionalAction, default=True,
+                   help="fold eval-mode BatchNorm into the convolutions (the "
+                   "default); --no-fold serves the live-BN eval model")
+    p.add_argument("--no_warmup", action="store_true",
+                   help="skip the first-bucket warm-up at start and on reload")
+    p.add_argument("--stream_latency_ms", type=float, default=None,
+                   help="serve /stream with low-latency sessions of this "
+                   "end-to-end budget (e.g. 224) over a rolling window of one "
+                   "bucket, instead of WOLA sessions of one bucket's latency")
+    p.add_argument("--stream_pool", default=None, metavar="N|auto",
+                   help="serve /stream from one pool of this capacity whose "
+                   "live streams advance in one batch per hop; every step "
+                   "computes the whole capacity, so size it to the expected "
+                   "concurrency; 'auto' sizes it to the card's memory "
+                   "(eval.streaming.auto_pool_capacity). WOLA sessions only")
     p.add_argument(
         "--bypass_db", type=float, default=None,
         help="identity-bypass gate: clips whose relative model-change "
@@ -81,6 +109,17 @@ def parse_args(argv=None):
     for name, item in UNPORTED_FLAGS.items():
         if hasattr(args, name):
             raise SystemExit(f"--{name} is not ported yet: {item}")
+    if args.stream_pool is not None:
+        if args.stream_pool != "auto":
+            try:
+                args.stream_pool = int(args.stream_pool)
+            except ValueError:
+                raise SystemExit("--stream_pool must be an integer or 'auto'") from None
+            if args.stream_pool < 1:
+                raise SystemExit("--stream_pool must be >= 1")
+        if args.stream_latency_ms is not None:
+            raise SystemExit("--stream_pool supports WOLA sessions only (drop "
+                             "--stream_latency_ms)")
     served = MODEL_MODES[args.model]
     if args.mode in UNPORTED_MODES:
         raise SystemExit(f"--mode {args.mode} is not ported yet: {UNPORTED_MODES[args.mode]}")
@@ -91,43 +130,88 @@ def parse_args(argv=None):
     return args
 
 
-def build_server(args):
-    """The service and its (not started) HTTP server, with streaming."""
+def build_generation(args) -> dict:
+    """Load the checkpoint and build everything one serving generation
+    needs: the runner and the stream engine (a WOLA or low-latency
+    streamer, or a pool). At start and on each ``/admin/reload``."""
     import torch
 
+    from audiodenoiser_torch.eval import streaming
     from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
-    from audiodenoiser_torch.eval.streaming import StreamingDenoiser
-    from audiodenoiser_torch.serve import DenoiseService, make_http_server
 
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
     model = load_model_for_noise(args.noise_type, args.saved_models_dir, dtype=dtype,
-                                 device=args.device, stem=stem)
-    runner = DenoiserRunner(model, device=args.device)
-    print("Warming up (building kernels, first-bucket batches)...")
-    bucket = int(args.bucket_seconds * SAMPLE_RATE)
+                                 device=args.device, stem=stem, fold=args.fold)
+    runner = DenoiserRunner(model, device=args.device,
+                            precision=PRECISION_PATHS[args.precision_path])
+    chunk = int(args.bucket_seconds * args.sample_rate)
+    chunk -= chunk % 2  # WOLA needs an even chunk
+    gen = {"runner": runner, "streamer": None, "pooled": None}
+    if args.stream_latency_ms is not None:
+        gen["streamer"] = streaming.LowLatencyStreamingDenoiser.from_latency_budget(
+            runner, args.stream_latency_ms, sample_rate=args.sample_rate,
+            window_samples=chunk)
+    else:
+        gen["streamer"] = streaming.StreamingDenoiser(runner, chunk_samples=chunk,
+                                                      sample_rate=args.sample_rate)
+    if args.stream_pool is not None:
+        capacity = args.stream_pool
+        if capacity == "auto":
+            capacity = streaming.auto_pool_capacity(runner, chunk_samples=chunk)
+            print(f"--stream_pool auto: sized the pool to {capacity} streams")
+        gen["pooled"] = streaming.PooledStreamSessions(streaming.MultiStreamWola(
+            runner, capacity=capacity, chunk_samples=chunk, sample_rate=args.sample_rate))
+    return gen
+
+
+def build_server(args):
+    """The service and its (not started) HTTP server, with streaming and
+    ``/admin/reload``."""
+    from audiodenoiser_torch.serve import DenoiseService, make_http_server
+
+    stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
+    gen = {"cur": build_generation(args)}
+    gen["cur"]["gen"] = 0
+    if not args.no_warmup:
+        print("Warming up (building kernels, first-bucket batches)...")
     service = DenoiseService(
-        runner,
-        sample_rate=SAMPLE_RATE,
-        bucket_samples=bucket,
+        gen["cur"]["runner"],
+        sample_rate=args.sample_rate,
+        bucket_samples=int(args.bucket_seconds * args.sample_rate),
         max_seconds=args.max_seconds,
         default_mode=args.mode,
-        warmup=True,
+        warmup=not args.no_warmup,
         bypass_db=args.bypass_db,
     )
-    # one shared streamer: WOLA sessions with a chunk of one bucket, made even
-    streamer = StreamingDenoiser(runner, chunk_samples=bucket - bucket % 2,
-                                 sample_rate=SAMPLE_RATE)
 
     def stream_factory(mode):
+        cur = gen["cur"]  # one snapshot: the session and its generation
+        streamer = cur["streamer"]
         if mode == "auto":
             raise NotImplementedError(
                 f"routed streams are not ported yet: {UNPORTED_FLAGS['auto_route']}")
         if mode not in (None, streamer.mode):
             raise NotImplementedError(f"this server streams mode {streamer.mode!r} only")
-        return streamer.session()
+        if cur["pooled"] is not None:
+            return cur["pooled"].session(), cur["gen"]  # IndexError when full: 503
+        return streamer.session(), cur["gen"]
 
-    server = make_http_server(service, args.host, args.port, stream_factory=stream_factory)
+    reload_lock = threading.Lock()
+
+    def reload_fn():
+        # the new generation is built and warmed up before the swap, so a
+        # broken checkpoint directory never stops the serving one
+        with reload_lock:
+            new = build_generation(args)
+            new["gen"] = service.reload(runner=new["runner"], warmup=not args.no_warmup)
+            gen["cur"] = new
+            print(f"Reloaded {args.saved_models_dir} (generation {new['gen']})")
+            return {"generation": new["gen"], "saved_models_dir": args.saved_models_dir}
+
+    server = make_http_server(service, args.host, args.port, stream_factory=stream_factory,
+                              reload_fn=reload_fn)
+    server.current_generation = lambda: gen["cur"]  # what serves now, for inspection
     return service, server, f"{stem}_{args.noise_type}"
 
 
@@ -135,10 +219,13 @@ def main(argv=None):
     args = parse_args(argv)
     service, server, name = build_server(args)
     host, port = server.server_address[:2]
+    chunk = int(args.bucket_seconds * args.sample_rate) // 2 * 2
+    stream = (f"low-latency {args.stream_latency_ms:g} ms" if args.stream_latency_ms is not None
+              else f"WOLA chunk {chunk}")
+    if args.stream_pool is not None:
+        stream += f", pooled ({args.stream_pool})"
     print(f"Serving {name} on http://{host}:{port} "
-          f"(mode={service.default_mode}, streaming WOLA chunk "
-          f"{int(args.bucket_seconds * SAMPLE_RATE) // 2 * 2}, "
-          f"{service.runner.device})")
+          f"(mode={service.default_mode}, streaming {stream}, {service.runner.device})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -13,6 +13,9 @@ Semantics are those of ``audiodenoiser_tpu.dsp.stft``:
 
 ``precision="fft"`` runs the kernels' plain ``torch.fft`` versions,
 ``ops.cuda.stft_plain`` / ``istft_plain``, on any device.
+``precision="matmul"`` is JAX's real-DFT-basis STFT: the windowed frames
+times cosine and sine bases in ``torch.matmul`` (JAX computes it outside
+any Pallas kernel); its iSTFT, as JAX's, is the FFT path.
 ``precision="kernel"`` is the counterpart of JAX's ``"pallas"``: the
 transforms go through ``ops.cuda.stft_kernel`` / ``istft_kernel``, which
 launch the CUDA kernels for CUDA tensors and take the same plain versions
@@ -34,7 +37,7 @@ import torch.nn.functional as F
 from audiodenoiser_torch.dsp.window import hann_window, pad_center
 
 WindowSpec = Union[str, np.ndarray, None]
-PRECISIONS = ("fft", "kernel")
+PRECISIONS = ("fft", "kernel", "matmul")
 
 
 def _resolve_window(window: WindowSpec, win_length: int, n_fft: int) -> np.ndarray:
@@ -63,6 +66,15 @@ def _on(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A float32 constant on ``device``, uploaded once per content."""
     return _device_array(np.ascontiguousarray(arr, np.float32).tobytes(),
                          torch.device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _rdft_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real DFT bases (n_fft, n_fft//2 + 1): cos and sin of -2*pi*n*k/n_fft."""
+    n = np.arange(n_fft)
+    k = np.arange(n_fft // 2 + 1)
+    ang = -2.0 * np.pi * np.outer(n, k) / n_fft
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
 def _check_precision(precision: str) -> None:
@@ -119,6 +131,10 @@ def stft(
     if center:
         x = _pad_signal(x, n_fft, pad_mode)
     lead = x.shape[:-1]
+    if precision == "matmul":
+        cos_b, sin_b = (_on(b, x.device).view(n_fft, -1) for b in _rdft_basis(n_fft))
+        fw = frame_signal(x, n_fft, hop_length) * w
+        return torch.complex(fw @ cos_b, fw @ sin_b).transpose(-1, -2)
     xb = x.reshape(-1, x.shape[-1])
     from audiodenoiser_torch.ops.cuda import stft_kernel, stft_plain
 

@@ -11,7 +11,12 @@ Flax tree layout by ``models.convert``.
   python -m audiodenoiser_torch.eval.bench --batch_size 256 [--pallas_deconv]
   python -m audiodenoiser_torch.eval.bench --mode complex_mask
 
-prints one JSON line naming the card and its power limit. With
+prints one JSON line naming the card and its power limit, with the stream
+benches beside the batch numbers (each can be left out): a WOLA session
+at 8 kHz and at 16 kHz (``stream16k_*``; 1 s packets, its realtime
+factor, wall ms a packet and device ms a window step), and pools of 8 and
+64 lockstep streams (``stream_pool{,64}_*``: aggregate realtime factor,
+ms a tick). With
 ``--pallas_deconv`` the U-Net is the live-BN bf16 one, unfolded, whose
 four upsamplings run through the K3 kernel, as the JAX bench's option of
 that name runs its Pallas deconv. ``--mode complex_mask`` runs the
@@ -168,6 +173,105 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
     return result
 
 
+def _stream_audio(rng, n: int) -> np.ndarray:
+    return np.clip(0.2 * rng.standard_normal(n), -1, 1).astype(np.float32)
+
+
+def run_stream_bench(packet_seconds: float = 1.0, total_seconds: float = 10.0,
+                     sample_rate: int = 8000, prefix: str = "stream", seed: int = 0,
+                     device: DeviceLike = None, profile_iters: int = 0) -> dict:
+    """A WOLA session (chunk one packet) over the full-width folded bf16
+    U-Net: ``{prefix}_realtime_factor`` (seconds of audio a wall second,
+    ``total_seconds`` pushed in ``packet_seconds`` packets and flushed),
+    ``{prefix}_packet_ms`` (wall ms a packet) and
+    ``{prefix}_step_compute_ms`` (30 window steps chained on the device,
+    one synchronise: the time a step); with ``profile_iters`` (CUDA only)
+    ``{prefix}_step_profile``, a ``device_breakdown`` of that many steps."""
+    from audiodenoiser_torch.eval.streaming import StreamingDenoiser
+
+    device = resolve_device(device)
+    runner = build_runner(seed, device=device)
+    chunk = int(packet_seconds * sample_rate)
+    chunk -= chunk % 2  # WOLA needs an even chunk
+    streamer = StreamingDenoiser(runner, chunk_samples=chunk, sample_rate=sample_rate)
+    sess = streamer.session()
+    rng = np.random.default_rng(seed)
+    packet = _stream_audio(rng, chunk)
+    sess.process(packet)  # warm-up: the first packet builds the kernels
+    n = max(1, int(total_seconds / packet_seconds))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        sess.process(packet)
+    sess.flush()
+    dt = time.perf_counter() - t0
+    out = {f"{prefix}_realtime_factor": n * packet_seconds / dt,
+           f"{prefix}_packet_ms": dt / n * 1e3}
+    hop = torch.from_numpy(_stream_audio(rng, streamer.hop)).to(device)
+    with torch.inference_mode():
+        state, o = streamer.step(streamer.initial_state(), hop)
+        sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+        sync()
+        k = 30
+        t0 = time.perf_counter()
+        for _ in range(k):  # each step takes the state the last one left
+            state, o = streamer.step(state, hop)
+        sync()
+        out[f"{prefix}_step_compute_ms"] = (time.perf_counter() - t0) / k * 1e3
+        if profile_iters and device.type == "cuda":
+            out[f"{prefix}_step_profile"] = device_breakdown(
+                lambda: streamer.step(state, hop), profile_iters, device)
+    return out
+
+
+def run_multistream_bench(streams: int = 8, chunk: int = 16000, ticks: int = 10,
+                          sample_rate: int = 8000, prefix: str = "stream_pool",
+                          seed: int = 0, device: DeviceLike = None,
+                          profile_iters: int = 0) -> dict:
+    """``streams`` lockstep streams in one ``MultiStreamWola`` of that
+    capacity over the full-width folded bf16 U-Net, one hop each a tick:
+    ``{prefix}_aggregate_rtf`` (seconds of audio a wall second over all
+    streams) and ``{prefix}_tick_ms``; with ``profile_iters`` (CUDA only)
+    ``{prefix}_tick_profile``, a ``device_breakdown`` of that many ticks."""
+    from audiodenoiser_torch.eval.streaming import MultiStreamWola
+
+    device = resolve_device(device)
+    runner = build_runner(seed, device=device)
+    pool = MultiStreamWola(runner, capacity=streams, chunk_samples=chunk,
+                           sample_rate=sample_rate)
+    rng = np.random.default_rng(seed)
+    feed = {pool.open(): _stream_audio(rng, pool.hop) for _ in range(streams)}
+    for _ in range(3):
+        pool.process(feed)  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        pool.process(feed)  # ends in a copy of the outputs to the host
+    dt = (time.perf_counter() - t0) / ticks
+    out = {f"{prefix}_streams": streams,
+           f"{prefix}_aggregate_rtf": streams * pool.hop / sample_rate / dt,
+           f"{prefix}_tick_ms": dt * 1e3}
+    if profile_iters and device.type == "cuda":
+        out[f"{prefix}_tick_profile"] = device_breakdown(lambda: pool.process(feed),
+                                                         profile_iters, device)
+    return out
+
+
+def stream_benches(no_stream: bool = False, no_stream16k: bool = False,
+                   no_pool: bool = False, no_pool64: bool = False,
+                   device: DeviceLike = None, profile_iters: int = 0) -> dict:
+    """The stream benches that are not left out, as ``main`` runs them."""
+    kw = dict(device=device, profile_iters=profile_iters)
+    out = {}
+    if not no_stream:
+        out.update(run_stream_bench(**kw))
+    if not no_stream16k:
+        out.update(run_stream_bench(sample_rate=16000, prefix="stream16k", **kw))
+    if not no_pool:
+        out.update(run_multistream_bench(**kw))
+    if not no_pool64:
+        out.update(run_multistream_bench(streams=64, ticks=5, prefix="stream_pool64", **kw))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--batch_size", type=int, default=256)
@@ -179,10 +283,21 @@ def main(argv=None):
                    help="the live-BN U-Net with the K3 deconv kernel, unfolded")
     p.add_argument("--mode", choices=["noisy_phase", "complex_mask"], default="noisy_phase",
                    help="complex_mask: the folded ComplexMaskUNet in its own mode")
+    p.add_argument("--no_stream", action="store_true",
+                   help="leave out the 8 kHz stream bench")
+    p.add_argument("--no_stream16k", action="store_true",
+                   help="leave out the 16 kHz stream bench")
+    p.add_argument("--no_pool", action="store_true",
+                   help="leave out the 8-stream pool bench")
+    p.add_argument("--no_pool64", action="store_true",
+                   help="leave out the 64-stream pool bench")
     args = p.parse_args(argv)
-    print(json.dumps(run_bench(args.batch_size, args.clip_seconds, args.iters,
-                               pipelined=not args.latency,
-                               pallas_deconv=args.pallas_deconv, mode=args.mode)))
+    result = run_bench(args.batch_size, args.clip_seconds, args.iters,
+                       pipelined=not args.latency,
+                       pallas_deconv=args.pallas_deconv, mode=args.mode)
+    result.update(stream_benches(args.no_stream, args.no_stream16k, args.no_pool,
+                                 args.no_pool64))
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

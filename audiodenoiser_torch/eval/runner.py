@@ -13,8 +13,10 @@ the centre-padded STFT through the K1 kernel, then, by mode:
   the model's bounded complex mask times the noisy spectrogram, one iSTFT.
 
 The iSTFT goes through the K2 kernel. On a CUDA device the kernels launch;
-on the CPU their plain versions run. A magnitude model serves its three
-modes, a mask model ``complex_mask`` alone.
+on the CPU their plain versions run. ``precision="fft"`` takes the
+``torch.fft`` versions instead and ``"matmul"`` the real-DFT-basis STFT
+(``dsp.stft``), as JAX's ``precision`` chooses its lowering. A magnitude
+model serves its three modes, a mask model ``complex_mask`` alone.
 
 ``load_model_for_noise`` / ``load_model_from_path`` read the JAX
 package's ``{stem}_{noise}.ckpt`` exports with their ``.json`` sidecars,
@@ -43,7 +45,7 @@ from audiodenoiser_torch.eval.metrics import pesq, si_sdr, stoi
 from audiodenoiser_torch.losses.spectral import combined_perceptual_loss
 from audiodenoiser_torch.models.complex_mask import ComplexMaskUNet, mask_spectrogram
 from audiodenoiser_torch.models.convert import load_flax_variables
-from audiodenoiser_torch.models.folded import FoldedUNet, fold_for_inference
+from audiodenoiser_torch.models.folded import fold_for_inference
 from audiodenoiser_torch.models.unet import UNet, width_kwargs
 from audiodenoiser_torch.train.checkpoints import load_exported
 
@@ -80,13 +82,24 @@ def batch_metric_mean(fn, clean, audio, sample_rate) -> float:
     return float(np.mean(vals))
 
 
+def _for_inference(model: nn.Module, dtype: torch.dtype, device: torch.device,
+                   fold: bool) -> nn.Module:
+    """``model`` folded to ``dtype``, or with ``fold=False`` the live-BN
+    eval model computing in ``dtype``, on ``device``."""
+    if fold:
+        return fold_for_inference(model.eval(), dtype).to(device)
+    model.dtype = dtype
+    return model.eval().to(device)
+
+
 def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
                          device: DeviceLike = None,
-                         stem: str = "mask_denoiser") -> FoldedUNet:
+                         stem: str = "mask_denoiser", fold: bool = True) -> nn.Module:
     """Load a ``.ckpt`` export by path and fold it for inference on
-    ``device``. Its ``.json`` sidecar, when there is one, rebuilds the
-    architecture: ``width_mult``, and for ``stem="mask_denoiser"`` the
-    mask head's ``mask_bound`` (default 2.0) and ``residual``."""
+    ``device`` (``fold=False``: the live-BN eval model). Its ``.json``
+    sidecar, when there is one, rebuilds the architecture: ``width_mult``,
+    and for ``stem="mask_denoiser"`` the mask head's ``mask_bound``
+    (default 2.0) and ``residual``."""
     device = resolve_device(device)
     if not os.path.exists(path):
         raise FileNotFoundError(f"Model file not found: {path}")
@@ -108,13 +121,13 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
         model = UNet(**kwargs)
     load_flax_variables(model, load_exported(path))
     print(f"Loaded model from: {path}")
-    return fold_for_inference(model.eval(), dtype).to(device)
+    return _for_inference(model, dtype, device, fold)
 
 
 def load_model_for_noise(noise_type: str, saved_models_dir: str = "./saved_models",
                          dtype: torch.dtype = torch.bfloat16,
                          device: DeviceLike = None,
-                         stem: str = "unet_denoiser") -> FoldedUNet:
+                         stem: str = "unet_denoiser", fold: bool = True) -> nn.Module:
     """Load the model for ``noise_type`` and fold it for inference on
     ``device``, picking files in the JAX package's order:
     ``{stem}_{noise_type}.ckpt`` if it exists, else (for the magnitude
@@ -125,12 +138,12 @@ def load_model_for_noise(noise_type: str, saved_models_dir: str = "./saved_model
     path = os.path.join(saved_models_dir, f"{stem}_{noise_type}.ckpt")
     pth_path = os.path.join(saved_models_dir, f"unet_denoiser_{noise_type}.pth")
     if os.path.exists(path) or stem != "unet_denoiser" or not os.path.exists(pth_path):
-        return load_model_from_path(path, dtype, device, stem)
+        return load_model_from_path(path, dtype, device, stem, fold)
     model = UNet()
     model.load_state_dict(torch.load(pth_path, map_location="cpu", weights_only=True),
                           strict=True)
     print(f"Loaded model for noise type '{noise_type}' from: {pth_path}")
-    return fold_for_inference(model.eval(), dtype).to(device)
+    return _for_inference(model, dtype, device, fold)
 
 
 class DenoiserRunner:
@@ -140,11 +153,16 @@ class DenoiserRunner:
     to (N, 1, F, T) and serves ``noisy_phase`` (its own mode),
     ``griffin_lim`` and ``reference_gl``; a complex-mask model (one with a
     ``mask_bound``) maps (N, 3, F, T) features to an (N, 2, F, T) mask and
-    serves ``complex_mask``. The STFT and iSTFT always take the kernel path.
+    serves ``complex_mask``. ``precision`` is the STFT and iSTFT path of
+    ``dsp.stft``: ``"kernel"`` (K1 and K2), ``"fft"`` or ``"matmul"``.
     """
 
     def __init__(self, model: nn.Module, n_fft: int = 512, hop_length: int = 128,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, precision: str = "kernel"):
+        if precision not in stft_lib.PRECISIONS:
+            raise ValueError(f"precision must be one of {stft_lib.PRECISIONS}, "
+                             f"got {precision!r}")
+        self.precision = precision
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.n_fft = n_fft
@@ -201,7 +219,7 @@ class DenoiserRunner:
                      theta: Optional[torch.Tensor]) -> torch.Tensor:
         lead, n = audio.shape[:-1], audio.shape[-1]
         spec = stft_lib.stft(audio.reshape(-1, n), self.n_fft, self.hop,
-                             center=center, precision="kernel")
+                             center=center, precision=self.precision)
         if mode == "complex_mask":
             rec = mask_spectrogram(self.model, spec)
         else:
@@ -213,11 +231,11 @@ class DenoiserRunner:
                     generator = torch.Generator().manual_seed(0)
                 out = griffin_lim(den, generator, n_fft=self.n_fft, hop_length=self.hop,
                                   n_iter=gl_iters, mode=GL_MODES[mode], length=n,
-                                  theta=theta, precision="kernel")
+                                  theta=theta, precision=self.precision)
                 return out.reshape(*lead, n)
             rec = den * phase
         out = stft_lib.istft(rec, self.hop, n_fft=self.n_fft, center=center,
-                             length=n, precision="kernel")
+                             length=n, precision=self.precision)
         return out.reshape(*lead, n)
 
 

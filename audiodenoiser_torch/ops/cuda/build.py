@@ -116,11 +116,16 @@ def sm_count(device: torch.device) -> int:
     return n
 
 
+_count_lock = threading.Lock()
+
+
 def count_launch(kernel, variant: str) -> None:
     """One launch of ``kernel`` through ``variant``: its total and the
-    variant's own counter."""
-    kernel.launches += 1
-    setattr(kernel, f"{variant}_launches", getattr(kernel, f"{variant}_launches") + 1)
+    variant's own counter, under a lock, since server threads launch
+    concurrently."""
+    with _count_lock:
+        kernel.launches += 1
+        setattr(kernel, f"{variant}_launches", getattr(kernel, f"{variant}_launches") + 1)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -15,7 +15,11 @@
   draw their initial phase from one constant seed, as the JAX service's
   constant key does); with a ``stream_factory``
   also the chunked streaming API, ``POST /stream/start``,
-  ``POST /stream/{id}`` and ``POST /stream/{id}/flush``.
+  ``POST /stream/{id}`` and ``POST /stream/{id}/flush``; with a
+  ``reload_fn`` also ``POST /admin/reload``, a hot swap of the model.
+- ``DenoiseService.reload``: the next batch runs on the new runner; the
+  batch on the device finishes on the old one. ``generation`` counts the
+  swaps (``adt_model_generation``, ``/healthz``'s ``model_generation``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from audiodenoiser_torch.data.wav_io import read_wav, write_wav
 from audiodenoiser_torch.device import device_name
+from audiodenoiser_torch.eval.streaming import ResampledStreamingSession
 
 
 class ServiceOverloaded(RuntimeError):
@@ -84,6 +89,7 @@ class DenoiseService:
         self.bypass_db = (
             None if bypass_db is not None and bypass_db <= 0 else bypass_db
         )
+        self.generation = 0  # model generation, bumped by reload()
         self.requests_served = 0
         self.batches_run = 0
         self.overloaded_total = 0
@@ -103,13 +109,34 @@ class DenoiseService:
         )
         self._worker.start()
 
-    def _warmup(self):
+    def _warmup(self, runner=None):
         """Run the first bucket at batch 1 and ``max_batch`` before serving,
         so the first requests do not pay the kernel build and cuDNN set-up."""
+        runner = self.runner if runner is None else runner
         for b in {1, self.max_batch}:
             z = torch.zeros((b, self.bucket), dtype=torch.float32)
-            self.runner.denoise_audio(z, mode=self.default_mode,
-                                      bypass_db=self.bypass_db)
+            runner.denoise_audio(z, mode=self.default_mode, bypass_db=self.bypass_db)
+
+    def reload(self, runner=None, warmup: bool = False, expert_runners=None,
+               router=None) -> int:
+        """Swap in a new model generation without dropping traffic.
+
+        The new runner is warmed up first (``warmup``), then swapped in:
+        the batch on the device finishes on the old runner, every later
+        batch runs on the new one. Returns the new generation. The routed
+        deployment's ``expert_runners`` and ``router`` are not ported
+        (ROADMAP A.10)."""
+        if expert_runners is not None or router is not None:
+            raise NotImplementedError(
+                "reloading a routed deployment is not ported yet: ROADMAP A.10 "
+                "(noise router and specialists)")
+        runner = self.runner if runner is None else runner
+        if warmup:
+            self._warmup(runner)
+        self.runner = runner
+        with self._metrics_lock:
+            self.generation += 1
+            return self.generation
 
     def _bucket_len(self, n: int) -> int:
         return max(self.bucket, -(-n // self.bucket) * self.bucket)
@@ -145,12 +172,13 @@ class DenoiseService:
 
     def _run_batch(self, batch):
         first = batch[0]
+        runner = self.runner  # one generation for the whole batch
         try:
             b_pad = _pow2_batch(len(batch), self.max_batch)
             stacked = np.zeros((b_pad, first.bucket), np.float32)
             for i, r in enumerate(batch):
                 stacked[i, : r.n] = r.audio[: r.n]
-            out = self.runner.denoise_audio(
+            out = runner.denoise_audio(
                 torch.from_numpy(stacked), mode=first.mode,
                 bypass_db=self.bypass_db,
             ).float().cpu().numpy()
@@ -222,6 +250,8 @@ class DenoiseService:
                 f"adt_queue_depth {self._queue.qsize()}",
                 "# TYPE adt_stream_sessions gauge",
                 f"adt_stream_sessions {stream_sessions}",
+                "# TYPE adt_model_generation gauge",
+                f"adt_model_generation {self.generation}",
                 "# TYPE adt_request_latency_ms histogram",
             ]
         cum = 0
@@ -236,29 +266,46 @@ class DenoiseService:
 
 
 _STREAM_RE = re.compile(r"^/stream/([0-9a-f]{16})(/flush)?$")
-_RESAMPLE_ITEM = "ROADMAP A.9 (streaming resampler)"
+
+
+def _close(session) -> None:
+    """Release what a session holds (a pool slot), where it holds any."""
+    close = getattr(session, "close", None)
+    if callable(close):
+        close()
 
 
 def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
                      port: int = 8800, stream_factory=None,
                      stream_ttl: float = 600.0,
-                     max_stream_sessions: int = 64) -> ThreadingHTTPServer:
+                     max_stream_sessions: int = 64,
+                     reload_fn=None) -> ThreadingHTTPServer:
     """Build (not start) the HTTP server; call .serve_forever() to run.
 
-    ``stream_factory(mode) -> session`` (a ``StreamingSession``) enables
-    the chunked streaming API:
+    ``stream_factory(mode)`` returns a session (``process`` / ``flush`` /
+    ``latency_samples``), or ``(session, generation)`` stamped from the
+    same snapshot the session was built from, and enables the chunked
+    streaming API:
 
-    - ``POST /stream/start[?mode=]`` -> ``{"session", "generation",
-      "latency_samples", "format": "f32le", "sample_rate"}``;
+    - ``POST /stream/start[?mode=][&rate=]`` -> ``{"session",
+      "generation", "latency_samples", "format": "f32le", "sample_rate"}``;
+      a ``rate`` other than the service's wraps the session in a
+      ``ResampledStreamingSession``, and the stream is at the client's
+      rate;
     - ``POST /stream/{id}`` with raw little-endian float32 samples in the
       body -> the samples finalized so far, in the same format;
     - ``POST /stream/{id}/flush`` -> the remaining tail; closes the session.
 
     Idle sessions expire after ``stream_ttl`` seconds; an unknown or
-    expired session is a 404. At ``max_stream_sessions`` live sessions a
-    start is refused with 503 and ``Retry-After``. Each session has its own
-    lock, so one client's packets run in order. ``?rate=`` other than the
-    service's rate is a 501: the streaming resampler is not ported yet.
+    expired session is a 404. At ``max_stream_sessions`` live sessions, or
+    when the factory raises ``IndexError`` (a full pool), a start is
+    refused with 503 and ``Retry-After``. A session that is refused, or
+    evicted, is closed, under its own lock, so a pool slot is released.
+    Each session has its own lock, so one client's packets run in order.
+
+    ``reload_fn() -> dict`` enables ``POST /admin/reload``: 200 with the
+    new ``generation``; 500 when it raises, the old generation serving on;
+    501 without a ``reload_fn``.
     """
     sessions: dict = {}
     s_lock = threading.Lock()
@@ -270,8 +317,13 @@ def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
     def evict_idle() -> None:
         now = time.monotonic()
         with s_lock:
-            for sid in [k for k, v in sessions.items() if now - v["t"] > stream_ttl]:
-                del sessions[sid]
+            expired = [sessions.pop(sid) for sid in
+                       [k for k, v in sessions.items() if now - v["t"] > stream_ttl]]
+        for entry in expired:
+            # under the session's lock: a packet in flight finishes before
+            # its slot can go to another stream
+            with entry["lock"]:
+                _close(entry["s"])
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet by default
@@ -300,6 +352,7 @@ def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
                     "device": device_name(getattr(service.runner, "device", None)),
                     "sample_rate": service.sample_rate,
                     "requests_served": service.requests_served,
+                    "model_generation": service.generation,
                 })
             elif path == "/metrics":
                 self._send(200, service.metrics_text(live_sessions()).encode(),
@@ -319,10 +372,17 @@ def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
                     raise ValueError(f"bad rate {rate!r}") from None
                 if not 1000 <= rate <= 384000:
                     raise ValueError(f"rate {rate} out of range")
-                if rate != service.sample_rate:
-                    raise NotImplementedError(
-                        f"streaming at {rate} Hz needs the resampler: {_RESAMPLE_ITEM}")
-            sess = stream_factory(mode)
+            # built outside s_lock: a pooled factory waits for the pool's
+            # advance, which must not stall every other stream endpoint
+            try:
+                made = stream_factory(mode)
+            except IndexError as e:  # a full pool
+                service.count_overload()
+                raise ServiceOverloaded(str(e)) from None
+            sess, gen = made if isinstance(made, tuple) else (made, service.generation)
+            if rate is not None and rate != service.sample_rate:
+                sess = ResampledStreamingSession(sess, client_rate=rate,
+                                                 model_rate=service.sample_rate)
             sid = uuid.uuid4().hex[:16]
             with s_lock:  # the cap holds even under concurrent starts
                 live = len(sessions)
@@ -331,12 +391,13 @@ def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
                     sessions[sid] = {"s": sess, "lock": threading.Lock(),
                                      "t": time.monotonic()}
             if not admitted:
+                _close(sess)
                 service.count_overload()
                 raise ServiceOverloaded(f"stream session limit reached ({live} live)")
-            # no hot reload yet (ROADMAP A.9): every session is generation 0
-            self._json(200, {"session": sid, "generation": 0,
+            self._json(200, {"session": sid, "generation": gen,
                              "latency_samples": int(sess.latency_samples),
-                             "format": "f32le", "sample_rate": service.sample_rate})
+                             "format": "f32le",
+                             "sample_rate": rate or service.sample_rate})
 
         def _stream_packet(self, sid: str, flushing: bool):
             evict_idle()
@@ -347,6 +408,9 @@ def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
                 self._json(404, {"error": "unknown or expired session"})
                 return
             with entry["lock"]:
+                if getattr(entry["s"], "_closed", False):  # evicted meanwhile
+                    self._json(404, {"error": "unknown or expired session"})
+                    return
                 entry["t"] = time.monotonic()
                 if flushing:
                     out = entry["s"].flush()
@@ -357,6 +421,18 @@ def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
                         raise ValueError(f"body of {len(data)} bytes is not f32le samples")
                     out = entry["s"].process(np.frombuffer(data, dtype="<f4"))
             self._send(200, np.asarray(out, "<f4").tobytes(), "application/octet-stream")
+
+        def _reload(self):
+            if reload_fn is None:
+                self._json(501, {"error": "reload not configured"})
+                return
+            try:
+                info = dict(reload_fn() or {})
+            except Exception as e:  # the old generation keeps serving
+                self._error(500, e)
+                return
+            info.setdefault("generation", service.generation)
+            self._json(200, info)
 
         def _stream(self, parsed):
             if stream_factory is None:
@@ -373,6 +449,9 @@ def make_http_server(service: DenoiseService, host: str = "127.0.0.1",
 
         def do_POST(self):
             parsed = urlparse(self.path)
+            if parsed.path == "/admin/reload":
+                self._reload()
+                return
             try:
                 if parsed.path.startswith("/stream"):
                     self._stream(parsed)

@@ -11,7 +11,8 @@ from the root of a checkout. Phases, each fatal on failure:
    kernel, plain version and one library call beside the kernel's lower
    bound (``ms``: CUDA events per call, host launch cost included;
    ``device_ms``: the profiler's device time beside it): K1/K2 at the bench shape (256 clips of 2 s), a
-   ragged one (3 clips of 3.1 s) and a stream window (1 clip of 2 s); K2
+   ragged one (3 clips of 3.1 s), a stream window (1 clip of 2 s) and the
+   ticks of pools of 8 and 64 streams (8 and 64 windows of 2 s); K2
    on a spectrum with large imaginary DC and Nyquist parts, and K2's time
    a call at the bench shape for each number of frames a block may compute;
    K3 at the four upsamplings of a batch-16 training step and of a
@@ -34,6 +35,24 @@ from the root of a checkout. Phases, each fatal on failure:
    ``complex_mask`` mode each against a direct runner call, one
    ``/stream`` session fed 3 s in ragged packets and flushed (as many
    samples out as in); K1 and K2 counted (FFT entries only), K4 0;
+3c. streaming and serving of the same deployment (its export written
+   again), every check fatal, cuDNN's fp32 in full fp32: ``cli.serve
+   --stream_latency_ms 224`` (``latency_samples`` 1792, a 3 s stream in
+   ragged packets as long out as in; the same low-latency session in fp32
+   on the card against the CPU); ``--precision f32 --stream_pool 8``:
+   8 concurrent HTTP sessions from threads with uneven packets, each
+   against a dedicated session on the same runner, the pool's advances
+   fewer than the sessions' hops and equal to K1's launches, a 9th start
+   a 503 and a flushed slot reused, and the bf16 pool's gap to dedicated
+   sessions printed; ``--stream_pool auto``'s capacity (at least 8) and
+   probe bytes; a ``?rate=16000`` session, sample-exact and against the
+   CPU's run of the same session; ``POST /admin/reload`` of a second
+   export (generation 1 in the answer and ``/healthz``, the session
+   opened before on the old model, a new session and ``/denoise`` on the
+   new one, an unreadable checkpoint a 500 with generation 1 serving on);
+   K1 and K2 through their FFT entries only and K4 at 0 after each; then
+   the stream benches of ``eval.bench`` (8 and 16 kHz sessions, pools of
+   8 and 64) on one JSON line beside the card's name and power limit;
 4. run the serving slice in fp32 on the card (kernels) and on the CPU
    (plain versions) for one 2 s clip and compare; the same for the mask
    slice, and a streamed fp32 mask session against the offline
@@ -101,6 +120,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -269,7 +289,8 @@ def phase_kernels(torch, rng):
     dev = torch.device("cuda")
     w = torch.from_numpy(hann_window(N_FFT)).to(dev)
     rows = {}
-    for label, batch, seconds in (("bench", 256, 2.0), ("ragged", 3, 3.1), ("stream", 1, 2.0)):
+    for label, batch, seconds in (("bench", 256, 2.0), ("ragged", 3, 3.1), ("stream", 1, 2.0),
+                                  ("pool8", 8, 2.0), ("pool64", 64, 2.0)):
         n = int(round(seconds * SR))
         audio = torch.from_numpy(
             (0.2 * rng.standard_normal((batch, n))).astype("float32")).to(dev)
@@ -752,6 +773,362 @@ def phase_mask_fp32(torch, rng, variables):
           f"rel_err={gaps['fp32']:.3e}; bf16 (not checked): rel_err={gaps['bf16']:.3e}",
           flush=True)
     check(gaps["fp32"] < SLICE_TOL, "fp32 streaming disagrees with offline")
+
+
+STREAM_TOL = 1e-4  # relative L2, fp32: card vs CPU, pooled vs dedicated, old/new model
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))
+
+
+def _signal(rng, n):
+    import numpy as np
+
+    return np.clip(0.2 * rng.standard_normal(n), -1, 1).astype(np.float32)
+
+
+def _start(url: str, query: str = "") -> dict:
+    req = urllib.request.Request(f"{url}/stream/start{query}", data=b"", method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def _feed(url: str, sid: str, signal, packets, flush: bool = True):
+    """POST ``signal`` to a session in ``packets`` (sizes), then flush."""
+    import numpy as np
+
+    outs, start = [], 0
+    for n in list(packets) + (["flush"] if flush else []):
+        tail = "/flush" if n == "flush" else ""
+        body = b"" if n == "flush" else signal[start:start + n].astype("<f4").tobytes()
+        start += 0 if n == "flush" else n
+        req = urllib.request.Request(f"{url}/stream/{sid}{tail}", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            outs.append(np.frombuffer(r.read(), "<f4"))
+    return np.concatenate(outs)
+
+
+def _session_out(sess, signal, packets):
+    """A session object fed ``signal`` in ``packets`` and flushed."""
+    import numpy as np
+
+    outs, start = [], 0
+    for n in packets:
+        outs.append(sess.process(signal[start:start + n]))
+        start += n
+    return np.concatenate(outs + [sess.flush()])
+
+
+def _ragged(n: int, seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(int(min(n - sum(sizes), rng.integers(300, 7000))))
+    return sizes
+
+
+def _serve(argv):
+    from audiodenoiser_torch.cli.serve import build_server, parse_args
+
+    service, server, _ = build_server(parse_args(argv))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return service, server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _http_code(url: str, path: str) -> tuple[int, str]:
+    req = urllib.request.Request(f"{url}{path}", data=b"", method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _write_mask_export(d: str, variables) -> None:
+    from audiodenoiser_torch.train.checkpoints import export_model
+
+    export_model(os.path.join(d, "mask_denoiser_mixed.ckpt"), variables["params"],
+                 variables["batch_stats"])
+    with open(os.path.join(d, "mask_denoiser_mixed.json"), "w") as f:
+        json.dump({"width_mult": 1.0, "mask_bound": 2.0, "residual": True}, f)
+
+
+def _cpu_runner(d: str):
+    import torch
+
+    from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
+
+    return DenoiserRunner(load_model_for_noise("mixed", d, dtype=torch.float32, device="cpu",
+                                               stem="mask_denoiser"), device="cpu")
+
+
+def _stream_kernels(rows, run: str) -> None:
+    """K1 and K2 through their FFT entries alone, K4 not at all."""
+    require_variants(run, {"stft_kernel": "fft", "istft_kernel": "fft"})
+    count_off_path(rows, run)
+
+
+def stream_low_latency(torch, rng, rows, tmp, base):
+    """3c (1): ``--stream_latency_ms 224`` sessions, bf16 over HTTP; the
+    same session in fp32 on the card against the CPU."""
+    from audiodenoiser_torch.eval.streaming import LowLatencyStreamingDenoiser
+    from audiodenoiser_torch.ops.cuda import reset_launch_counts
+
+    import numpy as np
+
+    service, server, url = _serve(base + ["--stream_latency_ms", "224"])
+    try:
+        signal = _signal(rng, 3 * SR)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        info = _start(url)
+        packets = _ragged(len(signal), 1)
+        out = _feed(url, info["session"], signal, packets)
+        wall = time.perf_counter() - t0
+        print(f"[stream] low-latency 224 ms: latency_samples {info['latency_samples']}, "
+              f"{len(packets)} packets, {len(out)} of {len(signal)} samples out in "
+              f"{wall:.3f} s", flush=True)
+        check(info["latency_samples"] == 1792, f"low-latency /stream/start: {info}")
+        check(len(out) == len(signal) and bool(np.isfinite(out).all()),
+              "the low-latency session did not return as many samples as it was fed")
+        _stream_kernels(rows, "the low-latency HTTP session")
+    finally:
+        server.shutdown()
+        server.server_close()
+    short = _signal(rng, 2048)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        runner = _cpu_runner(tmp) if dev == "cpu" else _card_runner(tmp, torch.float32)
+        engine = LowLatencyStreamingDenoiser.from_latency_budget(runner, 224)
+        outs[dev] = _session_out(engine.session(), short, (700, 1348))
+    rel = _rel(outs["cuda"], outs["cpu"])
+    print(f"[stream] low-latency fp32 session (2048 samples, 4 windows) card vs CPU: "
+          f"rel_err {rel:.3e}", flush=True)
+    check(len(outs["cuda"]) == len(short) and rel < STREAM_TOL,
+          "fp32 low-latency session card vs CPU")
+
+
+def _card_runner(d: str, dtype):
+    from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
+
+    return DenoiserRunner(load_model_for_noise("mixed", d, dtype=dtype, device="cuda",
+                                               stem="mask_denoiser"), device="cuda")
+
+
+def stream_pool(torch, rng, rows, tmp, service, server, url):
+    """3c (2): 8 concurrent HTTP sessions in a pool of 8 (fp32), each
+    against a dedicated session on the same runner; a 9th start is a 503
+    until a flush frees a slot. Then the bf16 pool's gap, printed."""
+    import numpy as np
+
+    from audiodenoiser_torch.eval.streaming import MultiStreamWola, StreamingDenoiser
+    from audiodenoiser_torch.ops.cuda import reset_launch_counts, stft_kernel
+
+    gen = server.current_generation()
+    pool = gen["pooled"].pool
+    check(pool.capacity == 8 and gen["gen"] == 0, f"pool {pool.capacity}, gen {gen['gen']}")
+    signals = [_signal(rng, 3 * SR - 1000 * i) for i in range(8)]
+    packets = [_ragged(len(x), 10 + i) for i, x in enumerate(signals)]
+    sids = [_start(url)["session"] for _ in signals]
+    code, body = _http_code(url, "/stream/start")
+    check(code == 503 and "pool full" in body, f"a 9th session on a pool of 8: {code} {body}")
+    reset_launch_counts()
+    results, errors = {}, []
+
+    def run(i):
+        try:
+            results[i] = _feed(url, sids[i], signals[i], packets[i])
+        except Exception as e:  # reported by the check below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        check(not t.is_alive(), "a pooled session never finished")
+    wall = time.perf_counter() - t0
+    check(not errors, f"pooled sessions failed: {errors}")
+    k1 = stft_kernel.launches
+    hops = sum(-(-(len(x) + pool.chunk) // pool.hop) for x in signals)
+    print(f"[stream] pool of 8, 8 concurrent HTTP sessions: {pool.advances} advances for "
+          f"{hops} session hops, K1 launched {k1} times, in {wall:.3f} s", flush=True)
+    check(pool.advances < hops and k1 == pool.advances,
+          "the pool did not batch the sessions' hops")
+    _stream_kernels(rows, "the pooled HTTP sessions")
+    streamer = StreamingDenoiser(service.runner, chunk_samples=pool.chunk)
+    gaps = [_rel(results[i], _session_out(streamer.session(), x, packets[i]))
+            for i, x in enumerate(signals)]
+    print(f"[stream] fp32 pooled vs dedicated session, worst rel_err {max(gaps):.3e}",
+          flush=True)
+    check(all(len(results[i]) == len(x) for i, x in enumerate(signals)),
+          "a pooled session did not return as many samples as it was fed")
+    check(max(gaps) < STREAM_TOL, "fp32 pooled sessions disagree with dedicated ones")
+    info = _start(url)  # a flushed slot is reused
+    check(len(_feed(url, info["session"], signals[0][:5000], (5000,))) == 5000,
+          "a reused pool slot")
+    # bf16, measured only: a slot's window runs in a batch of 8, cuDNN's
+    # kernels for which round otherwise than batch 1's (ROADMAP C.1)
+    runner = _card_runner(tmp, torch.bfloat16)
+    bf_pool = MultiStreamWola(runner, capacity=8, chunk_samples=pool.chunk)
+    slots = [bf_pool.open() for _ in signals]
+    outs = {s: [bf_pool.process({s: x})[s]] for s, x in zip(slots, signals)}
+    streamer = StreamingDenoiser(runner, chunk_samples=pool.chunk)
+    gaps = [_rel(np.concatenate(outs[s] + [bf_pool.flush(s)]),
+                 _session_out(streamer.session(), x, (len(x),)))
+            for s, x in zip(slots, signals)]
+    print(f"[stream] bf16 pooled vs dedicated session (not checked): worst rel_err "
+          f"{max(gaps):.3e}", flush=True)
+
+
+def stream_pool_auto(base):
+    """3c (3): ``--stream_pool auto``: the capacity and the probe bytes."""
+    from audiodenoiser_torch.cli.serve import build_generation, parse_args
+    from audiodenoiser_torch.eval.streaming import _peak_bytes
+
+    gen = build_generation(parse_args(base + ["--stream_pool", "auto"]))
+    pool = gen["pooled"].pool
+    probe = _peak_bytes(gen["runner"], pool.chunk)
+    sizes = {c: probe(c) for c in (2, 8)}
+    print(f"[stream] --stream_pool auto: capacity {pool.capacity}; probe peak bytes "
+          f"{sizes} (torch.cuda.max_memory_allocated a denoise)", flush=True)
+    check(pool.capacity >= 8, f"--stream_pool auto chose {pool.capacity} on an 80 GB card")
+    del gen, pool
+
+
+def stream_16k(torch, rng, rows, tmp, url):
+    """3c (4): a ``?rate=16000`` client, sample-exact, and its fp32 stream
+    against the CPU's run of the same session."""
+    from audiodenoiser_torch.eval.streaming import ResampledStreamingSession, StreamingDenoiser
+    from audiodenoiser_torch.ops.cuda import reset_launch_counts
+
+    signal = _signal(rng, 16001)
+    packets = _ragged(len(signal), 3)
+    reset_launch_counts()
+    info = _start(url, "?rate=16000")
+    out = _feed(url, info["session"], signal, packets)
+    _stream_kernels(rows, "the 16 kHz session")
+    cpu = StreamingDenoiser(_cpu_runner(tmp), chunk_samples=2 * SR)
+    ref = _session_out(ResampledStreamingSession(cpu.session(), 16000, SR), signal, packets)
+    rel = _rel(out, ref)
+    print(f"[stream] 16 kHz client: sample_rate {info['sample_rate']}, {len(out)} of "
+          f"{len(signal)} samples; fp32 card (pooled) vs CPU rel_err {rel:.3e}", flush=True)
+    check(info["sample_rate"] == 16000 and len(out) == len(signal), "the 16 kHz session")
+    check(rel < STREAM_TOL, "the 16 kHz session card vs CPU")
+
+
+def stream_reload(torch, rng, rows, tmp, service, url):
+    """3c (5): ``POST /admin/reload`` of a second export: generations, old
+    and new sessions, a request, and a failed reload."""
+    import numpy as np
+
+    from audiodenoiser_torch.data.wav_io import read_wav
+    from audiodenoiser_torch.eval.streaming import StreamingDenoiser
+    from audiodenoiser_torch.models import random_flax_variables
+
+    old_runner = service.runner
+    signal = _signal(rng, 20000)
+    before = _start(url)
+    head = _feed(url, before["session"], signal, (9000,), flush=False)
+    _write_mask_export(tmp, random_flax_variables(5, in_channels=3, out_channels=2))
+    t0 = time.perf_counter()
+    code, body = _http_code(url, "/admin/reload")
+    reload_s = time.perf_counter() - t0
+    with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    print(f"[stream] /admin/reload: {code} {body} in {reload_s:.2f} s; /healthz "
+          f"model_generation {health['model_generation']}", flush=True)
+    check(code == 200 and json.loads(body)["generation"] == 1
+          and health["model_generation"] == 1, "the reload did not make generation 1")
+    new_runner = service.runner
+    check(new_runner is not old_runner, "the reload kept the old runner")
+    tail = _feed(url, before["session"], signal[9000:], (len(signal) - 9000,))
+    after = _start(url)
+    fresh = _feed(url, after["session"], signal, (7000, 13000))
+    clip = _signal(rng, int(1.7 * SR))
+    answer = _post(url, _wav(clip))
+    sent = read_wav(io.BytesIO(_wav(clip)))[0]
+    padded = np.zeros((1, service._bucket_len(len(sent))), np.float32)
+    padded[0, : len(sent)] = sent
+    want_old = _session_out(StreamingDenoiser(old_runner, 2 * SR).session(), signal,
+                            (9000, len(signal) - 9000))
+    want_new = _session_out(StreamingDenoiser(new_runner, 2 * SR).session(), signal,
+                            (7000, 13000))
+    direct = new_runner.denoise_audio(torch.from_numpy(padded))[0, : len(sent)]
+    old_gap = _rel(np.concatenate([head, tail]), want_old)
+    new_gap = _rel(fresh, want_new)
+    models_gap = _rel(want_new, want_old)
+    print(f"[stream] session opened before the reload: generation {before['generation']}, "
+          f"rel_err vs the old model {old_gap:.3e}; after: generation {after['generation']}, "
+          f"rel_err vs the new model {new_gap:.3e}; the two models' outputs differ by "
+          f"{models_gap:.3e}", flush=True)
+    check(before["generation"] == 0 and after["generation"] == 1, "session generations")
+    check(old_gap < STREAM_TOL and new_gap < STREAM_TOL and models_gap > 100 * STREAM_TOL,
+          "sessions across the reload did not keep their generation's model")
+    check_answer("/denoise after the reload", sent, answer, direct)
+    with open(os.path.join(tmp, "mask_denoiser_mixed.ckpt"), "wb") as f:
+        f.write(b"not a checkpoint")
+    code, body = _http_code(url, "/admin/reload")
+    with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+        health = json.loads(r.read())
+    print(f"[stream] reload of an unreadable checkpoint: {code} {body[:120]}; "
+          f"model_generation {health['model_generation']}", flush=True)
+    check(code == 500 and health["model_generation"] == 1 and service.runner is new_runner,
+          "a failed reload changed the serving generation")
+    check_answer("/denoise after a failed reload", sent, _post(url, _wav(clip)), direct)
+    check(_start(url)["generation"] == 1, "a session after a failed reload")
+
+
+def stream_bench(card):
+    """3c (7): the stream benches of ``eval.bench``."""
+    from audiodenoiser_torch.eval.bench import stream_benches
+    from audiodenoiser_torch.ops.cuda import reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = stream_benches(profile_iters=3)
+    profiles = {k: result.pop(k) for k in [k for k in result if k.endswith("_profile")]}
+    result["card"] = card
+    print(f"[stream bench] {json.dumps(result)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    print(f"[stream bench profiles] {json.dumps(profiles)}", flush=True)
+    check(all(v > 0 for k, v in result.items() if k != "card"), "a stream bench measured 0")
+    require_variants("the stream benches", {"stft_kernel": "fft", "istft_kernel": "fft"})
+
+
+def phase_stream(torch, rng, rows, mask_variables, card):
+    """Phase 3c: streaming and serving of the recommended deployment at full
+    width: low-latency sessions, a pool, its automatic size, a 16 kHz
+    client, hot reload and the stream benches."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    server = None
+    # fp32 convolutions in full fp32, not TF32, in the server's threads too
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _write_mask_export(tmp, mask_variables)
+        base = ["--model", "complex_mask", "--noise_type", "mixed", "--saved_models_dir", tmp,
+                "--port", "0", "--max_seconds", "10"]
+        stream_low_latency(torch, rng, rows, tmp, base)
+        service, server, url = _serve(base + ["--precision", "f32", "--stream_pool", "8"])
+        stream_pool(torch, rng, rows, tmp, service, server, url)
+        stream_pool_auto(base)
+        stream_16k(torch, rng, rows, tmp, url)
+        stream_reload(torch, rng, rows, tmp, service, url)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    stream_bench(card)
 
 
 def deconv_bound_ms(shapes, itemsize: int) -> tuple[float, str]:
@@ -1299,7 +1676,9 @@ def mask_step_fp32(torch):
     check(opt_err <= TRAIN_TOL, "fp32 mask step: the card's AdamW")
 
     # two levels: a width where the card's fp32 gradient meets float64 per
-    # tensor; the CPU's, printed only, does not (ROADMAP C.2)
+    # tensor; the CPU's, printed only, does not, because two of its ReLU
+    # inputs lie within fp32 rounding of zero and a float64 forward takes
+    # the other branch there (ROADMAP C.2, tests/test_torch_batchnorm.py)
     narrow = dict(features=(8, 16), bottleneck=32)
     small = random_flax_variables(0, **narrow, in_channels=3, out_channels=2)
     for dev in ("cuda", "cpu"):
@@ -1815,6 +2194,9 @@ def main() -> None:
     rows["overlap_add_kernel"] = phase_overlap_add(torch, rng)
     phase_serve(torch, rng, rows)
     mask_variables = phase_mask_serve(torch, rng, rows)
+    t0 = time.perf_counter()
+    phase_stream(torch, rng, rows, mask_variables, card)
+    print(f"[stream] phase 3c in {time.perf_counter() - t0:.1f} s", flush=True)
     phase_slice_fp32(torch, rng)
     phase_mask_fp32(torch, rng, mask_variables)
     t0 = time.perf_counter()

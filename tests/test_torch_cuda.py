@@ -30,6 +30,8 @@ def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     (256, 16512, 512, 128, "hann"),   # bench shape: 2 s clips, centre-padded
     (3, 25312, 512, 128, "hann"),     # 3.1 s: (L - n_fft) % hop != 0
     (1, 16512, 512, 128, "hann"),     # a 2 s stream window: B=1, T=126
+    (8, 16512, 512, 128, "hann"),     # a tick of a pool of 8 streams
+    (64, 16512, 512, 128, "hann"),    # a tick of a pool of 64
     (2, 2048, 512, 128, "ones"),      # rectangular window
     (4, 5000, 1024, 256, "hann"),     # another power of two
     (7, 9001, 256, 100, "hann"),      # odd log2(n_fft / 2): a radix-2 stage
@@ -66,6 +68,8 @@ def test_stft_kernel_matches_plain(dev, batch, length, n_fft, hop, win):
     (1, 9, 255, 64, True, False),       # odd n_fft: no Nyquist bin
     (2, 40, 512, 32, False, False),     # 15 halo frames, the most a block takes
     (1, 126, 512, 128, True, False),    # a 2 s stream window
+    (8, 126, 512, 128, True, False),    # a tick of a pool of 8 streams
+    (64, 126, 512, 128, True, False),   # a tick of a pool of 64
     (64, 100, 512, 128, False, False),  # T not a multiple of a block's 13 own frames
     (256, 126, 512, 128, True, True),   # large imaginary DC and Nyquist parts, ignored
     (16, 126, 512, 128, True, True),    # 8 frames a block
@@ -340,6 +344,79 @@ def test_mask_runner_on_card_matches_cpu(dev):
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             outs[d] = runner.denoise_audio(audio).cpu()
     rel = (outs["cuda"] - outs["cpu"]).norm() / outs["cpu"].norm()
+    assert rel < 1e-4, rel
+
+
+def _mask_runner(d, seed=0):
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
+        fold_for_inference,
+        load_flax_variables,
+        random_flax_variables,
+    )
+
+    v = random_flax_variables(seed, (8, 16, 32, 64), 128, in_channels=3, out_channels=2)
+    model = load_flax_variables(ComplexMaskUNet(residual=True, features=(8, 16, 32, 64),
+                                                bottleneck=128), v)
+    return DenoiserRunner(fold_for_inference(model.eval(), torch.float32), device=d)
+
+
+def test_pool_on_card_matches_dedicated_sessions(dev):
+    """A pool of 4 streams on the card, fp32, uneven packets: each slot
+    against a dedicated session of its stream on the card (K1 and K2 at
+    batch 4 against batch 1), and the pool's steps fewer than its hops."""
+    from audiodenoiser_torch.eval.streaming import MultiStreamWola, StreamingDenoiser
+    from audiodenoiser_torch.ops.cuda import istft_kernel, stft_kernel
+
+    runner = _mask_runner("cuda", seed=5)
+    rng = np.random.default_rng(7)
+    streams = [np.clip(0.2 * rng.standard_normal(6000 + 900 * i), -1, 1).astype(np.float32)
+               for i in range(4)]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        pool = MultiStreamWola(runner, capacity=4, chunk_samples=4096)
+        slots = [pool.open() for _ in streams]
+        out = {s: [] for s in slots}
+        before = stft_kernel.fft_launches, istft_kernel.fft_launches
+        for start, stop in ((0, 1500), (1500, 5000), (5000, 9000)):
+            got = pool.process({s: x[start + 300 * s: stop] for s, x in zip(slots, streams)
+                                if start + 300 * s < stop})
+            for s, o in got.items():
+                out[s].append(o)
+        for s in slots:
+            out[s].append(pool.flush(s))
+        assert stft_kernel.fft_launches - before[0] == pool.advances
+        assert istft_kernel.fft_launches - before[1] == pool.advances
+        streamer = StreamingDenoiser(runner, chunk_samples=4096)
+        for s, x in zip(slots, streams):
+            fed = np.concatenate([x[start + 300 * s: stop] for start, stop in
+                                  ((0, 1500), (1500, 5000), (5000, 9000))
+                                  if start + 300 * s < stop])
+            sess = streamer.session()
+            alone = np.concatenate([sess.process(fed), sess.flush()])
+            got = np.concatenate(out[s])
+            assert got.shape == fed.shape
+            assert np.linalg.norm(got - alone) / np.linalg.norm(alone) < 1e-4
+    assert pool.advances < sum(-(-(len(x) + 4096) // 2048) for x in streams)
+
+
+def test_low_latency_session_on_card_matches_cpu(dev):
+    """A 64 ms low-latency session over a 4096-sample window, fp32 on the
+    card (K1, K2) against the CPU, ragged packets."""
+    from audiodenoiser_torch.eval.streaming import LowLatencyStreamingDenoiser
+
+    rng = np.random.default_rng(8)
+    x = np.clip(0.2 * rng.standard_normal(7000), -1, 1).astype(np.float32)
+    outs = {}
+    for d in ("cuda", "cpu"):
+        engine = LowLatencyStreamingDenoiser.from_latency_budget(_mask_runner(d, seed=6), 64,
+                                                                 window_samples=4096)
+        sess = engine.session()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            outs[d] = np.concatenate([sess.process(p) for p in np.array_split(x, 5)]
+                                     + [sess.flush()])
+    assert outs["cuda"].shape == x.shape
+    rel = np.linalg.norm(outs["cuda"] - outs["cpu"]) / np.linalg.norm(outs["cpu"])
     assert rel < 1e-4, rel
 
 

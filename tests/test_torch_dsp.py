@@ -143,11 +143,29 @@ class TestStft:
         assert TS.num_frames(length, n_fft, hop, center) == \
             JS.num_frames(length, n_fft, hop, center)
 
+    @pytest.mark.parametrize("n_fft,hop,center,pad_mode", [
+        (512, 128, True, "constant"), (512, 128, True, "reflect"), (512, 128, False, "constant"),
+        (63, 32, True, "constant"), (400, 100, True, "constant")])
+    def test_matmul_matches_jax(self, rng, n_fft, hop, center, pad_mode):
+        """JAX's real-DFT-basis path against the port's, within 1e-5 of
+        max|ref| (an n_fft-term fp32 sum a bin)."""
+        x = rng.standard_normal((2, 3, 3000)).astype(np.float32)
+        ours = TS.stft(_t(x), n_fft, hop, center=center, pad_mode=pad_mode,
+                       precision="matmul").numpy()
+        ref = np.asarray(JS.stft(jnp.asarray(x), n_fft, hop, center=center,
+                                 pad_mode=pad_mode, precision="matmul"))
+        assert ours.shape == ref.shape and ours.dtype == np.complex64
+        np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
     def test_rejects_unknown_precision(self):
         with pytest.raises(ValueError):
             TS.stft(torch.zeros(1, 2000), precision="pallas")
         with pytest.raises(ValueError):
-            TS.istft(torch.zeros(1, 257, 4, dtype=torch.complex64), precision="matmul")
+            TS.istft(torch.zeros(1, 257, 4, dtype=torch.complex64), precision="pallas")
+        # JAX's iSTFT has no matmul path: "matmul" takes the FFT one
+        spec = torch.randn(1, 257, 6, dtype=torch.complex64)
+        torch.testing.assert_close(TS.istft(spec, precision="matmul"),
+                                   TS.istft(spec, precision="fft"), rtol=0, atol=0)
 
 
 class TestMagphase:

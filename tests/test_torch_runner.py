@@ -91,6 +91,23 @@ class TestSliceParity:
         ours = port_runner.denoise_audio(torch.from_numpy(audio)).numpy()
         assert _rel(ours, ref) < 1e-4, _rel(ours, ref)
 
+    @pytest.mark.parametrize("precision", ["fft", "matmul"])
+    def test_matches_jax_runner_of_the_same_precision(self, variables, precision):
+        model = UNet(**NARROW)
+        model.load_state_dict(state_dict_from_flax(variables), strict=True)
+        ours = DenoiserRunner(fold_for_inference(model.eval(), torch.float32), device="cpu",
+                              precision=precision)
+        assert ours.precision == precision
+        audio = _audio((2, 3000), seed=4)
+        ref = np.asarray(_jax_runner(variables, precision).denoise_audio(
+            jnp.asarray(audio), jax.random.key(0)))
+        got = ours.denoise_audio(torch.from_numpy(audio)).numpy()
+        assert _rel(got, ref) < 1e-4, _rel(got, ref)
+
+    def test_unknown_precision_raises(self, port_runner):
+        with pytest.raises(ValueError, match="precision"):
+            DenoiserRunner(port_runner.model, device="cpu", precision="pallas")
+
     def test_center_false(self, variables, port_runner):
         audio = _audio((2, 4096), seed=2)
         ref = np.asarray(_jax_runner(variables, "fft").denoise_audio(

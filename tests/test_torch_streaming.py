@@ -131,7 +131,8 @@ class TestSession:
     def test_state_stays_on_runner_device(self, mask_streamer):
         sess = mask_streamer.session()
         sess.process(_audio(5000))
-        assert sess._prev.device == sess._carry.device == mask_streamer.device
+        prev, carry = sess._state  # the previous hop and the overlap-add carry
+        assert prev.device == carry.device == mask_streamer.device
 
     def test_odd_chunk_rejected(self, mask_streamer):
         with pytest.raises(ValueError, match="even"):
@@ -216,8 +217,14 @@ class TestHTTPStream:
             assert _code(f"{s.url}/stream/0123456789abcdef").code == 404
             assert _code(f"{s.url}/stream/nope").code == 404
             assert _code(f"{s.url}/stream/start?rate=abc").code == 400
-            e = _code(f"{s.url}/stream/start?rate=16000")
-            assert e.code == 501 and "A.9" in e.read().decode()
+            assert _code(f"{s.url}/stream/start?rate=500").code == 400
+            # another rate is resampled in the stream, sample-exact at the client's
+            info = json.loads(_post(f"{s.url}/stream/start?rate=16000"))
+            assert info["sample_rate"] == 16000
+            x = _audio(3001, seed=6)
+            out = _post(f"{s.url}/stream/{info['session']}", x.astype("<f4").tobytes())
+            out += _post(f"{s.url}/stream/{info['session']}/flush")
+            assert len(out) == 4 * len(x)
             sid = json.loads(_post(f"{s.url}/stream/start?rate=8000"))["session"]
             assert _code(f"{s.url}/stream/{sid}", b"\0" * 6).code == 400  # not f32
         finally:
@@ -322,12 +329,75 @@ class TestServeCLI:
             server.server_close()
             thread.join(timeout=10)
 
-    @pytest.mark.parametrize("flag,item", [(["--stream_pool", "4"], "A.9"),
-                                           (["--stream_latency_ms", "224"], "A.9"),
-                                           (["--auto_route"], "A.10")])
+    @pytest.mark.parametrize("flag,item", [(["--auto_route"], "A.10"),
+                                           (["--mesh", "on"], "A.11"),
+                                           (["--model_parallel", "2"], "A.11")])
     def test_unported_flags_name_their_item(self, mask_dir, flag, item):
         with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
             _cli(mask_dir, *flag)
+
+    @pytest.mark.parametrize("flag,latency", [(["--stream_pool", "4"], 2000),
+                                              (["--stream_latency_ms", "224"], 1792)])
+    def test_stream_flags_serve(self, mask_dir, flag, latency):
+        """The stream flags the port once refused (ROADMAP A.9) serve
+        sample-exact streams: a pool of 4, and low-latency sessions of a
+        224 ms budget over a window of one bucket."""
+        service, server, _ = serve_cli.build_server(
+            _cli(mask_dir, "--device", "cpu", "--precision", "f32", *flag))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            info = json.loads(_post(f"{url}/stream/start"))
+            assert info["latency_samples"] == latency
+            x = _audio(3000, seed=7)
+            out = _post(f"{url}/stream/{info['session']}", x.astype("<f4").tobytes())
+            out += _post(f"{url}/stream/{info['session']}/flush")
+            assert len(out) == 4 * len(x)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+
+    @pytest.mark.parametrize("flags,precision,folded", [
+        ([], "kernel", True),
+        (["--precision_path", "pallas"], "kernel", True),
+        (["--precision_path", "fft", "--no-fold"], "fft", False),
+        (["--precision_path", "matmul", "--fold"], "matmul", True),
+    ])
+    def test_generation_flags(self, mask_dir, flags, precision, folded):
+        """``--precision_path`` picks the runner's STFT path (JAX's Pallas
+        path is the kernels) and ``--no-fold`` serves the live-BN model,
+        both as each generation is built; ``--sample_rate`` sets the
+        service's and the streams' rate."""
+        from audiodenoiser_torch.models import FoldedUNet
+
+        args = _cli(mask_dir, "--device", "cpu", "--sample_rate", "16000", *flags)
+        gen = serve_cli.build_generation(args)
+        assert gen["runner"].precision == precision
+        assert isinstance(gen["runner"].model, FoldedUNet) == folded
+        assert gen["runner"].model.mask_bound == 2.0
+        assert gen["streamer"].sample_rate == 16000 and gen["streamer"].chunk == 4000
+
+    def test_no_warmup_skips_the_first_batches(self, mask_dir, monkeypatch):
+        calls = []
+        monkeypatch.setattr(DenoiseService, "_warmup", lambda self, runner=None: calls.append(1))
+        service, server, _ = serve_cli.build_server(
+            _cli(mask_dir, "--device", "cpu", "--no_warmup"))
+        server.server_close()
+        assert calls == []
+        service, server, _ = serve_cli.build_server(_cli(mask_dir, "--device", "cpu"))
+        server.server_close()
+        assert calls == [1]
+
+    @pytest.mark.parametrize("flags,message", [
+        (["--stream_pool", "0"], ">= 1"),
+        (["--stream_pool", "many"], "integer or 'auto'"),
+        (["--stream_pool", "2", "--stream_latency_ms", "224"], "WOLA sessions only"),
+    ])
+    def test_stream_flag_checks(self, mask_dir, flags, message):
+        with pytest.raises(SystemExit, match=message):
+            _cli(mask_dir, *flags)
 
     @pytest.mark.parametrize("model,mode,message", [
         ("complex_mask", "griffin_lim", "serves complex_mask"),
