@@ -8,17 +8,22 @@ Usage:
   python -m audiodenoiser_torch.cli.train --base_dataset_path data \
       --model complex_mask --pipeline on_device --noise_type mixed --export_dir ./saved_models
 
-``--pipeline npy`` reads prebuilt (noisy, clean) spectrogram pairs;
-``--pipeline on_device`` synthesizes noise and STFTs (the K1 kernel) on
-the card from a folder of clean wavs (``clean/``, and ``noise/`` for
-urban or mixed). The magnitude U-Net's best model is exported as the
-reference-layout ``unet_denoiser_{noise_type}.pth``. ``--model
-complex_mask`` (on-device pipeline only) trains the complex-mask U-Net on
-raw waveform pairs (``train.mask``) and exports
-``mask_denoiser_{noise_type}.ckpt`` with its ``.json`` sidecar (mask
-bound, residual head, SI-SDR weight and clamp). ``cli.serve`` loads
-either. Flags of the JAX CLI that are not ported yet are accepted by name
-and stop the run with the ROADMAP item that ports them.
+``--pipeline npy`` reads prebuilt (noisy, clean) spectrogram pairs
+(``cli.create_train_dataset``); ``--pipeline on_device`` synthesizes
+noise and STFTs (the K1 kernel) on the card from a folder of clean wavs
+(``clean/``, and ``noise/`` for urban or mixed), at ``--sample_rate`` in
+windows of ``--chunk_seconds``. The best model is exported as
+``unet_denoiser_{noise_type}.ckpt``; ``--model complex_mask``
+(on-device pipeline only) trains the complex-mask U-Net on raw waveform
+pairs (``train.mask``) and exports ``mask_denoiser_{noise_type}.ckpt``.
+A ``.json`` sidecar records what a loader needs to rebuild the model
+(the mask head; a rate other than 8 kHz). ``cli.serve`` and ``cli.test``
+load either. The training extras are JAX's: ``--lr_schedule`` and
+``--warmup_steps``, ``--grad_accum``, ``--ema_decay`` (also exports
+``best_model_ema.ckpt``), ``--remat``, ``--resume`` with
+``--ckpt_every``, and ``--profile_dir`` (a ``torch.profiler`` trace).
+Flags of the JAX CLI that are not ported yet are accepted by name and stop
+the run with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -32,13 +37,6 @@ import time
 # flags of the JAX CLI that the port does not run yet, with the ROADMAP
 # item that ports each
 UNPORTED = {
-    "resume": "ROADMAP A.12 (orbax-style resume state)",
-    "lr_schedule": "ROADMAP A.12 (cosine/warmup schedules)",
-    "warmup_steps": "ROADMAP A.12 (cosine/warmup schedules)",
-    "grad_accum": "ROADMAP A.12 (gradient accumulation)",
-    "ema_decay": "ROADMAP A.12 (EMA weights)",
-    "remat": "ROADMAP A.12 (remat)",
-    "ckpt_every": "ROADMAP A.12 (orbax-style resume state)",
     "export_quantized": "ROADMAP A.10 (int8 export)",
     "width_mult": "ROADMAP A.10 (width_mult)",
     "attn_bottleneck": "ROADMAP A.10 (attention bottleneck)",
@@ -49,15 +47,11 @@ UNPORTED = {
     "fsdp": "ROADMAP A.11 (parallelism)",
     "pp_stages": "ROADMAP A.11 (parallelism)",
     "pp_microbatches": "ROADMAP A.11 (parallelism)",
-    "sample_rate": "ROADMAP A.6 (on-device pipeline at other rates)",
-    "chunk_seconds": "ROADMAP A.6 (on-device pipeline at other window lengths)",
     "distill_from": "ROADMAP A.10 (distillation)",
     "distill_weight": "ROADMAP A.10 (distillation)",
     "distill_features": "ROADMAP A.10 (distillation)",
-    "profile_dir": "ROADMAP A.12 (profiler traces from the CLI)",
 }
-_UNPORTED_SWITCHES = {"resume", "remat", "export_quantized", "attn_bottleneck",
-                      "s2d_stem", "fsdp"}
+_UNPORTED_SWITCHES = {"export_quantized", "attn_bottleneck", "s2d_stem", "fsdp"}
 UNPORTED_MODELS = {"router": "ROADMAP A.10 (router)"}
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
 
@@ -90,9 +84,34 @@ def parse_args(argv=None):
     p.add_argument("--snr_max", type=float, default=None)
     p.add_argument("--augment", action="store_true",
                    help="on_device pipeline: gain, polarity and time-shift augmentation")
+    p.add_argument("--sample_rate", type=int, default=8000,
+                   help="on_device pipeline: the audio rate (wavs are resampled on "
+                   "ingest; n_fft 512 and hop 128 stay); recorded in the sidecar")
+    p.add_argument("--chunk_seconds", type=float, default=2.0,
+                   help="on_device pipeline: the training window in seconds")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the run's checkpoints/train_state.pt and go on")
+    p.add_argument("--lr_schedule", choices=["constant", "cosine"], default="constant",
+                   help="constant (the reference's) or warm-up + cosine decay to 0 over "
+                   "epochs x steps_per_epoch (with --grad_accum k a run covers 1/k of it, "
+                   "as in the JAX CLI)")
+    p.add_argument("--warmup_steps", type=int, default=0,
+                   help="linear warm-up from 0 over this many updates")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="accumulate gradients over N micro-batches an optimizer update")
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="track an EMA of the weights (e.g. 0.999), validate it each "
+                   "epoch and export best_model_ema.ckpt beside the best model")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each U-Net block in the backward (less activation "
+                   "memory, more compute)")
+    p.add_argument("--ckpt_every", type=int, default=1,
+                   help="write the resume state every N epochs (always after the last)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run into this directory")
     p.add_argument("--export_dir", type=str, default=None,
-                   help="also export the best model here, as unet_denoiser_{noise_type}.pth "
-                   "or (complex_mask) mask_denoiser_{noise_type}.ckpt + .json")
+                   help="also export the best model here, as unet_denoiser_{noise_type}.ckpt "
+                   "or (complex_mask) mask_denoiser_{noise_type}.ckpt, with its sidecar")
     p.add_argument("--si_sdr_weight", type=float, default=None,
                    help="complex_mask: weight of the negative-SI-SDR term (default 0.5; "
                    "0 keeps the spectral and waveform terms only)")
@@ -143,6 +162,13 @@ def _check_ported(args) -> None:
         raise SystemExit("--noise_type mixed requires --pipeline on_device")
     if args.augment and args.pipeline != "on_device":
         raise SystemExit("--augment requires --pipeline on_device")
+    if args.chunk_seconds != 2.0 and args.pipeline != "on_device":
+        raise SystemExit("--chunk_seconds requires --pipeline on_device (the npy "
+                         "pipeline's chunking happened at dataset build time)")
+    if args.sample_rate != 8000 and args.pipeline != "on_device":
+        raise SystemExit("--sample_rate requires --pipeline on_device (npy datasets "
+                         "bake their rate in at featurize time: pass --sample_rate to "
+                         "cli.create_train_dataset instead)")
 
 
 def _npy_batches(args):
@@ -161,7 +187,7 @@ def _npy_batches(args):
     def val_batches():
         return batches(ds, va_idx, args.batch_size, shuffle=False)
 
-    return train_batches, val_batches
+    return train_batches, val_batches, max(1, -(-len(tr_idx) // args.batch_size))
 
 
 def _on_device_batches(args, device):
@@ -174,7 +200,7 @@ def _on_device_batches(args, device):
 
     if args.noise_type is None:
         raise SystemExit("--pipeline on_device requires --noise_type")
-    sr, chunk = 8000, 16000
+    sr, chunk = args.sample_rate, int(round(args.sample_rate * args.chunk_seconds))
     clean_dir = os.path.join(args.base_dataset_path, "clean")
     if not os.path.isdir(clean_dir):
         clean_dir = args.base_dataset_path
@@ -182,7 +208,7 @@ def _on_device_batches(args, device):
     if args.subset_fraction < 1.0:
         chunks = chunks[: max(1, int(len(chunks) * args.subset_fraction))]
     if len(chunks) == 0:
-        raise SystemExit(f"no 2 s clean chunks found in {clean_dir}")
+        raise SystemExit(f"no {args.chunk_seconds:g} s clean chunks found in {clean_dir}")
     bank = None
     if args.noise_type in ("urban", "mixed"):
         noise_dir = os.path.join(args.base_dataset_path, "noise")
@@ -197,10 +223,10 @@ def _on_device_batches(args, device):
     if args.snr_min is not None and args.snr_max is not None:
         snr["snr_db"] = (args.snr_min, args.snr_max)
     mixer = OnDeviceMixer(chunks[tr_idx], args.noise_type, noise_bank=bank,
-                          augment=args.augment, device=device, **snr)
+                          augment=args.augment, sample_rate=sr, device=device, **snr)
     # validation stays at the reference's fixed SNR, un-augmented
     val_mixer = OnDeviceMixer(chunks[va_idx], args.noise_type, noise_bank=bank,
-                              device=device)
+                              sample_rate=sr, device=device)
     n_steps = args.steps_per_epoch or max(1, len(mixer) // args.batch_size)
     val_steps = max(1, n_steps // 10)
     print(f"On-device pipeline: {len(mixer)} clean chunks, {n_steps} steps/epoch, "
@@ -219,7 +245,7 @@ def _on_device_batches(args, device):
         for _ in range(val_steps):
             yield val_draw(gen, args.batch_size)
 
-    return train_batches, val_batches
+    return train_batches, val_batches, n_steps
 
 
 def main(argv=None):
@@ -237,43 +263,73 @@ def main(argv=None):
 
     from audiodenoiser_torch.device import resolve_device
     from audiodenoiser_torch.train.loop import FitConfig, fit
+    from audiodenoiser_torch.utils.profiling import maybe_trace
 
     device = resolve_device(args.device)
     cfg = FitConfig(run_name=args.run_name, output_path=args.output_path,
                     epochs=args.epochs, batch_size=args.batch_size,
                     learning_rate=args.learning_rate, seed=args.seed,
-                    precision=args.precision, device=str(device),
-                    extra_config=vars(args))
+                    precision=args.precision, resume=args.resume,
+                    lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
+                    grad_accum=args.grad_accum, remat=args.remat,
+                    ckpt_every=args.ckpt_every, ema_decay=args.ema_decay,
+                    device=str(device), extra_config=vars(args))
     if args.pipeline == "npy":
-        train_batches, val_batches = _npy_batches(args)
+        train_batches, val_batches, steps_per_epoch = _npy_batches(args)
     else:
-        train_batches, val_batches = _on_device_batches(args, device)
-    fit_kwargs, mask_meta = {}, None
+        train_batches, val_batches, steps_per_epoch = _on_device_batches(args, device)
+    if args.lr_schedule == "cosine":
+        # the schedule counts updates and this counts steps, as the JAX CLI
+        # does: with --grad_accum k a run covers 1/k of the decay
+        cfg.total_steps = args.epochs * steps_per_epoch
+    fit_kwargs, meta = {}, None
     if args.model == "complex_mask":
-        fit_kwargs, mask_meta = _mask_family(args, device)
-    result = fit(cfg, train_batches, val_batches, **fit_kwargs)
+        fit_kwargs, meta = _mask_family(args, device, cfg)
+    elif args.sample_rate != 8000:
+        # what a loader needs to rebuild the magnitude model at this rate
+        meta = {"width_mult": 1.0, "sample_rate": args.sample_rate}
+    with maybe_trace(args.profile_dir):
+        result = fit(cfg, train_batches, val_batches, **fit_kwargs)
 
-    if mask_meta is not None and result["exported_best"]:
-        # beside the run's checkpoint too: a loader of best_model.ckpt
-        # needs the head's bound and residual flag to rebuild the model
-        with open(os.path.splitext(result["best_path"])[0] + ".json", "w") as f:
-            json.dump(mask_meta, f)
-    if args.export_dir and args.noise_type and os.path.exists(result["best_path"]):
+    run_meta = os.path.splitext(result["best_path"])[0] + ".json"
+    if meta is not None and result["exported_best"]:
+        # beside the run's checkpoint too, written only when this run
+        # exported it: a resumed run that never beat the restored best must
+        # not stamp the old weights with its own flags
+        with open(run_meta, "w") as f:
+            json.dump(meta, f)
+    if meta is not None and result.get("exported_best_ema"):
+        with open(os.path.splitext(result["best_ema_path"])[0] + ".json", "w") as f:
+            json.dump(meta, f)
+    if args.export_dir and args.noise_type:
         os.makedirs(args.export_dir, exist_ok=True)
-        stem, ext = (("mask_denoiser", ".ckpt") if mask_meta is not None
-                     else ("unet_denoiser", ".pth"))
-        dst = os.path.join(args.export_dir, f"{stem}_{args.noise_type}{ext}")
-        shutil.copyfile(result["best_path"], dst)
-        if mask_meta is not None:
-            with open(os.path.splitext(dst)[0] + ".json", "w") as f:
-                json.dump(mask_meta, f)
-        print(f"Exported best model to {dst}")
+        stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
+        dst = os.path.join(args.export_dir, f"{stem}_{args.noise_type}.ckpt")
+        if meta is not None:
+            # the sidecar of the weights shipped: this run's if it exported,
+            # else the run-dir sidecar of the earlier run's checkpoint; with
+            # neither, their configuration is unknown and none is written
+            payload = meta if result["exported_best"] else None
+            if payload is None and os.path.exists(run_meta):
+                with open(run_meta) as f:
+                    payload = json.load(f)
+            if payload is None:
+                print("WARNING: exporting a checkpoint from an earlier run with no "
+                      "recorded model sidecar; no sidecar is written (loaders will "
+                      "use the defaults).")
+            else:
+                with open(os.path.splitext(dst)[0] + ".json", "w") as f:
+                    json.dump(payload, f)
+        if os.path.exists(result["best_path"]):
+            shutil.copyfile(result["best_path"], dst)
+            print(f"Exported best model to {dst}")
     return result
 
 
-def _mask_family(args, device):
-    """``fit``'s state factory and steps for ``--model complex_mask``, and
-    the sidecar that records the head, with the JAX CLI's per-type
+def _mask_family(args, device, cfg):
+    """``fit``'s state factory and steps for ``--model complex_mask`` (with
+    ``cfg``'s schedule and accumulation), and the sidecar that records the
+    head and a rate other than 8 kHz, with the JAX CLI's per-type
     defaults: SI-SDR weight 0.5, clamp 30 dB, bound 8 where the stream
     holds noise_cancellation (undoing its 0.2x attenuation needs ~5x gain),
     else 2; a residual head starts as a zero-initialised pass-through."""
@@ -290,10 +346,14 @@ def _mask_family(args, device):
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     meta = {"mask_bound": bound, "si_sdr_weight": si_w, "si_sdr_clamp": si_clamp,
             "residual": residual}
+    if args.sample_rate != 8000:
+        meta["sample_rate"] = args.sample_rate
     factory = lambda: mask_lib.create_mask_train_state(
         args.seed, mask_lib.ComplexMaskUNet(dtype=dtype, mask_bound=bound, residual=residual,
                                             zero_out_init=residual),
-        learning_rate=args.learning_rate, device=device)
+        learning_rate=args.learning_rate, device=device, schedule=cfg.lr_schedule,
+        warmup_steps=cfg.warmup_steps, total_steps=cfg.total_steps,
+        grad_accum=cfg.grad_accum)
     return {"state_factory": factory,
             "steps": mask_lib.make_mask_steps(si_w, si_clamp)}, meta
 

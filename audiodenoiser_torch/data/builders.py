@@ -1,9 +1,17 @@
 """Dataset builders (port of ``data/builders.py``): clean-chunk loading for
-training (the scipy path) and the test set's ``.npy`` artifacts.
+training and the ``.npy`` artifacts of the training and test sets.
 
-The JAX package prefers its native C++ loader (``data/native.py``) and
-falls back to scipy; the port has the scipy path only (the native loader
-is ROADMAP A.6), and the training-set builder is not ported yet (A.6).
+``load_clean_chunks`` prefers the native C++ loader (``data/native.py``)
+and falls back to the scipy path, as the JAX package does;
+``INGEST_COUNTS`` counts which path each call took.
+
+``build_train_dataset`` writes the reference's training set: per chunk
+``noisy_{nt}_chunk_{i}.npy`` / ``clean_{nt}_chunk_{i}.npy`` under
+``{output_base}/{nt}/``, float32 (n_fft/2+1, T) magnitudes of an
+uncentred STFT, and at most ``num_debug_wav`` noisy debug wavs a noise
+type. Chunks go through the corruption and both STFTs in batches of
+``device_batch`` on the device (K1 on the card, twice a batch and noise
+type); only the file writes stay on the host.
 
 ``build_test_dataset`` writes the reference's whole-clip test set:
 ``clean_{nt}.npy`` / ``noisy_{nt}.npy`` magnitude stacks (N, n_fft/2+1, T)
@@ -24,16 +32,18 @@ import torch
 import audiodenoiser_torch.dsp.stft as stft_lib
 from audiodenoiser_torch.data.chunking import frame_audio
 from audiodenoiser_torch.data.pipeline import NoiseBank
-from audiodenoiser_torch.data.wav_io import load_wav_list, read_wav
+from audiodenoiser_torch.data.wav_io import load_wav_list, read_wav, write_wav
 from audiodenoiser_torch.device import DeviceLike, resolve_device
 from audiodenoiser_torch.dsp import noise as noise_lib
 
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
+# calls of load_clean_chunks by the path that produced their chunks
+INGEST_COUNTS = {"native": 0, "scipy": 0}
 
 
-def load_clean_chunks(clean_files: Sequence[str], sample_rate: int,
-                      chunk_samples: int) -> np.ndarray:
-    """Decode, resample and chunk clean files: (n_chunks, chunk_samples) f32."""
+def _load_clean_chunks(clean_files: Sequence[str], sample_rate: int,
+                       chunk_samples: int) -> np.ndarray:
+    """The scipy path: decode, resample and chunk file by file."""
     all_chunks = []
     for cf in clean_files:
         y, _ = read_wav(cf, sample_rate=sample_rate)
@@ -43,6 +53,25 @@ def load_clean_chunks(clean_files: Sequence[str], sample_rate: int,
     if not all_chunks:
         return np.zeros((0, chunk_samples), dtype=np.float32)
     return np.concatenate(all_chunks, axis=0)
+
+
+def load_clean_chunks(clean_files: Sequence[str], sample_rate: int,
+                      chunk_samples: int) -> np.ndarray:
+    """Decode, resample and chunk clean files: (n_chunks, chunk_samples)
+    float32, through the native loader (every file in parallel) when it is
+    available, else, or when it cannot decode a file (an exotic wav
+    subtype: ``IOError``), through scipy file by file."""
+    from audiodenoiser_torch.data import native
+
+    if native.available():
+        try:
+            chunks = native.load_batch(list(clean_files), sample_rate, chunk_samples)
+            INGEST_COUNTS["native"] += 1
+            return chunks
+        except IOError:
+            pass
+    INGEST_COUNTS["scipy"] += 1
+    return _load_clean_chunks(clean_files, sample_rate, chunk_samples)
 
 
 def _corrupt_and_featurize(
@@ -78,6 +107,69 @@ def _corrupt_and_featurize(
         return stft_lib.stft(a, n_fft, hop_length, center=center, precision="kernel").abs()
 
     return noisy, to_mag(clean), to_mag(noisy)
+
+
+def build_train_dataset(
+    clean_dir: str,
+    noise_dir: str,
+    output_base: str,
+    chunk_seconds: float = 2.0,
+    sample_rate: int = 8000,
+    n_fft: int = 512,
+    hop_length: int = 128,
+    snr_db: float = 8.0,
+    noise_types: Sequence[str] = NOISE_TYPES,
+    num_debug_wav: int = 2,
+    debug_dir: Optional[str] = None,
+    seed: int = 0,
+    device_batch: int = 256,
+    device: DeviceLike = None,
+) -> int:
+    """Build the training set; returns the number of chunks processed.
+    Every batch draws its urban segments once for all noise types, then
+    each noise type's draws, from one generator seeded by ``seed`` on the
+    device; the reverb's wet level is the reference's 0.33."""
+    device = resolve_device(device)
+    chunk_samples = int(sample_rate * chunk_seconds)
+    clean_files = load_wav_list(clean_dir)
+    noise_files = load_wav_list(noise_dir)
+    for nt in noise_types:
+        os.makedirs(os.path.join(output_base, nt), exist_ok=True)
+    if debug_dir:
+        os.makedirs(debug_dir, exist_ok=True)
+
+    chunks = load_clean_chunks(clean_files, sample_rate, chunk_samples)
+    n = len(chunks)
+    if n == 0:
+        return 0
+    bank = None
+    if noise_files:
+        bank = NoiseBank([read_wav(f, sample_rate=sample_rate)[0] for f in noise_files],
+                         target_len=chunk_samples, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    debug_counts = {nt: 0 for nt in noise_types}
+    for start in range(0, n, device_batch):
+        batch = torch.from_numpy(chunks[start:start + device_batch]).to(device)
+        segs = bank.sample(gen, batch.shape[0]) if bank is not None else torch.zeros_like(batch)
+        for nt in noise_types:
+            noisy_audio, clean_mag, noisy_mag = _corrupt_and_featurize(
+                batch, segs, nt, n_fft, hop_length, False, sample_rate, snr_db, 0.33,
+                generator=gen)
+            clean_mag, noisy_mag = clean_mag.cpu().numpy(), noisy_mag.cpu().numpy()
+            subdir = os.path.join(output_base, nt)
+            for j in range(batch.shape[0]):
+                i = start + j
+                np.save(os.path.join(subdir, f"noisy_{nt}_chunk_{i}.npy"), noisy_mag[j])
+                np.save(os.path.join(subdir, f"clean_{nt}_chunk_{i}.npy"), clean_mag[j])
+            c = debug_counts[nt]
+            if debug_dir and c < min(num_debug_wav, batch.shape[0]):
+                noisy_np = noisy_audio.cpu().numpy()
+                while c < num_debug_wav and c < len(noisy_np):  # JAX's indexing
+                    write_wav(os.path.join(debug_dir, f"debug_{nt}_{c}.wav"), noisy_np[c],
+                              sample_rate)
+                    c += 1
+                debug_counts[nt] = c
+    return n
 
 
 def build_test_dataset(

@@ -2,14 +2,15 @@
 ``data/pipeline.py``: ``NoiseBank``, ``OnDeviceMixer.sample`` and
 ``OnDeviceMixer.sample_audio``).
 
-The clean 2 s chunks live in device memory; each training step draws a
+The clean chunks (2 s at 8 kHz by default: ``sample_rate`` and the
+chunks' length set the training window) live in device memory; each training step draws a
 random batch, augments it (optionally), synthesizes the corruption and
 computes both magnitude spectrograms on the card, with no host round
 trip. The STFT (``center=False``) is the K1 kernel on the card. The
 output is the reference's (256, 64) training crop, (B, 1, 256, 64)
 float32, after the reference loader's float16 round trip.
 
-``sample_audio`` returns the raw (noisy, clean) (B, 16000) waveforms of
+``sample_audio`` returns the raw (noisy, clean) (B, chunk) waveforms of
 the same draws instead, with no STFT: the complex-mask family's stream.
 
 Randomness is split from the arithmetic: ``draw(generator, batch)``
@@ -18,7 +19,7 @@ makes every random tensor a batch needs, ``sample_from(draws)`` and
 and ``sample_audio`` are draw and arithmetic together. A test can so give
 the port the JAX package's own draws.
 
-Not ported yet (ROADMAP A.6): ``sample_labeled`` (the router stream).
+Not ported yet (ROADMAP A.10): ``sample_labeled`` (the router stream).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from audiodenoiser_torch.device import DeviceLike, resolve_device
 from audiodenoiser_torch.dsp import noise as noise_lib
 
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
-N_FFT, HOP, SAMPLE_RATE = 512, 128, 8000
+N_FFT, HOP = 512, 128
 Draws = dict[str, torch.Tensor]
 
 
@@ -99,12 +100,15 @@ def pad_or_truncate_device(x: torch.Tensor, target: tuple[int, int]) -> torch.Te
 class OnDeviceMixer:
     """Fused sample -> augment -> corrupt -> STFT batch generator for one
     noise type, or a per-example mixture of all four (``"mixed"``).
-    ``snr_db`` is a fixed level or a ``(lo, hi)`` range drawn per example."""
+    ``snr_db`` is a fixed level or a ``(lo, hi)`` range drawn per example.
+    ``sample_rate`` is the chunks' rate, which the reverb's impulse
+    response follows; the STFT constants (n_fft 512, hop 128) stay."""
 
     def __init__(self, clean_chunks: np.ndarray, noise_type: str,
                  noise_bank: Optional[NoiseBank] = None,
                  target_size: tuple[int, int] = (256, 64),
                  snr_db: Union[float, tuple[float, float]] = 8.0,
+                 sample_rate: int = 8000,
                  augment: bool = False, device: DeviceLike = None):
         if noise_type not in (*NOISE_TYPES, "mixed"):
             raise ValueError(f"unknown noise type {noise_type!r}")
@@ -117,6 +121,7 @@ class OnDeviceMixer:
         self.bank = noise_bank
         self.target_size = target_size
         self.snr_db = snr_db
+        self.sample_rate = int(sample_rate)
 
     def __len__(self) -> int:
         return int(self.clean.shape[0])
@@ -174,7 +179,7 @@ class OnDeviceMixer:
             segs = self.bank.segments(draws["bank_idx"], draws["bank_start"])
             return torch.clamp(clean + noise_lib.snr_scale(clean, segs, snr), -1.0, 1.0)
         if nt == "reverb":
-            return noise_lib.reverb(clean, SAMPLE_RATE)
+            return noise_lib.reverb(clean, self.sample_rate)
         return noise_lib.noise_cancellation(clean, gate=draws["gate"])
 
     def _featurize(self, a: torch.Tensor) -> torch.Tensor:

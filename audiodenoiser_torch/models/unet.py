@@ -1,5 +1,5 @@
 """Spectrogram U-Net with live BatchNorm (port of ``models/unet.py``, plain
-configuration, with its ``dtype`` and ``pallas_deconv`` options).
+configuration, with its ``dtype``, ``pallas_deconv`` and ``remat`` options).
 
 A 4-level encoder/decoder of [Conv3x3 -> BatchNorm -> ReLU] x 2 blocks,
 conv-before-maxpool downsampling, k2/s2 ConvTranspose upsampling with an
@@ -18,15 +18,23 @@ Mixed precision follows Flax: parameters stay float32; convolutions
 compute in ``dtype`` (input, kernel and bias cast to it); BatchNorm
 computes in float32 and the ReLU's output is cast back to ``dtype``; the
 result is cast to the input's dtype.
+
+``remat=True`` (Flax's ``nn.remat(DoubleConv)``) keeps no activation inside
+a ``DoubleConv`` for the backward and recomputes the block there instead
+(``torch.utils.checkpoint``, non-reentrant). The recompute leaves the
+BatchNorm running statistics and ``num_batches_tracked`` alone, as JAX's
+functional remat does, so they move once a step either way.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from audiodenoiser_torch.ops.cuda.deconv import conv_transpose_2x2
 
@@ -46,13 +54,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics, ``ra = 0.9*ra + 0.1*batch`` (``nn.BatchNorm2d`` folds the
     unbiased one). Statistics are float32 (Welford's form, where Flax uses
     ``E[x^2] - E[x]^2``: the two differ by rounding). Eval mode is torch's.
-    Output is float32 (at least).
+    Output is float32 (at least). ``recomputing`` is set while remat runs the
+    forward a second time in the backward: the statistics are not folded
+    again then.
     """
+
+    recomputing = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return super().forward(x)
+        if self.recomputing:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
             m = self.momentum
@@ -66,8 +80,9 @@ class DoubleConv(nn.Module):
     """[Conv3x3(pad 1) -> BatchNorm -> ReLU -> cast] x 2. Flax's BatchNorm
     ``momentum=0.9`` keeps 0.9 of the running value: torch's 0.1."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.double_conv = nn.Sequential(
             Conv2d(in_ch, out_ch, 3, padding=1),
             BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
@@ -77,19 +92,37 @@ class DoubleConv(nn.Module):
             nn.ReLU(inplace=True),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
         seq = self.double_conv
         x = seq[2](seq[1](seq[0](x))).to(dtype)
         return seq[5](seq[4](seq[3](x))).to(dtype)
 
+    @contextlib.contextmanager
+    def _recompute(self):
+        norms = (self.double_conv[1], self.double_conv[4])
+        for bn in norms:
+            bn.recomputing = True
+        try:
+            yield
+        finally:
+            for bn in norms:
+                bn.recomputing = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            # nothing in the block draws random numbers: no RNG state to keep
+            return checkpoint(self._block, x, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=lambda: (contextlib.nullcontext(), self._recompute()))
+        return self._block(x)
+
 
 class Down(nn.Module):
     """DoubleConv, then 2x2 max-pool; returns (skip, pooled)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, remat: bool = False):
         super().__init__()
-        self.conv = DoubleConv(in_ch, out_ch)
+        self.conv = DoubleConv(in_ch, out_ch, remat)
 
     def forward(self, x: torch.Tensor):
         skip = self.conv(x)
@@ -116,10 +149,10 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
 class Up(nn.Module):
     """ConvTranspose(k2, s2) -> pad to the skip -> concat(skip, up) -> DoubleConv."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: bool = False):
+    def __init__(self, in_ch: int, out_ch: int, kernel: bool = False, remat: bool = False):
         super().__init__()
         self.up = ConvTranspose2x2(in_ch, out_ch, kernel)
-        self.conv = DoubleConv(2 * out_ch, out_ch)
+        self.conv = DoubleConv(2 * out_ch, out_ch, remat)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.conv(torch.cat([skip, pad_to_match(self.up(x), skip)], dim=1))
@@ -141,7 +174,8 @@ class UNet(nn.Module):
     Fully convolutional: accepts any (freq, time) of at least 16 on each
     side, including the whole-clip eval shape (257, T). ``dtype`` is the
     compute dtype; ``pallas_deconv`` (the JAX option's name) routes the
-    four upsamplings through the K3 kernel. ``zero_out_init`` starts the
+    four upsamplings through the K3 kernel; ``remat`` recomputes each
+    ``DoubleConv`` in the backward (K3, in ``Up``, runs once). ``zero_out_init`` starts the
     1x1 head's kernel at zero (``train.loop.init_flax_like`` keeps it so),
     which makes a fresh residual mask head an exact pass-through.
     """
@@ -149,21 +183,23 @@ class UNet(nn.Module):
     def __init__(self, features: Sequence[int] = (64, 128, 256, 512),
                  bottleneck: int = 1024, in_channels: int = 1,
                  out_channels: int = 1, dtype: torch.dtype = torch.float32,
-                 pallas_deconv: bool = False, zero_out_init: bool = False):
+                 pallas_deconv: bool = False, zero_out_init: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.features = tuple(features)
         self.bottleneck_width = bottleneck
         self.dtype = dtype
         self.pallas_deconv = pallas_deconv
         self.zero_out_init = zero_out_init
+        self.remat = remat
         cin = in_channels
         for k, f in enumerate(self.features, start=1):
-            self.add_module(f"downconv{k}", Down(cin, f))
+            self.add_module(f"downconv{k}", Down(cin, f, remat))
             cin = f
-        self.bottleneck = DoubleConv(cin, bottleneck)
+        self.bottleneck = DoubleConv(cin, bottleneck, remat)
         cin = bottleneck
         for k, f in enumerate(reversed(self.features), start=1):
-            self.add_module(f"upconv{k}", Up(cin, f, pallas_deconv))
+            self.add_module(f"upconv{k}", Up(cin, f, pallas_deconv, remat))
             cin = f
         self.out = Conv2d(cin, out_channels, 1)
         if zero_out_init:

@@ -5,13 +5,13 @@
   Flax tree layout, optionally with int8 kernels (``"format": "int8-v1"``).
   The port reads and writes it with its own codec (``msgpack_codec``), so
   the bytes it writes are the ones Flax writes and reads back.
-- ``export_pth``: the model's state_dict as a ``.pth`` file, the
-  reference's own format (``torch.save(state_dict)``), which ``fit``
-  writes and ``eval.runner.load_model_for_noise`` loads.
+- ``save_train_state`` / ``restore_train_state`` / ``saved_keys``: the
+  resume state of ``train.loop.fit``. The JAX package keeps it in an orbax
+  directory; the port has no orbax, so it is one ``torch.save`` of a dict
+  of tensors and plain values, written atomically and read back with
+  ``weights_only=True``.
 - ``record_best_val`` / ``best_val_floor`` keep the ``.val.json`` sidecar
   beside an export.
-
-The JAX package's orbax resume state is not ported yet (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch import nn
 
 from audiodenoiser_torch.train import msgpack_codec
 
@@ -97,13 +96,26 @@ def load_exported(path: str) -> dict:
     return raw
 
 
-def export_pth(path: str, model: nn.Module) -> None:
-    """Atomic ``torch.save`` of ``model``'s state_dict, on the CPU."""
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+def save_train_state(path: str, state: dict) -> None:
+    """``torch.save`` of the resume state ``state`` (tensors on any device,
+    numbers, strings, lists, dicts), through a temporary file and
+    ``os.replace``, so that a crash leaves the previous state whole."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
+
+
+def restore_train_state(path: str, device=None) -> dict:
+    """The resume state written by ``save_train_state``, its tensors on
+    ``device`` (where they were saved when None)."""
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def saved_keys(path: str) -> set[str]:
+    """Top-level keys of a saved resume state (``ema`` and
+    ``best_ema_val`` only in a state written with an EMA)."""
+    return set(restore_train_state(path, "cpu"))
 
 
 def record_best_val(ckpt_path: str, val_loss: float, epoch: int) -> None:

@@ -10,13 +10,18 @@ update. Batches are (B, 1, F, T) float32, from ``.npy`` pairs
 ``fit`` also runs another family's ``(train_step, eval_step)`` pair: the
 complex-mask steps of ``train.mask`` on raw waveform batches.
 
+The optimizer takes JAX's schedules (constant with a linear warm-up, or
+warm-up plus cosine decay) and gradient accumulation (``optax.MultiSteps``);
+``fit`` adds an EMA of the weights, ``remat``, and a resume state written
+every ``ckpt_every`` epochs (``train.checkpoints``).
+
 Not ported yet: the device mesh and FSDP (ROADMAP A.11); width_mult, the
-s2d stem and the attention bottleneck (A.10); EMA, resume, gradient
-accumulation, the cosine/warmup schedules and remat (A.12).
+s2d stem and the attention bottleneck (A.10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -39,19 +44,35 @@ SeedLike = Union[int, torch.Generator]
 
 
 class ClippedAdamW:
-    """optax ``chain(clip_by_global_norm(clip_norm), adamw(...))``.
+    """optax ``chain(clip_by_global_norm(clip_norm), adamw(lr))``, inside
+    ``optax.MultiSteps(every_k_schedule=grad_accum)`` when ``grad_accum`` > 1.
 
     The clip is optax's: ``g * clip_norm / ||g||`` only when ``||g|| >
     clip_norm`` (``clip_grad_norm_`` adds 1e-6 to the norm and scales
     always). AdamW is torch's with betas (0.9, 0.999), eps 1e-8 and
     the weight decay on every parameter, BatchNorm included, as optax's
     ``adamw`` without a mask; the two updates are the same algebra.
+
+    ``schedule`` maps the count of updates made to the learning rate
+    (``learning_rate_schedule``; None: constant). With ``grad_accum`` k the
+    backward passes sum into ``.grad``: ``step`` counts a micro-step and
+    touches nothing until the k-th, which scales the sum by 1/k (one
+    ``_foreach_mul_``), clips the mean and updates. The parameters and the
+    AdamW moments stay bit-equal over the k-1 other micro-steps, and the
+    schedule counts updates, not micro-steps, as ``optax.MultiSteps`` does.
     """
 
     def __init__(self, params, learning_rate: float, weight_decay: float = 0.01,
-                 clip_norm: float = 1.0):
+                 clip_norm: float = 1.0, schedule: Optional[Callable[[int], float]] = None,
+                 grad_accum: int = 1):
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be at least 1, got {grad_accum}")
         self.params = [p for p in params if p.requires_grad]
         self.clip_norm = clip_norm
+        self.schedule = schedule
+        self.grad_accum = int(grad_accum)
+        self.micro_step = 0  # backward passes summed into .grad since the last update
+        self.updates = 0     # updates made: the schedule's count
         self.adamw = torch.optim.AdamW(self.params, lr=learning_rate,
                                        betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
@@ -60,23 +81,93 @@ class ClippedAdamW:
         self.adamw.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """Clip and update; returns the global gradient norm (before the clip)."""
+    def step(self) -> Optional[torch.Tensor]:
+        """One micro-step; on an update, clip and update and return the
+        global norm of the mean gradient (before the clip), else None."""
+        self.micro_step += 1
+        if self.micro_step < self.grad_accum:
+            return None
+        self.micro_step = 0
         grads = [p.grad for p in self.params if p.grad is not None]
+        if self.grad_accum > 1:
+            torch._foreach_mul_(grads, 1.0 / self.grad_accum)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # no host sync: the scale is 1 unless the norm exceeds the clip
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                             self.clip_norm / norm)
         torch._foreach_mul_(grads, scale)
+        if self.schedule is not None:
+            for group in self.adamw.param_groups:
+                group["lr"] = self.schedule(self.updates)
         self.adamw.step()
+        self.updates += 1
         return norm
+
+    def state_dict(self) -> dict:
+        """AdamW's moments and step, the update count, the micro-step and,
+        between updates, the summed gradients."""
+        grads = [p.grad.detach().clone() if p.grad is not None else None
+                 for p in self.params] if self.micro_step else []
+        return {"adamw": self.adamw.state_dict(), "updates": self.updates,
+                "micro_step": self.micro_step, "grads": grads}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.updates = int(state["updates"])
+        self.micro_step = int(state["micro_step"])
+        self.zero_grad()
+        for p, g in zip(self.params, state["grads"]):
+            p.grad = None if g is None else g.to(p.device, p.dtype)
+
+
+def _linear(init: float, end: float, steps: int, count: int) -> float:
+    """optax.linear_schedule: held at ``init`` when ``steps`` <= 0."""
+    if steps <= 0:
+        return init
+    frac = 1.0 - min(max(count, 0), steps) / steps
+    return (init - end) * frac + end
+
+
+def learning_rate_schedule(learning_rate: float, schedule: str = "constant",
+                           warmup_steps: int = 0,
+                           total_steps: int = 0) -> Optional[Callable[[int], float]]:
+    """The JAX package's schedules as a function of the update count: None
+    for a constant rate; "constant" with ``warmup_steps`` is
+    ``optax.linear_schedule(0, lr, warmup_steps)`` (the first update at lr
+    0); "cosine" is ``warmup_cosine_decay_schedule(0, lr, max(1, warmup),
+    decay_steps=total_steps)``, the warm-up counted inside ``total_steps``
+    and the rate ending at 0."""
+    if schedule == "constant":
+        if not warmup_steps:
+            return None
+        return lambda count: _linear(0.0, learning_rate, warmup_steps, count)
+    if schedule != "cosine":
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if total_steps <= 0:
+        raise ValueError("cosine schedule requires total_steps > 0")
+    warm = max(1, warmup_steps)
+    decay = total_steps - warm
+    if decay <= 0:
+        raise ValueError("The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay}.")
+
+    def lr(count: int) -> float:
+        if count < warm:
+            return _linear(0.0, learning_rate, warm, count)
+        return learning_rate * 0.5 * (1.0 + math.cos(math.pi * min(count - warm, decay) / decay))
+
+    return lr
 
 
 def make_optimizer(params, learning_rate: float, weight_decay: float = 0.01,
-                   clip_norm: float = 1.0) -> ClippedAdamW:
-    """clip_by_global_norm(clip_norm) -> AdamW, at a constant learning rate
-    (the cosine/warmup schedules are ROADMAP A.12)."""
-    return ClippedAdamW(params, learning_rate, weight_decay, clip_norm)
+                   clip_norm: float = 1.0, schedule: str = "constant",
+                   warmup_steps: int = 0, total_steps: int = 0,
+                   grad_accum: int = 1) -> ClippedAdamW:
+    """clip_by_global_norm(clip_norm) -> AdamW on the ``schedule``
+    (``learning_rate_schedule``), accumulating ``grad_accum`` micro-steps
+    an update (JAX ``train/loop.py::make_optimizer``)."""
+    lr = learning_rate_schedule(learning_rate, schedule, warmup_steps, total_steps)
+    return ClippedAdamW(params, learning_rate, weight_decay, clip_norm, lr, grad_accum)
 
 
 @dataclass
@@ -84,7 +175,7 @@ class TrainState:
     model: nn.Module
     optimizer: ClippedAdamW
     step: int = 0
-    grad_norm: Optional[torch.Tensor] = None  # of the last step, before the clip
+    grad_norm: Optional[torch.Tensor] = None  # of the last update, before the clip
 
     @property
     def device(self) -> torch.device:
@@ -125,11 +216,13 @@ def init_flax_like(model: nn.Module, seed: SeedLike = 0) -> nn.Module:
 def create_train_state(seed: SeedLike = 0, model: Optional[nn.Module] = None,
                        learning_rate: float = 1e-4, weight_decay: float = 0.01,
                        clip_norm: float = 1.0, variables: Optional[dict] = None,
-                       device: DeviceLike = None) -> TrainState:
+                       device: DeviceLike = None, **opt_kwargs) -> TrainState:
     """A model on ``device`` (the card unless told otherwise) with its
     optimizer. ``variables``, a Flax-layout tree (``random_flax_variables``
     or a Flax ``init``), sets the weights; otherwise they are drawn with
-    Flax's initialisers from ``seed``."""
+    Flax's initialisers from ``seed``. ``opt_kwargs`` (``schedule``,
+    ``warmup_steps``, ``total_steps``, ``grad_accum``) go to
+    ``make_optimizer``."""
     device = resolve_device(device)
     model = UNet() if model is None else model
     if variables is not None:
@@ -137,17 +230,22 @@ def create_train_state(seed: SeedLike = 0, model: Optional[nn.Module] = None,
     else:
         init_flax_like(model, seed)
     model = model.to(device)
-    tx = make_optimizer(model.parameters(), learning_rate, weight_decay, clip_norm)
+    tx = make_optimizer(model.parameters(), learning_rate, weight_decay, clip_norm, **opt_kwargs)
     return TrainState(model=model, optimizer=tx)
 
 
 def apply_update(state: TrainState, losses: CombinedLossOutput):
-    """The backward of ``losses.total``, the clip and AdamW, in place;
-    returns ``(state, losses)`` with the losses detached, as device
-    scalars (no host synchronisation)."""
-    state.optimizer.zero_grad()
+    """The backward of ``losses.total`` and the optimizer's micro-step (the
+    clip and AdamW on an update), in place; returns ``(state, losses)`` with
+    the losses detached, as device scalars (no host synchronisation). The
+    gradients are zeroed only before the first micro-step of an update."""
+    opt = state.optimizer
+    if opt.micro_step == 0:
+        opt.zero_grad()
     losses.total.backward()
-    state.grad_norm = state.optimizer.step()
+    norm = opt.step()
+    if norm is not None:
+        state.grad_norm = norm
     state.step += 1
     return state, CombinedLossOutput(*(t.detach() for t in losses))
 
@@ -175,7 +273,15 @@ class FitConfig:
     learning_rate: float = 1e-4
     seed: int = 0
     precision: str = "bf16"  # "bf16" | "f32"
+    resume: bool = False  # restore checkpoints/train_state.pt and go on
     log_every: int = 50
+    lr_schedule: str = "constant"  # "constant" | "cosine"
+    warmup_steps: int = 0
+    total_steps: int = 0  # required for cosine decay
+    grad_accum: int = 1
+    remat: bool = False
+    ckpt_every: int = 1  # write the resume state every N epochs (and after the last)
+    ema_decay: Optional[float] = None  # e.g. 0.999: track, validate and export an EMA
     device: Optional[str] = None  # None: the card
     extra_config: dict = field(default_factory=dict)
 
@@ -184,6 +290,30 @@ def _epoch_mean(losses: list) -> float:
     if not losses:
         return float("nan")
     return float(torch.stack([l.total.float() for l in losses]).mean())
+
+
+def _export_best(path: str, model: nn.Module, params: Optional[dict] = None) -> None:
+    """``model`` as the JAX package's ``.ckpt``, its parameters replaced by
+    ``params`` (name -> tensor) when given; BatchNorm statistics are the
+    model's own."""
+    sd = model.state_dict()
+    if params is not None:
+        sd = {**sd, **params}
+    tree = flax_from_state_dict(sd)
+    ckpt_lib.export_model(path, tree["params"], tree["batch_stats"])
+
+
+@contextlib.contextmanager
+def _swapped(params: list, values: list):
+    """``params`` hold ``values`` inside the block, their own after it."""
+    with torch.no_grad():
+        live = [p.detach().clone() for p in params]
+        torch._foreach_copy_(params, values)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            torch._foreach_copy_(params, live)
 
 
 def fit(config: FitConfig,
@@ -198,14 +328,20 @@ def fit(config: FitConfig,
     default steps, what ``steps`` takes otherwise. ``state_factory``
     supplies the model and optimizer (how a ``UNet(pallas_deconv=True)``
     reaches training); by default a full-width ``UNet`` in the configured
-    precision, initialised from ``config.seed``. ``steps`` is a
-    ``(train_step, eval_step)`` pair (``train.mask.make_mask_steps``);
-    by default the magnitude U-Net's.
+    precision and ``remat``, initialised from ``config.seed``, with the
+    configured schedule and accumulation. ``steps`` is a ``(train_step,
+    eval_step)`` pair (``train.mask.make_mask_steps``); by default the
+    magnitude U-Net's.
 
     The best model is exported as ``checkpoints/best_model.ckpt`` (the JAX
-    package's ``.ckpt``) for the complex-mask family, a model with a
-    ``mask_bound``, and as the reference-layout ``best_model.pth`` for the
-    magnitude U-Net.
+    package's ``.ckpt``) with its ``.val.json``. With ``ema_decay`` an fp32
+    exponential moving average of the parameters moves after every step
+    call (micro-steps included, as JAX's), is validated each epoch with the
+    live BatchNorm statistics, and its best is exported as
+    ``best_model_ema.ckpt``. ``checkpoints/train_state.pt`` (model,
+    optimizer, EMA, epoch, best losses, global step) is written every
+    ``ckpt_every`` epochs and after the last; ``resume`` restores it and
+    runs the epochs after it, the history holding only those.
     """
     run_name = config.run_name or f"UNET_Run_{int(time.time())}"
     run_dir = os.path.join(config.output_path, run_name)
@@ -222,9 +358,12 @@ def fit(config: FitConfig,
         state = state_factory()
     else:
         dtype = torch.bfloat16 if config.precision == "bf16" else torch.float32
-        state = create_train_state(config.seed, UNet(dtype=dtype),
+        state = create_train_state(config.seed, UNet(dtype=dtype, remat=config.remat),
                                    learning_rate=config.learning_rate,
-                                   device=config.device)
+                                   device=config.device, schedule=config.lr_schedule,
+                                   warmup_steps=config.warmup_steps,
+                                   total_steps=config.total_steps,
+                                   grad_accum=config.grad_accum)
     device = state.device
     logger.info(f"Using device: {device_name(device)}")
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -234,15 +373,40 @@ def fit(config: FitConfig,
         return torch.as_tensor(x).to(device, dtype=torch.float32, non_blocking=True)
 
     step_fn, eval_fn = steps if steps is not None else (train_step, eval_step)
-    masked = getattr(state.model, "mask_bound", None) is not None
+    names, params = zip(*state.model.named_parameters())
+    params = list(params)
+    best_path = os.path.join(ckpt_dir, "best_model.ckpt")
+    best_ema_path = os.path.join(ckpt_dir, "best_model_ema.ckpt")
+    resume_path = os.path.join(ckpt_dir, "train_state.pt")
+    start_epoch, global_step = 0, 0
+    best_val = best_ema_val = float("inf")
+    ema = None
+    if config.resume and os.path.exists(resume_path):
+        restored = ckpt_lib.restore_train_state(resume_path, device)
+        state.model.load_state_dict(restored["model"])
+        state.optimizer.load_state_dict(restored["optimizer"])
+        state.step = int(restored["step"])
+        start_epoch = int(restored["epoch"]) + 1
+        best_val = float(restored["best_val"])
+        global_step = int(restored["global_step"])
+        if config.ema_decay and "ema" in restored:
+            ema = [restored["ema"][n].to(device, torch.float32) for n in names]
+            best_ema_val = float(restored["best_ema_val"])
+        # the resume state can be older than an export (ckpt_every): the
+        # sidecars keep the exported losses authoritative; only after a
+        # real restore, so a fresh run inherits no earlier run's floor
+        best_val = ckpt_lib.best_val_floor(best_path, best_val)
+        best_ema_val = ckpt_lib.best_val_floor(best_ema_path, best_ema_val)
+        logger.info(f"Resumed from epoch {start_epoch} (best val {best_val:.6f})")
+    if config.ema_decay and ema is None:
+        ema = [p.detach().float().clone() for p in params]
+    ema_weight = 1.0 - config.ema_decay if config.ema_decay else 0.0
+
     writer = ScalarWriter(os.path.join(run_dir, "tensorboard_logs"))
-    best_path = os.path.join(ckpt_dir, "best_model.ckpt" if masked else "best_model.pth")
-    best_val = float("inf")
-    exported_best = False
+    exported_best = exported_best_ema = False
     history = []
-    global_step = 0
     logger.info("--- Starting Training Loop ---")
-    for epoch in range(config.epochs):
+    for epoch in range(start_epoch, config.epochs):
         t0 = time.perf_counter()
         log_t0 = t0
         steps_since_log = 0
@@ -250,6 +414,9 @@ def fit(config: FitConfig,
         for noisy, clean in train_batches(epoch):
             state, losses = step_fn(state, place(noisy), place(clean))
             train_losses.append(losses)
+            if ema is not None:
+                with torch.no_grad():  # one fused pass over every parameter
+                    torch._foreach_lerp_(ema, params, ema_weight)
             global_step += 1
             steps_since_log += 1
             if config.log_every and global_step % config.log_every == 0:
@@ -271,9 +438,18 @@ def fit(config: FitConfig,
             logger.warning("Validation split is empty; using train loss for selection.")
             val_loss = train_loss
         writer.add_scalar("Loss/validation", val_loss, epoch)
+        ema_val = None
+        if ema is not None:
+            with _swapped(params, ema):
+                ema_losses = [eval_fn(state, place(noisy), place(clean))
+                              for noisy, clean in val_batches()]
+            ema_val = _epoch_mean(ema_losses) if ema_losses else val_loss
+            writer.add_scalar("Loss/validation_ema", ema_val, epoch)
         dt = time.perf_counter() - t0
         logger.info(f"Epoch {epoch + 1}/{config.epochs} -> Train Loss: {train_loss:.6f} | "
-                    f"Validation Loss: {val_loss:.6f} | {dt:.1f}s")
+                    f"Validation Loss: {val_loss:.6f}"
+                    + (f" | EMA Val Loss: {ema_val:.6f}" if ema_val is not None else "")
+                    + f" | {dt:.1f}s")
         if not np.isfinite(train_loss):
             logger.error("Non-finite training loss; aborting run.")
             raise FloatingPointError(f"training diverged at epoch {epoch} (loss={train_loss})")
@@ -281,24 +457,41 @@ def fit(config: FitConfig,
 
         if val_loss < best_val:
             best_val = val_loss
-            if masked:
-                tree = flax_from_state_dict(state.model.state_dict())
-                ckpt_lib.export_model(best_path, tree["params"], tree["batch_stats"])
-            else:
-                ckpt_lib.export_pth(best_path, state.model)
+            _export_best(best_path, state.model)
             ckpt_lib.record_best_val(best_path, best_val, epoch)
             exported_best = True
             logger.info(f"New best model saved to {best_path} (Val Loss: {best_val:.6f})")
+        if ema_val is not None and ema_val < best_ema_val:
+            best_ema_val = ema_val
+            _export_best(best_ema_path, state.model, dict(zip(names, ema)))
+            ckpt_lib.record_best_val(best_ema_path, best_ema_val, epoch)
+            exported_best_ema = True
+            logger.info(f"New best EMA model saved to {best_ema_path} "
+                        f"(EMA Val Loss: {best_ema_val:.6f})")
+        if (epoch + 1) % max(1, config.ckpt_every) == 0 or epoch == config.epochs - 1:
+            payload = {"model": state.model.state_dict(),
+                       "optimizer": state.optimizer.state_dict(), "step": state.step,
+                       "epoch": epoch, "best_val": best_val, "global_step": global_step}
+            if ema is not None:
+                payload["ema"] = dict(zip(names, ema))
+                payload["best_ema_val"] = best_ema_val
+            ckpt_lib.save_train_state(resume_path, payload)
 
     writer.close()
     logger.info("--- Training Finished ---")
     logger.info(f"Final best model saved at: {best_path}")
-    return {
+    result = {
         "best_val": best_val,
         "best_path": best_path,
         "run_dir": run_dir,
         "history": history,
         "state": state,
+        # False when a resumed run never beat the restored best: the export
+        # on disk is an earlier run's, and its sidecar must stay as it is
         "exported_best": exported_best,
         "steps": global_step,
     }
+    if config.ema_decay:
+        result.update(best_ema_val=best_ema_val, best_ema_path=best_ema_path,
+                      exported_best_ema=exported_best_ema)
+    return result

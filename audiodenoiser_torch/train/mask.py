@@ -48,13 +48,16 @@ HOP = 128
 
 def create_mask_train_state(seed: SeedLike = 0, model: Optional[nn.Module] = None,
                             learning_rate: float = 1e-4, variables: Optional[dict] = None,
-                            device: DeviceLike = None) -> TrainState:
+                            device: DeviceLike = None, **opt_kwargs) -> TrainState:
     """A ``ComplexMaskUNet`` (full width, bound 2 by default) with its
     optimizer on ``device``, the card unless told otherwise; weights from
-    a Flax-layout ``variables`` tree or Flax's initialisers from ``seed``."""
+    a Flax-layout ``variables`` tree or Flax's initialisers from ``seed``.
+    ``opt_kwargs`` (``schedule``, ``warmup_steps``, ``total_steps``,
+    ``grad_accum``) go to ``make_optimizer``, so the training flags reach
+    this family too."""
     model = ComplexMaskUNet() if model is None else model
     return create_train_state(seed, model, learning_rate=learning_rate,
-                              variables=variables, device=device)
+                              variables=variables, device=device, **opt_kwargs)
 
 
 def _mask_losses(model: nn.Module, noisy_audio: torch.Tensor, clean_audio: torch.Tensor,

@@ -11,8 +11,10 @@ from the root of a checkout. Phases, each fatal on failure:
    kernel, plain version and one library call beside the kernel's lower
    bound (``ms``: CUDA events per call, host launch cost included;
    ``device_ms``: the profiler's device time beside it): K1/K2 at the bench shape (256 clips of 2 s), a
-   ragged one (3 clips of 3.1 s), a stream window (1 clip of 2 s) and the
-   ticks of pools of 8 and 64 streams (8 and 64 windows of 2 s); K2
+   ragged one (3 clips of 3.1 s), a stream window (1 clip of 2 s), the
+   ticks of pools of 8 and 64 streams (8 and 64 windows of 2 s), and
+   uncentred, the training set's device batch (256 chunks of 2 s) and the
+   16 kHz mixer's (32 windows of 1.5 s); K2
    on a spectrum with large imaginary DC and Nyquist parts, and K2's time
    a call at the bench shape for each number of frames a block may compute;
    K3 at the four upsamplings of a batch-16 training step and of a
@@ -95,6 +97,30 @@ from the root of a checkout. Phases, each fatal on failure:
    ``cli.train --model complex_mask --noise_type mixed`` in a subprocess;
    the mask training bench (``train.bench.run_mask_train_bench``) and its
    device profile;
+6d. the training set and the training extras: the native loader built
+   with g++ into ``_build/`` (``load_batch`` against the scipy path within
+   1e-6, ``load_clean_chunks`` through it); ``cli.create_train_dataset`` in
+   a subprocess over 132 synthetic 4 s wavs and 3 noise wavs (264 chunks:
+   file count, (257, 122) float32 finite files, K1 2 x 4 x 2 launches
+   through its FFT entry, chunks a second; the clean and reverb files within
+   1e-5 of max|CPU| of a CPU build); ``cli.train --pipeline npy`` on that
+   set with warm-up + cosine, ``--grad_accum 2``, ``--ema_decay 0.999``,
+   ``--ckpt_every 1`` and ``--profile_dir`` (``.ckpt`` export, EMA export,
+   trace), then ``--resume --epochs 2`` (epoch index 1 alone); beside it
+   ``cli.train --sample_rate 16000 --chunk_seconds 1.5`` (its sidecar); the
+   shipped ``.ckpt`` answering one clip through ``DenoiserRunner``, and
+   ``.ckpt`` -> ``cli.export_checkpoint`` -> ``.pth`` ->
+   ``cli.import_checkpoint`` -> the same bytes, ``--quantize`` an int8-v1
+   export that answers too; at full width in fp32, cuDNN deterministic, an
+   uninterrupted 2-epoch ``fit`` against 1 epoch and a resumed one (weights
+   and EMA within 1e-6 relative L2, the conv biases that feed a train-mode
+   BatchNorm printed apart), a remat step against a plain one
+   (within 1e-6, ``num_batches_tracked`` moved once) and four
+   ``--grad_accum 2`` micro-steps with cosine and an EMA card against CPU
+   (1e-4); the bf16 mask family under the same extras for an epoch and a
+   resumed one (K1, K2 and K3 counted exactly); then bf16 batch-16 steps
+   with K3: peak memory and step time with and without remat, with an EMA
+   and with ``--grad_accum 2``;
 7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded,
    with ``pallas_deconv`` (K1, K2 and K3 counted; K1 and K2 through their
    FFT entries and K3 through TMA + wgmma only) and in ``complex_mask`` mode
@@ -289,12 +315,18 @@ def phase_kernels(torch, rng):
     dev = torch.device("cuda")
     w = torch.from_numpy(hann_window(N_FFT)).to(dev)
     rows = {}
-    for label, batch, seconds in (("bench", 256, 2.0), ("ragged", 3, 3.1), ("stream", 1, 2.0),
-                                  ("pool8", 8, 2.0), ("pool64", 64, 2.0)):
-        n = int(round(seconds * SR))
+    # (label, batch, samples, centred): the uncentred ones are the training
+    # set's device batch (256 chunks of 2 s) and the mixer's at 16 kHz with
+    # 1.5 s windows (noisy and clean of a batch of 16 in one launch)
+    for label, batch, n, centred in (("bench", 256, 16000, True), ("ragged", 3, 24800, True),
+                                     ("stream", 1, 16000, True), ("pool8", 8, 16000, True),
+                                     ("pool64", 64, 16000, True),
+                                     ("trainset", 256, 16000, False),
+                                     ("mixer16k", 32, 24000, False)):
         audio = torch.from_numpy(
             (0.2 * rng.standard_normal((batch, n))).astype("float32")).to(dev)
-        x = F.pad(audio, (N_FFT // 2, N_FFT // 2)).contiguous()  # centre pad
+        pad = N_FFT // 2 if centred else 0
+        x = F.pad(audio, (pad, pad)).contiguous()
         n_frames = 1 + (x.shape[1] - N_FFT) // HOP
 
         fft_before = stft_kernel.fft_launches
@@ -1444,7 +1476,7 @@ def phase_train_fit(torch, rows, tmp):
 
     saved = os.path.join(tmp, "saved")
     os.makedirs(saved, exist_ok=True)
-    shutil.copyfile(res["best_path"], os.path.join(saved, "unet_denoiser_white.pth"))
+    shutil.copyfile(res["best_path"], os.path.join(saved, "unet_denoiser_white.ckpt"))
     runner = DenoiserRunner(load_model_for_noise("white", saved))
     clip = torch.from_numpy(chunks[-1:])
     out = runner.denoise_audio(clip).float().cpu()
@@ -1500,7 +1532,7 @@ def phase_train_cli(tmp):
     for line in tail:
         print(f"[train cli] {line}", flush=True)
     check(proc.returncode == 0, f"cli.train exited {proc.returncode}")
-    check(os.path.exists(os.path.join(export, "unet_denoiser_white.pth")),
+    check(os.path.exists(os.path.join(export, "unet_denoiser_white.ckpt")),
           "cli.train wrote no export")
     print(f"[train cli] exit 0 in {time.perf_counter() - t0:.1f} s, export written", flush=True)
 
@@ -1850,6 +1882,451 @@ def phase_mask_train(torch, rng, rows):
         if started is not None and started[1].poll() is None:  # a check failed first
             started[1].kill()
             started[1].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+TRAINSET_FILES = 132  # 4 s wavs: 264 chunks of 2 s, a full device batch of 256 and 8
+TRAINSET_TOL = 1e-5   # max |card - CPU| <= TRAINSET_TOL * max |CPU|, per noise type
+RESUME_TOL = 1e-6     # relative L2, an uninterrupted fp32 fit against a resumed one
+BN_FED = ("double_conv.0.bias", "double_conv.3.bias")  # zero gradient but rounding
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / (b.double().norm() + 1e-30))
+
+
+def extras_native(torch, tmp):
+    """Phase 6d (a): the native loader built with g++ into ``_build/``,
+    ``load_batch`` against the scipy path, and ``load_clean_chunks`` through
+    it; returns the folders of clean and noise wavs."""
+    import numpy as np
+
+    from audiodenoiser_torch.data import builders, native
+    from audiodenoiser_torch.data.wav_io import load_wav_list
+
+    clean, noise = os.path.join(tmp, "wavs", "clean"), os.path.join(tmp, "wavs", "noise")
+    _write_wav_dir(clean, TRAINSET_FILES)
+    _noise_wavs(noise)
+    t0 = time.perf_counter()
+    check(native.available(), f"the native loader did not build: {native.build_log}")
+    build_s = time.perf_counter() - t0
+    path = native.library_path()
+    check(os.path.dirname(path) == str(native.BUILD_DIR), f"native library at {path}")
+    files = load_wav_list(clean)
+    t0 = time.perf_counter()
+    ours = native.load_batch(files, SR, 2 * SR)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = builders._load_clean_chunks(files, SR, 2 * SR)
+    scipy_s = time.perf_counter() - t0
+    err = float(np.abs(ours - ref).max()) if ours.shape == ref.shape else math.inf
+    before = builders.INGEST_COUNTS["native"]
+    builders.load_clean_chunks(files, SR, 2 * SR)
+    print(f"[6d native] {os.path.relpath(path, HERE)} ready in {build_s:.2f} s; "
+          f"{len(files)} wavs -> {ours.shape} chunks in {native_s * 1e3:.1f} ms (scipy "
+          f"{scipy_s * 1e3:.1f} ms), max |native - scipy| {err:.3e}", flush=True)
+    check(ours.shape == ref.shape == (2 * TRAINSET_FILES, 2 * SR), "native chunk count")
+    check(err <= 1e-6, "the native loader disagrees with the scipy path")
+    check(builders.INGEST_COUNTS["native"] == before + 1,
+          "load_clean_chunks did not take the native path")
+    return clean, noise
+
+
+def _load_set(root):
+    import numpy as np
+
+    return {(nt, f): np.load(os.path.join(root, nt, f))
+            for nt in sorted(os.listdir(root)) for f in sorted(os.listdir(os.path.join(root, nt)))}
+
+
+def extras_dataset(torch, tmp, clean, noise, card):
+    """Phase 6d (b): ``cli.create_train_dataset`` in a subprocess on the
+    card against a CPU build of the same wavs; returns the set's folder."""
+    import numpy as np
+
+    from audiodenoiser_torch.data.builders import build_train_dataset
+
+    out = os.path.join(tmp, "train_processed")
+    started = _start_cli(
+        "create_train_dataset", ["audiodenoiser_torch.cli.create_train_dataset",
+                                 "--clean_dir", clean, "--noise_dir", noise, "--output_base", out,
+                                 "--debug_dir", os.path.join(tmp, "debug")], tmp)
+    text, wall = _finish_cli(started)
+    lines = [l for l in text.splitlines() if l.startswith("[launches] ")]
+    check(len(lines) == 1, "cli.create_train_dataset printed no [launches] line")
+    report = json.loads(lines[0][len("[launches] "):])
+    n = report["chunks"]
+    k1 = 2 * 4 * -(-n // 256)
+    print(f"[6d dataset] {n} chunks in {report['wall_s']:.2f} s of build "
+          f"({report['chunks_per_s']:.1f} chunks/s; {wall:.1f} s with the process's start), "
+          f"K1 {report['stft_kernel']} (expected fft {k1}), ingest {report['ingest']}; {card}",
+          flush=True)
+    check(n == 2 * TRAINSET_FILES, f"{n} chunks, expected {2 * TRAINSET_FILES}")
+    check(report["stft_kernel"] == {"fft": k1, "direct": 0}, "K1's launches in the build")
+    check(report["ingest"] == {"native": 1, "scipy": 0}, "the build did not ingest natively")
+    ours = _load_set(out)
+    check(len(ours) == 2 * 4 * n, f"{len(ours)} files, expected {2 * 4 * n}")
+    check(all(a.shape == (N_FFT // 2 + 1, 122) and a.dtype == np.float32
+              and np.isfinite(a).all() for a in ours.values()), "a file's shape, dtype or values")
+    t0 = time.perf_counter()
+    build_train_dataset(clean, noise, os.path.join(tmp, "train_cpu"), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    ref = _load_set(os.path.join(tmp, "train_cpu"))
+    check(sorted(ref) == sorted(ours), "the card's and the CPU's file sets differ")
+    worst = {}
+    for nt in ("white", "urban", "reverb", "noise_cancellation"):
+        for kind in ("clean", "noisy") if nt == "reverb" else ("clean",):
+            keys = [k for k in ref if k[0] == nt and k[1].startswith(kind)]
+            a, b = np.stack([ours[k] for k in keys]), np.stack([ref[k] for k in keys])
+            worst[f"{kind}_{nt}"] = float(np.abs(a - b).max() / np.abs(b).max())
+    print(f"[6d dataset] card vs CPU build ({cpu_s:.1f} s on the CPU), max|d|/max|ref|: "
+          f"{json.dumps(worst)}", flush=True)
+    check(max(worst.values()) <= TRAINSET_TOL, "the card's training set disagrees with the CPU's")
+    return out
+
+
+def extras_train_clis(torch, tmp, dataset, clean):
+    """Phase 6d (c): ``cli.train --pipeline npy`` on the set with every
+    training extra, then ``--resume``; ``cli.train --sample_rate 16000
+    --chunk_seconds 1.5`` beside it. Returns the npy run's export folder."""
+    wavs16 = os.path.dirname(clean)
+    export16 = os.path.join(tmp, "saved16k")
+    started16 = _start_cli("train cli 16k", [
+        "audiodenoiser_torch.cli.train", "--base_dataset_path", wavs16, "--pipeline",
+        "on_device", "--noise_type", "white", "--sample_rate", "16000", "--chunk_seconds", "1.5",
+        "--epochs", "1", "--steps_per_epoch", "3", "--output_path", os.path.join(tmp, "runs16k"),
+        "--export_dir", export16], tmp)
+    export, prof = os.path.join(tmp, "npy_saved"), os.path.join(tmp, "npy_profile")
+    base = ["audiodenoiser_torch.cli.train", "--base_dataset_path", dataset, "--noise_type",
+            "white", "--run_name", "npy", "--output_path", os.path.join(tmp, "npy_runs"),
+            "--export_dir", export, "--lr_schedule", "cosine", "--warmup_steps", "2",
+            "--grad_accum", "2", "--ema_decay", "0.999", "--ckpt_every", "1"]
+    first, wall1 = _finish_cli(_start_cli("train cli npy", base + [
+        "--epochs", "1", "--profile_dir", prof], tmp))
+    ckpts = os.path.join(tmp, "npy_runs", "npy", "checkpoints")
+    traces = os.listdir(prof) if os.path.isdir(prof) else []
+    print(f"[6d train npy] epoch 1 in {wall1:.1f} s; checkpoints {sorted(os.listdir(ckpts))}; "
+          f"trace {traces} ({sum(os.path.getsize(os.path.join(prof, t)) for t in traces)} "
+          f"bytes)", flush=True)
+    check(os.path.exists(os.path.join(export, "unet_denoiser_white.ckpt")),
+          "cli.train --pipeline npy shipped no unet_denoiser_white.ckpt")
+    check(os.path.exists(os.path.join(ckpts, "best_model_ema.ckpt")), "no best_model_ema.ckpt")
+    check(any(t.endswith(".json") for t in traces), "--profile_dir wrote no trace")
+    second, wall2 = _finish_cli(_start_cli("train cli npy resume", base + [
+        "--epochs", "2", "--resume"], tmp))
+    print(f"[6d train npy] resumed in {wall2:.1f} s", flush=True)
+    check("Resumed from epoch 1" in second and "Epoch 2/2" in second
+          and "Epoch 1/2" not in second, "--resume did not run epoch index 1 alone")
+    _, wall16 = _finish_cli(started16)
+    with open(os.path.join(export16, "unet_denoiser_white.json")) as f:
+        meta = json.load(f)
+    print(f"[6d train 16k] exit 0 in {wall16:.1f} s, sidecar {meta}", flush=True)
+    check(meta == {"width_mult": 1.0, "sample_rate": 16000}, "the 16 kHz run's sidecar")
+    check(os.path.exists(os.path.join(export16, "unet_denoiser_white.ckpt")), "16 kHz export")
+    return export
+
+
+def _serve_once(torch, saved, label):
+    """One clip through ``DenoiserRunner`` on ``saved``'s white model,
+    K1 and K2 counted."""
+    from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+    from audiodenoiser_torch.train.bench import synth_chunks
+
+    runner = DenoiserRunner(load_model_for_noise("white", saved))
+    clip = torch.from_numpy(synth_chunks(1, seed=21))
+    reset_launch_counts()
+    out = runner.denoise_audio(clip).float().cpu()
+    torch.cuda.synchronize()
+    print(f"[6d serve] {label}: output rms {out.square().mean().sqrt().item():.4f}, "
+          f"K1 {stft_kernel.launches} K2 {istft_kernel.launches}", flush=True)
+    check(out.shape == clip.shape and bool(torch.isfinite(out).all()), f"{label} answer")
+    check(stft_kernel.launches == 1 and istft_kernel.launches == 1, f"{label}: K1/K2 launches")
+
+
+def extras_ckpt_clis(torch, tmp, export):
+    """Phase 6d (d): the shipped .ckpt answers a request; .ckpt -> .pth ->
+    .ckpt is byte-equal; --quantize gives an int8-v1 export that serves."""
+    from audiodenoiser_torch.cli import export_checkpoint, import_checkpoint
+    from audiodenoiser_torch.train.checkpoints import INT8_FORMAT
+    from audiodenoiser_torch.train.msgpack_codec import restore
+
+    _serve_once(torch, export, "cli.train's shipped .ckpt")
+    src = os.path.join(export, "unet_denoiser_white.ckpt")
+    pth, back = os.path.join(tmp, "round.pth"), os.path.join(tmp, "round.ckpt")
+    qdir = os.path.join(tmp, "int8")
+    os.makedirs(qdir, exist_ok=True)
+    export_checkpoint.main([src, pth])
+    import_checkpoint.main([pth, back])
+    import_checkpoint.main([pth, os.path.join(qdir, "unet_denoiser_white.ckpt"), "--quantize"])
+    with open(src, "rb") as f:
+        orig = f.read()
+    with open(back, "rb") as f:
+        again = f.read()
+    with open(os.path.join(qdir, "unet_denoiser_white.ckpt"), "rb") as f:
+        q = f.read()
+    print(f"[6d ckpt cli] .ckpt {len(orig)} bytes -> .pth {os.path.getsize(pth)} -> .ckpt "
+          f"{len(again)} bytes, equal {again == orig}; int8 {len(q)} bytes", flush=True)
+    check(again == orig, ".ckpt -> .pth -> .ckpt changed the bytes")
+    check(restore(q).get("format") == INT8_FORMAT, "--quantize wrote no int8-v1 export")
+    _serve_once(torch, qdir, "the int8 import")
+
+
+def _mixer_batches(torch, mixer, batch, steps, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [mixer.sample(gen, batch) for _ in range(steps)]
+
+
+def extras_resume_fp32(torch, tmp):
+    """Phase 6d (e): full width fp32, cuDNN deterministic: ``fit`` for 2
+    epochs against 1 epoch and a resumed one (grad_accum 2 over 3 steps an
+    epoch, so an update spans the resume; warm-up + cosine; EMA 0.999)."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import UNet, random_flax_variables
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.checkpoints import restore_train_state
+    from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit
+
+    chunks = synth_chunks(16, seed=8)
+    mixer, val_mixer = OnDeviceMixer(chunks[:12], "white"), OnDeviceMixer(chunks[12:], "white")
+    data = [_mixer_batches(torch, mixer, 4, 3, 100 + e) for e in range(2)]
+    val = _mixer_batches(torch, val_mixer, 4, 1, 7)
+    variables = random_flax_variables(9)
+    root = os.path.join(tmp, "resume")
+
+    def run(name, epochs, resume=False):
+        cfg = FitConfig(run_name=name, output_path=root, epochs=epochs, batch_size=4,
+                        precision="f32", resume=resume, ema_decay=0.999, log_every=0)
+        factory = lambda: create_train_state(0, UNet(pallas_deconv=True), variables=variables,
+                                             schedule="cosine", warmup_steps=1,
+                                             total_steps=6, grad_accum=2)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                        allow_tf32=False):
+            return fit(cfg, lambda e: iter(data[e]), lambda: iter(val), state_factory=factory)
+
+    t0 = time.perf_counter()
+    run("whole", 2)
+    run("split", 1)
+    resumed = run("split", 2, resume=True)
+    wall = time.perf_counter() - t0
+    a, b = (restore_train_state(os.path.join(root, r, "checkpoints", "train_state.pt"), "cpu")
+            for r in ("whole", "split"))
+    # the weights and the EMA are held, but for the conv biases that feed a
+    # train-mode BatchNorm: their gradient is rounding alone, which cuDNN's
+    # BatchNorm backward sums in an order of its own and AdamW scales to a
+    # step; they and the statistics they shift are printed apart
+    names = list(a["ema"])
+    held = [k for k in names if not k.endswith(BN_FED)]
+    flat = lambda d, ks: torch.cat([d[k].flatten() for k in ks])
+    errs = {"weights": _rel_l2(flat(b["model"], held), flat(a["model"], held)),
+            "ema": _rel_l2(flat(b["ema"], held), flat(a["ema"], held)),
+            "bn_fed_biases": _rel_l2(flat(b["model"], [k for k in names if k not in held]),
+                                     flat(a["model"], [k for k in names if k not in held])),
+            "bn_stats": max(_rel_l2(b["model"][k], a["model"][k]) for k in a["model"]
+                            if "running" in k)}
+    check(all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"]
+              if not a["model"][k].is_floating_point()), "integer buffers differ after resume")
+    print(f"[6d resume fp32] 3 fits in {wall:.1f} s; resumed history "
+          f"{[h['epoch'] for h in resumed['history']]}; uninterrupted vs resumed rel L2 "
+          f"{json.dumps(errs)}", flush=True)
+    check([h["epoch"] for h in resumed["history"]] == [1], "the resumed history")
+    check(errs["weights"] <= RESUME_TOL and errs["ema"] <= RESUME_TOL,
+          "a resumed fit left the uninterrupted one")
+
+
+def extras_remat_fp32(torch):
+    """Phase 6d (f): one full-width fp32 step with remat against one without
+    (cuDNN deterministic): loss, gradients, running statistics."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import UNet, random_flax_variables
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    (noisy, clean), = _mixer_batches(torch, OnDeviceMixer(synth_chunks(8, seed=9), "white"),
+                                     4, 1, 3)
+    variables = random_flax_variables(10)
+    got = []
+    for remat in (False, True):
+        state = create_train_state(0, UNet(pallas_deconv=True, remat=remat),
+                                   variables=variables)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                        allow_tf32=False):
+            state, losses = train_step(state, noisy, clean)
+        got.append((float(losses.total),
+                    {n: p.grad.clone() for n, p in state.model.named_parameters()},
+                    {k: v.clone() for k, v in state.model.state_dict().items()}))
+        del state
+    (l0, g0, s0), (l1, g1, s1) = got
+    g_err = max(_rel_l2(g1[n], g0[n]) for n in g0 if not n.endswith(BN_FED))
+    s_err = max(_rel_l2(s1[k], s0[k]) for k in s0 if "running" in k)
+    counts = {int(s1[k]) - int(s0[k]) for k in s0 if k.endswith("num_batches_tracked")}
+    print(f"[6d remat fp32] loss {l1:.6f} vs {l0:.6f}; worst gradient rel L2 {g_err:.3e}; "
+          f"worst running stat {s_err:.3e}; num_batches_tracked differences {counts}",
+          flush=True)
+    check(abs(l1 - l0) <= RESUME_TOL * abs(l0), "remat changed the loss")
+    check(g_err <= RESUME_TOL and s_err <= RESUME_TOL, "remat changed a gradient or statistic")
+    check(counts == {0} and all(int(s1[k]) == 1 for k in s1 if k.endswith("tracked")),
+          "remat folded the running statistics other than once")
+
+
+def extras_accum_fp32(torch):
+    """Phase 6d (g): four full-width fp32 micro-steps under grad_accum 2
+    with warm-up + cosine and an EMA, card against CPU on the card's
+    batches."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import UNet, random_flax_variables
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    batches = _mixer_batches(torch, OnDeviceMixer(synth_chunks(8, seed=12), "white"), 2, 4, 5)
+    variables = random_flax_variables(11)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(0, UNet(pallas_deconv=True), variables=variables,
+                                   device=dev, schedule="cosine", warmup_steps=1,
+                                   total_steps=4, grad_accum=2)
+        names, params = zip(*state.model.named_parameters())
+        p0 = [p.detach().clone() for p in params]
+        ema = [p.detach().clone() for p in params]
+        losses, t0 = [], time.perf_counter()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            for i, (noisy, clean) in enumerate(batches):
+                before = [p.detach().clone() for p in params] if i % 2 == 0 else None
+                state, out = train_step(state, noisy.to(dev), clean.to(dev))
+                with torch.no_grad():
+                    torch._foreach_lerp_(ema, list(params), 0.001)
+                losses.append(float(out.total))
+                if before is not None:
+                    check(all(torch.equal(a, b) for a, b in zip(params, before)),
+                          f"a non-update micro-step moved the parameters on {dev}")
+        keep = [i for i, n in enumerate(names) if not n.endswith(BN_FED)]
+        flat = lambda ts: torch.cat([ts[i].detach().float().cpu().flatten() for i in keep])
+        got[dev] = (losses, flat(params), flat(ema), flat([p - q for p, q in zip(params, p0)]),
+                    {k: v.float().cpu() for k, v in state.model.state_dict().items()
+                     if "running" in k}, time.perf_counter() - t0)
+        check(state.optimizer.updates == 2, f"{dev}: two updates expected")
+        del state
+    (lc, pc, ec, dc, sc, tc), (lp, pp, ep, dp, sp, tp) = got["cuda"], got["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    stat_err = max(((sc[k] - sp[k]).abs() / (1.0 + sp[k].abs())).max().item() for k in sp)
+    errs = {"losses": loss_err, "params": _rel_l2(pc, pp), "ema": _rel_l2(ec, ep),
+            "bn_stats": stat_err, "displacement": _rel_l2(dc, dp)}
+    print(f"[6d accum fp32] card {tc:.1f} s, CPU {tp:.1f} s; card vs CPU "
+          f"{json.dumps(errs)} (displacement: the updates' own difference, printed)",
+          flush=True)
+    check(max(errs["losses"], errs["params"], errs["ema"], errs["bn_stats"]) <= TRAIN_TOL,
+          "grad_accum steps: the card left the CPU")
+
+
+def extras_bench(torch, card):
+    """Phase 6d (h): bf16 batch 16 with K3: peak memory and step time with
+    and without remat, with an EMA and with grad_accum 2."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    mixer = OnDeviceMixer(synth_chunks(64, seed=13), "white")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, remat, ema_on, accum in (("plain", False, False, 1), ("remat", True, False, 1),
+                                        ("ema", False, True, 1), ("grad_accum2", False, False, 2)):
+        state = create_train_state(0, UNet(dtype=torch.bfloat16, pallas_deconv=True,
+                                           remat=remat), grad_accum=accum)
+        params = list(state.model.parameters())
+        ema = [p.detach().clone() for p in params] if ema_on else None
+
+        def step():
+            nonlocal state
+            noisy, clean = mixer.sample(gen, 16)
+            state, _ = train_step(state, noisy, clean)
+            if ema is not None:
+                with torch.no_grad():
+                    torch._foreach_lerp_(ema, params, 0.001)
+
+        for _ in range(4):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        out[label] = {"step_ms": (time.perf_counter() - t0) / 20 * 1e3,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+        del state, params, ema
+        torch.cuda.empty_cache()
+    print(f"[6d bench] bf16 batch 16, K3, 20 steps after 4: {json.dumps(out)}; {card}",
+          flush=True)
+    check(out["remat"]["peak_bytes"] < out["plain"]["peak_bytes"], "remat saved no memory")
+
+
+def extras_mask(torch, tmp):
+    """Phase 6d (i): the mask family (bf16, full width, K3) under grad_accum
+    2, warm-up + cosine and an EMA, one epoch and then a resumed one: K1
+    twice a train step and once a validation step, K2 once a step, K3 four
+    times a forward, validation twice an epoch (live and EMA weights)."""
+    from audiodenoiser_torch.models import ComplexMaskUNet
+    from audiodenoiser_torch.ops.cuda import deconv_kernel, istft_kernel, stft_kernel
+    from audiodenoiser_torch.train.loop import FitConfig, fit
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
+
+    mixer = _mask_mixer(torch, 24, 14, "cuda")
+    steps, val_steps, batch = 4, 1, 8
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    factory = lambda: create_mask_train_state(
+        0, ComplexMaskUNet(dtype=torch.bfloat16, mask_bound=8.0, residual=True,
+                           zero_out_init=True, pallas_deconv=True),
+        schedule="cosine", warmup_steps=1, total_steps=2 * steps, grad_accum=2)
+    counts = (stft_kernel.launches, istft_kernel.launches, deconv_kernel.launches)
+    for epochs, resume in ((1, False), (2, True)):
+        cfg = FitConfig(run_name="mask", output_path=os.path.join(tmp, "mask_extras"),
+                        epochs=epochs, batch_size=batch, resume=resume, ema_decay=0.999,
+                        log_every=0)
+        res = fit(cfg, lambda e: (mixer.sample_audio(gen, batch) for _ in range(steps)),
+                  lambda: (mixer.sample_audio(gen, batch) for _ in range(val_steps)),
+                  state_factory=factory, steps=make_mask_steps(0.5, 30.0))
+        check(len(res["history"]) == 1 and all(math.isfinite(v) for v in
+                                               res["history"][0].values()), "mask fit")
+    torch.cuda.synchronize()
+    k1, k2, k3 = (n - c for n, c in zip((stft_kernel.launches, istft_kernel.launches,
+                                          deconv_kernel.launches), counts))
+    forwards = 2 * (steps + 2 * val_steps)
+    want = (2 * (2 * steps + 2 * val_steps), forwards, 4 * forwards)
+    print(f"[6d mask] 2 epochs (1 + resumed) of {steps} steps under grad_accum 2 + EMA: "
+          f"K1 {k1} K2 {k2} K3 {k3} (expected {want}); EMA export "
+          f"{os.path.basename(res['best_ema_path'])}", flush=True)
+    check((k1, k2, k3) == want, "the mask family's launches under the training extras")
+    check(os.path.exists(res["best_ema_path"]), "the mask fit exported no EMA model")
+
+
+def phase_train_extras(torch, rows, card):
+    """Phase 6d: the training set and the training extras."""
+    from audiodenoiser_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6d_")
+    try:
+        reset_launch_counts()
+        clean, noise = extras_native(torch, tmp)
+        dataset = extras_dataset(torch, tmp, clean, noise, card)
+        export = extras_train_clis(torch, tmp, dataset, clean)
+        extras_ckpt_clis(torch, tmp, export)
+        reset_launch_counts()
+        extras_resume_fp32(torch, tmp)
+        extras_remat_fp32(torch)
+        extras_accum_fp32(torch)
+        extras_mask(torch, tmp)
+        launches = {k.__name__: k.launches for k in KERNELS}
+        require_variants("phase 6d's in-process runs", {"stft_kernel": "fft",
+                                                        "istft_kernel": "fft"})
+        print(f"[6d launches] in-process training runs: {json.dumps(launches)}", flush=True)
+        check(all(launches[k] > 0 for k in ("stft_kernel", "istft_kernel", "deconv_kernel")),
+              "phase 6d did not run K1, K2 and K3")
+        count_off_path(rows, "phase 6d")
+        for name, n in launches.items():
+            rows[name]["launches_6d"] = n
+        extras_bench(torch, card)
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2210,6 +2687,9 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_mask_train(torch, rng, rows)
+    t0 = time.perf_counter()
+    phase_train_extras(torch, rows, card)
+    print(f"[6d] phase 6d in {time.perf_counter() - t0:.1f} s", flush=True)
     reset_launch_counts()
     bench = run_bench(batch_size=256, clip_seconds=2.0, iters=20, profile_iters=3)
     print(f"[bench] {json.dumps(bench)}", flush=True)

@@ -583,3 +583,165 @@ def test_mask_step_on_card_matches_cpu(dev):
     for name, p in ref.named_parameters():
         if not name.endswith(("double_conv.0.bias", "double_conv.3.bias")):
             assert float((grads[name].double() - p.grad).norm() / p.grad.norm()) < 1e-4, name
+
+
+def test_build_train_dataset_on_card_matches_cpu(dev, tmp_path):
+    """``build_train_dataset`` on the card (K1 uncentred, twice a batch and
+    noise type, through its FFT entry) against the CPU's plain version from
+    the same wavs: the clean magnitudes and the reverb files (no draws)
+    within 1e-5 of max |CPU|; every file set and shape equal."""
+    import os
+
+    from audiodenoiser_torch.data.builders import build_train_dataset
+    from audiodenoiser_torch.data.wav_io import write_wav
+    from audiodenoiser_torch.ops.cuda import reset_launch_counts, stft_kernel, variant_launches
+    from audiodenoiser_torch.train.bench import synth_chunks
+
+    clean, noise = tmp_path / "clean", tmp_path / "noise"
+    clean.mkdir(), noise.mkdir()
+    for i, c in enumerate(synth_chunks(10, seed=4).reshape(5, -1)):
+        write_wav(str(clean / f"c{i}.wav"), c, 8000)
+    write_wav(str(noise / "n.wav"), synth_chunks(1, seed=5)[0], 8000)
+    sets = {}
+    for d in ("cuda", "cpu"):
+        reset_launch_counts()
+        assert build_train_dataset(str(clean), str(noise), str(tmp_path / d), device=d,
+                                   device_batch=4) == 10
+        if d == "cuda":
+            assert variant_launches(stft_kernel) == {"fft": 2 * 4 * 3, "direct": 0}
+        sets[d] = {(nt, f): np.load(tmp_path / d / nt / f)
+                   for nt in sorted(os.listdir(tmp_path / d))
+                   for f in sorted(os.listdir(tmp_path / d / nt))}
+    assert sorted(sets["cuda"]) == sorted(sets["cpu"])
+    for key, ref in sets["cpu"].items():
+        ours = sets["cuda"][key]
+        assert ours.shape == ref.shape == (257, 122) and ours.dtype == np.float32
+        if key[0] == "reverb" or key[1].startswith("clean"):
+            assert np.abs(ours - ref).max() <= 1e-5 * np.abs(ref).max(), key
+
+
+def _narrow_state(d, remat=False, **opt):
+    from audiodenoiser_torch.models import UNet, random_flax_variables
+    from audiodenoiser_torch.train.loop import create_train_state
+
+    widths = dict(features=(16, 32), bottleneck=64)
+    model = UNet(**widths, pallas_deconv=True, remat=remat)
+    return create_train_state(0, model, learning_rate=1e-3, device=d,
+                              variables=random_flax_variables(5, **widths), **opt)
+
+
+def _spectra(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    noisy = torch.rand((n, 2, 1, 64, 32), generator=g)
+    return [(x, 0.8 * x) for x in noisy]
+
+
+def test_remat_step_on_card_matches_plain(dev):
+    """One fp32 step with remat against one without on the card: loss,
+    gradients and running statistics within 1e-6 relative L2,
+    ``num_batches_tracked`` 1 either way (the recompute folds no
+    statistics). cuDNN is off, so that the two runs take the same kernels:
+    with it on (deterministic) the first conv's weight gradient came out
+    1.2e-6 apart at these widths. The conv biases that feed a train-mode
+    BatchNorm have a gradient of rounding alone, which the card sums in no
+    fixed order (it came out another way with cuDNN off too): they are held
+    to be rounding, under 1e-4 of the largest gradient."""
+    from audiodenoiser_torch.train.loop import train_step
+
+    (noisy, clean), = _spectra(1, 0)
+    got = []
+    for remat in (False, True):
+        state = _narrow_state(dev, remat)
+        with torch.backends.cudnn.flags(enabled=False):
+            state, losses = train_step(state, noisy.to(dev), clean.to(dev))
+        got.append((float(losses.total), {n: p.grad.clone() for n, p in
+                                          state.model.named_parameters()},
+                    state.model.state_dict()))
+    (l0, g0, s0), (l1, g1, s1) = got
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    top = max(float(g.abs().max()) for g in g0.values())
+    for n in g0:
+        if n.endswith(("double_conv.0.bias", "double_conv.3.bias")):
+            assert max(float(g0[n].abs().max()), float(g1[n].abs().max())) <= 1e-4 * top, n
+        else:
+            assert float((g1[n] - g0[n]).norm() / (g0[n].norm() + 1e-30)) <= 1e-6, n
+    for k in s0:
+        if k.endswith("num_batches_tracked"):
+            assert int(s1[k]) == int(s0[k]) == 1, k
+        elif "running" in k:
+            assert float((s1[k] - s0[k]).norm() / (s0[k].norm() + 1e-30)) <= 1e-6, k
+
+
+def test_accumulation_on_card_matches_cpu(dev):
+    """Four fp32 micro-steps under grad_accum 2 with warm-up + cosine and an
+    EMA of 0.9, card against CPU: parameters, statistics and EMA within
+    1e-4 relative L2 (the fp32 step's standard), parameters bit-equal
+    across each non-update micro-step on both."""
+    from audiodenoiser_torch.train.loop import train_step
+
+    opt = dict(schedule="cosine", warmup_steps=1, total_steps=4, grad_accum=2)
+    got = {}
+    for d in ("cuda", "cpu"):
+        state = _narrow_state(d, **opt)
+        params = list(state.model.parameters())
+        ema = [p.detach().clone() for p in params]
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            for i, (noisy, clean) in enumerate(_spectra(4, 1)):
+                before = [p.detach().clone() for p in params]
+                state, _ = train_step(state, noisy.to(d), clean.to(d))
+                with torch.no_grad():
+                    torch._foreach_lerp_(ema, params, 0.1)
+                if i % 2 == 0:
+                    assert all(torch.equal(a, b) for a, b in zip(params, before))
+        assert state.optimizer.updates == 2
+        got[d] = ({k: v.float().cpu() for k, v in state.model.state_dict().items()},
+                  [e.cpu() for e in ema])
+    (sc, ec), (sp, ep) = got["cuda"], got["cpu"]
+    for k in sp:
+        if k.endswith(("double_conv.0.bias", "double_conv.3.bias")):
+            continue  # AdamW steps on rounding noise there (fed to train-mode BN)
+        assert float((sc[k] - sp[k]).norm() / (sp[k].norm() + 1e-30)) <= 1e-4, k
+    assert float(torch.cat([(a - b).flatten() for a, b in zip(ec, ep)]).norm()
+                 / torch.cat([b.flatten() for b in ep]).norm()) <= 1e-4
+
+
+def test_resume_on_card_matches_an_uninterrupted_fit(dev, tmp_path):
+    """``fit`` for 2 epochs against 1 epoch and a resumed one, fp32 on the
+    card with cuDNN deterministic, grad_accum 2 over 3 steps an epoch (an
+    update spans the resume) and an EMA: weights, EMA and running variances
+    within 1e-6 relative L2, the resumed history only epoch 1. Left out:
+    the conv biases that feed a train-mode BatchNorm, whose gradient is
+    rounding alone and whose AdamW step came out another way in the two
+    runs at these widths (with cuDNN on and off), and the running means
+    they shift (ROADMAP, "Not port faults")."""
+    import os
+
+    from audiodenoiser_torch.train.checkpoints import restore_train_state
+    from audiodenoiser_torch.train.loop import FitConfig, fit
+
+    data = [_spectra(3, 10 + e) for e in range(2)]
+    val = _spectra(1, 20)
+
+    def run(name, epochs, resume=False):
+        cfg = FitConfig(run_name=name, output_path=str(tmp_path), epochs=epochs,
+                        precision="f32", resume=resume, ema_decay=0.9, log_every=0)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                        allow_tf32=False):
+            return fit(cfg, lambda e: iter(data[e]), lambda: iter(val),
+                       state_factory=lambda: _narrow_state(dev, schedule="cosine",
+                                                           warmup_steps=1, total_steps=6,
+                                                           grad_accum=2))
+
+    whole = run("whole", 2)
+    run("split", 1)
+    resumed = run("split", 2, resume=True)
+    assert [h["epoch"] for h in resumed["history"]] == [1]
+    a, b = (restore_train_state(os.path.join(tmp_path, r, "checkpoints", "train_state.pt"),
+                                "cpu") for r in ("whole", "split"))
+    bn_fed = ("double_conv.0.bias", "double_conv.3.bias")
+    for key in ("model", "ema"):
+        for k, t in a[key].items():
+            if not t.is_floating_point():
+                assert torch.equal(b[key][k], t), (key, k)
+            elif not k.endswith((*bn_fed, "running_mean")):
+                assert float((b[key][k] - t).norm() / (t.norm() + 1e-30)) <= 1e-6, (key, k)

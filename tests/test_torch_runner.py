@@ -265,6 +265,15 @@ class TestImportRules:
         assert res.returncode == 0, res.stderr
         assert res.stdout.startswith("ok")
 
+    @pytest.mark.parametrize("module", [
+        "data.native", "cli.create_train_dataset", "cli.export_checkpoint",
+        "cli.import_checkpoint", "train.torch_export", "train.torch_import",
+        "utils.profiling"])
+    def test_rules_cover_the_training_path_modules(self, module):
+        """The training path's modules are among the sources both checks read."""
+        path = ROOT / "audiodenoiser_torch" / (module.replace(".", "/") + ".py")
+        assert path in _port_sources()
+
     @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
     def test_no_forbidden_import_statements(self, path):
         tree = ast.parse(path.read_text())

@@ -375,12 +375,13 @@ class TestFit:
 
         meta = json.load(open(os.path.splitext(res["best_path"])[0] + ".val.json"))
         assert meta["val_loss"] == pytest.approx(fit_res["best_val"])
-        sd = torch.load(res["best_path"], weights_only=True)
+        from audiodenoiser_torch.train.checkpoints import load_exported
+
         model = UNet(**TINY)
-        model.load_state_dict(sd, strict=True)
-        # the reference-layout export loads through the serving loader
-        monkeypatch.setattr("audiodenoiser_torch.eval.runner.UNet", lambda: UNet(**TINY))
-        os.replace(res["best_path"], tmp_path / "unet_denoiser_white.pth")
+        model.load_state_dict(state_dict_from_flax(load_exported(res["best_path"])), strict=True)
+        # the .ckpt export loads through the serving loader
+        monkeypatch.setattr("audiodenoiser_torch.eval.runner.UNet", lambda **kw: UNet(**TINY))
+        os.replace(res["best_path"], tmp_path / "unet_denoiser_white.ckpt")
         folded = load_model_for_noise("white", str(tmp_path), device="cpu")
         assert folded(torch.rand(1, 1, 32, 32)).shape == (1, 1, 32, 32)
 
@@ -441,7 +442,7 @@ class TestTrainCLI:
                     "--output_path", str(tmp_path / "runs"), "--run_name", "clirun",
                     "--epochs", "1", "--batch_size", "2", "--precision", "f32",
                     "--device", "cpu", "--export_dir", str(tmp_path / "saved_models")])
-        assert os.path.exists(tmp_path / "saved_models" / "unet_denoiser_white.pth")
+        assert os.path.exists(tmp_path / "saved_models" / "unet_denoiser_white.ckpt")
         assert os.path.exists(out["best_path"])
 
     def test_cli_on_device_pipeline(self, tmp_path, monkeypatch):
@@ -461,10 +462,10 @@ class TestTrainCLI:
                     "--precision", "f32", "--device", "cpu", "--augment",
                     "--snr_min", "0", "--snr_max", "10",
                     "--export_dir", str(tmp_path / "saved")])
-        assert os.path.exists(tmp_path / "saved" / "unet_denoiser_white.pth")
+        assert os.path.exists(tmp_path / "saved" / "unet_denoiser_white.ckpt")
         assert out["steps"] == 2
 
-    @pytest.mark.parametrize("flag", [["--resume"], ["--ema_decay", "0.999"],
+    @pytest.mark.parametrize("flag", [["--fsdp"], ["--distill_from", "x"],
                                       ["--model", "router"], ["--width_mult", "0.5"]])
     def test_unported_flags_name_their_roadmap_item(self, tmp_path, flag):
         from audiodenoiser_torch.cli.train import main
