@@ -27,6 +27,14 @@ Sessions are WOLA with one chunk (``bucket_seconds``) of latency;
 advance in one batch per hop. ``POST /admin/reload`` reloads the
 checkpoint from ``--saved_models_dir`` without dropping traffic: open
 sessions finish on their generation.
+
+``--auto_route`` also loads the four specialists ``{stem}_{nt}.ckpt`` and
+the noise router ``noise_router.ckpt`` (``cli.train --model router``) and
+serves ``mode=auto``, the default then: each coalesced batch is classified
+on the card and each predicted group runs through its specialist (folded
+unless ``--no-fold``, on the same precision path). Streams opened with no
+mode or ``?mode=auto`` are routed sessions (``RoutedStreamingSession``)
+that re-route mid-stream.
 """
 
 from __future__ import annotations
@@ -36,12 +44,9 @@ import threading
 
 # options of the JAX CLI whose machinery is not ported yet
 UNPORTED_FLAGS = {
-    "auto_route": "ROADMAP A.10 (noise router and specialists)",
     "mesh": "ROADMAP A.11 (parallelism)",
     "model_parallel": "ROADMAP A.11 (parallelism)",
 }
-# default modes of the JAX CLI that no ported model serves yet
-UNPORTED_MODES = {"auto": "ROADMAP A.10 (noise router and specialists)"}
 # the modes each model serves, its own first
 MODEL_MODES = {"unet": ("noisy_phase", "griffin_lim", "reference_gl"),
                "complex_mask": ("complex_mask",)}
@@ -60,11 +65,15 @@ def parse_args(argv=None):
     p.add_argument("--model", choices=["unet", "complex_mask"], default="unet")
     p.add_argument("--mode", default=None,
                    choices=["noisy_phase", "complex_mask", "griffin_lim", "reference_gl",
-                            *UNPORTED_MODES],
+                            "auto"],
                    help="default reconstruction mode of /denoise: noisy_phase (the "
                    "default), griffin_lim or reference_gl for --model unet, "
-                   "complex_mask for --model complex_mask; streams keep the "
-                   "model's own mode")
+                   "complex_mask for --model complex_mask, auto (the default with "
+                   "--auto_route); streams keep the model's own mode")
+    p.add_argument("--auto_route", action="store_true",
+                   help="load the four specialists and the trained noise router "
+                   "(noise_router.ckpt) and serve mode=auto: each batch is classified "
+                   "on the card and each group runs through its predicted specialist")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8800)
     p.add_argument("--sample_rate", type=int, default=8000)
@@ -102,9 +111,7 @@ def parse_args(argv=None):
     )
     p.add_argument("--device", default=None, help="default: the GPU")
     for name, item in UNPORTED_FLAGS.items():
-        kind = {"action": "store_true"} if name == "auto_route" else {}
-        p.add_argument(f"--{name}", default=argparse.SUPPRESS,
-                       help=f"not ported yet: {item}", **kind)
+        p.add_argument(f"--{name}", default=argparse.SUPPRESS, help=f"not ported yet: {item}")
     args = p.parse_args(argv)
     for name, item in UNPORTED_FLAGS.items():
         if hasattr(args, name):
@@ -120,20 +127,22 @@ def parse_args(argv=None):
         if args.stream_latency_ms is not None:
             raise SystemExit("--stream_pool supports WOLA sessions only (drop "
                              "--stream_latency_ms)")
-    served = MODEL_MODES[args.model]
-    if args.mode in UNPORTED_MODES:
-        raise SystemExit(f"--mode {args.mode} is not ported yet: {UNPORTED_MODES[args.mode]}")
+    served = MODEL_MODES[args.model] + (("auto",) if args.auto_route else ())
+    if args.mode == "auto" and not args.auto_route:
+        raise SystemExit("--mode auto requires --auto_route (the router and the specialists)")
     if args.mode not in (None, *served):
         raise SystemExit(f"--mode {args.mode} needs another model: --model {args.model} "
                          f"serves {', '.join(served)}")
-    args.mode = args.mode or served[0]
+    args.mode = args.mode or ("auto" if args.auto_route else served[0])
     return args
 
 
 def build_generation(args) -> dict:
-    """Load the checkpoint and build everything one serving generation
-    needs: the runner and the stream engine (a WOLA or low-latency
-    streamer, or a pool). At start and on each ``/admin/reload``."""
+    """Load the checkpoints and build everything one serving generation
+    needs: the runner, with ``--auto_route`` the mixture (router and
+    specialists) and one runner per expert, and the stream engine (a WOLA
+    or low-latency streamer, or a pool). At start and on each
+    ``/admin/reload``."""
     import torch
 
     from audiodenoiser_torch.eval import streaming
@@ -141,13 +150,22 @@ def build_generation(args) -> dict:
 
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
+    path = PRECISION_PATHS[args.precision_path]
     model = load_model_for_noise(args.noise_type, args.saved_models_dir, dtype=dtype,
                                  device=args.device, stem=stem, fold=args.fold)
-    runner = DenoiserRunner(model, device=args.device,
-                            precision=PRECISION_PATHS[args.precision_path])
+    runner = DenoiserRunner(model, device=args.device, precision=path)
     chunk = int(args.bucket_seconds * args.sample_rate)
     chunk -= chunk % 2  # WOLA needs an even chunk
-    gen = {"runner": runner, "streamer": None, "pooled": None}
+    gen = {"runner": runner, "streamer": None, "pooled": None, "mixture": None,
+           "router": None, "expert_runners": None}
+    if args.auto_route:
+        from audiodenoiser_torch.eval.ensemble import load_mixture
+
+        mixture = load_mixture(args.saved_models_dir, dtype=dtype, stem=stem, fold=args.fold,
+                               device=args.device, precision=path)
+        gen.update(mixture=mixture, router=(mixture.router, mixture.router_window),
+                   expert_runners=dict(enumerate(mixture.runners)))
+        print(f"Auto-routing over the {stem} specialists")
     if args.stream_latency_ms is not None:
         gen["streamer"] = streaming.LowLatencyStreamingDenoiser.from_latency_budget(
             runner, args.stream_latency_ms, sample_rate=args.sample_rate,
@@ -175,6 +193,7 @@ def build_server(args):
     gen["cur"]["gen"] = 0
     if not args.no_warmup:
         print("Warming up (building kernels, first-bucket batches)...")
+    chunk = int(args.bucket_seconds * args.sample_rate) // 2 * 2
     service = DenoiseService(
         gen["cur"]["runner"],
         sample_rate=args.sample_rate,
@@ -182,15 +201,21 @@ def build_server(args):
         max_seconds=args.max_seconds,
         default_mode=args.mode,
         warmup=not args.no_warmup,
+        router=gen["cur"]["router"],
+        expert_runners=gen["cur"]["expert_runners"],
+        auto_expert_mode="complex_mask" if args.model == "complex_mask" else "noisy_phase",
         bypass_db=args.bypass_db,
     )
 
     def stream_factory(mode):
         cur = gen["cur"]  # one snapshot: the session and its generation
         streamer = cur["streamer"]
-        if mode == "auto":
-            raise NotImplementedError(
-                f"routed streams are not ported yet: {UNPORTED_FLAGS['auto_route']}")
+        if cur["mixture"] is not None and mode in (None, "auto"):
+            from audiodenoiser_torch.eval.streaming import RoutedStreamingSession
+
+            return RoutedStreamingSession(
+                cur["mixture"], chunk_samples=chunk, sample_rate=args.sample_rate,
+                precision=PRECISION_PATHS[args.precision_path]), cur["gen"]
         if mode not in (None, streamer.mode):
             raise NotImplementedError(f"this server streams mode {streamer.mode!r} only")
         if cur["pooled"] is not None:
@@ -204,7 +229,9 @@ def build_server(args):
         # broken checkpoint directory never stops the serving one
         with reload_lock:
             new = build_generation(args)
-            new["gen"] = service.reload(runner=new["runner"], warmup=not args.no_warmup)
+            new["gen"] = service.reload(runner=new["runner"], router=new["router"],
+                                        expert_runners=new["expert_runners"],
+                                        warmup=not args.no_warmup)
             gen["cur"] = new
             print(f"Reloaded {args.saved_models_dir} (generation {new['gen']})")
             return {"generation": new["gen"], "saved_models_dir": args.saved_models_dir}

@@ -11,10 +11,14 @@
 Griffin-Lim in ``--gl_mode``; ``--model complex_mask`` evaluates the
 mask family in the waveform domain over the test wavs, ``--n_seeds``
 corruption draws each (``{nt}_metrics_multiseed.txt``). Both write the
-reference's artifact names. The flags are the JAX CLI's, plus
-``--device`` (default: the GPU); the routed mixture and the device mesh
-are not ported yet and exit naming their ROADMAP item. On the GPU, each
-noise type's K1/K2 launches are printed as one ``[launches]`` JSON line.
+reference's artifact names. ``--auto_route`` evaluates the four
+specialists behind the noise router (``eval.ensemble``): the magnitude
+family over the ``.npy`` set, the mask family over the wavs, each noise
+type's routing accuracy in ``{nt}_routed_metrics.txt``. The flags are the
+JAX CLI's, plus ``--device`` (default: the GPU); the device mesh and the
+expert-parallel dispatch (``--ep`` on four or more cards) are not ported
+yet and exit naming their ROADMAP item. On the GPU, each noise type's
+K1/K2 launches are printed as one ``[launches]`` JSON line.
 """
 
 from __future__ import annotations
@@ -23,12 +27,8 @@ import argparse
 import json
 import os
 
-# options of the JAX CLI whose machinery is not ported yet
-UNPORTED_FLAGS = {
-    "auto_route": "ROADMAP A.10 (noise router and specialists)",
-    "ep": "ROADMAP A.10 (expert-parallel routed evaluation)",
-}
 MESH_ITEM = "ROADMAP A.11 (parallelism)"
+EP_ITEM = "ROADMAP A.11 (expert-parallel routed evaluation)"
 
 
 def parse_args(argv=None):
@@ -83,15 +83,22 @@ def parse_args(argv=None):
         "relative model-change energy is below -bypass_db are emitted "
         "bit-exactly as the input. <=0 disables.",
     )
+    p.add_argument(
+        "--auto_route", action="store_true",
+        help="evaluate the four specialists behind the trained noise router "
+        "(noise_router.ckpt, cli.train --model router): each clip is routed "
+        "to its predicted specialist and the routing accuracy is reported.",
+    )
+    p.add_argument(
+        "--ep", choices=["auto", "dense", "off"], default="auto",
+        help="--auto_route expert dispatch on four or more cards (not ported "
+        "yet); off, or fewer cards, is the host-bucketed dispatch.",
+    )
     p.add_argument("--device", default=None, help="default: the GPU")
-    for name, item in UNPORTED_FLAGS.items():
-        kind = {"action": "store_true"} if name == "auto_route" else {}
-        p.add_argument(f"--{name}", default=argparse.SUPPRESS,
-                       help=f"not ported yet: {item}", **kind)
     args = p.parse_args(argv)
-    for name, item in UNPORTED_FLAGS.items():
-        if hasattr(args, name):
-            raise SystemExit(f"--{name} is not ported yet: {item}")
+    if args.auto_route and (args.mesh == "on" or args.model_parallel > 1):
+        raise SystemExit("--auto_route builds its own expert-parallel mesh and does not "
+                         "honor --mesh on/--model_parallel; drop those flags")
     if args.mesh == "on" or args.model_parallel > 1:
         raise SystemExit(f"--mesh on and --model_parallel > 1 are not ported yet: {MESH_ITEM}")
     return args
@@ -133,6 +140,40 @@ def _report_launches(noise_type: str, device) -> None:
     reset_launch_counts()
 
 
+def _auto_route(args, device, dtype):
+    """``--auto_route``: the routed mixture over the ``.npy`` set (magnitude
+    family) or the wavs (mask family), with host-bucketed dispatch."""
+    import torch
+
+    from audiodenoiser_torch.eval.ensemble import (
+        evaluate_routed,
+        evaluate_routed_waveform,
+        load_mixture,
+    )
+    from audiodenoiser_torch.ops.cuda import reset_launch_counts
+
+    many = device.type == "cuda" and torch.cuda.device_count() >= 4
+    if (args.model == "unet" and args.ep != "off" and many
+            and not (args.ep == "dense" and torch.cuda.device_count() % 4)):
+        raise SystemExit(f"--ep {args.ep} on {torch.cuda.device_count()} cards is not "
+                         f"ported yet: {EP_ITEM}; --ep off runs the host-bucketed dispatch")
+    stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
+    mixture = load_mixture(args.saved_models_dir, dtype=dtype, stem=stem, n_fft=args.n_fft,
+                           hop_length=args.hop_length, device=device)
+    reset_launch_counts()
+    if args.model == "complex_mask":
+        # mask experts take complex STFTs: the waveform domain, over the wavs
+        results = evaluate_routed_waveform(
+            mixture, args.clean_dir, args.noise_dir, args.output_dir,
+            noise_types=args.noise_types, sample_rate=args.sample_rate, seed=args.seed,
+            bypass_db=args.bypass_db)
+    else:
+        results = evaluate_routed(mixture, args.test_data_dir, args.output_dir,
+                                  noise_types=args.noise_types)
+    _report_launches("auto_route", device)
+    return results
+
+
 def main(argv=None):
     args = parse_args(argv)
     import torch
@@ -147,10 +188,12 @@ def main(argv=None):
     from audiodenoiser_torch.ops.cuda import reset_launch_counts
 
     device = resolve_device(args.device)
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if args.auto_route:
+        return _auto_route(args, device, dtype)
     print("Starting specialized test for each noise type...")
     os.makedirs(args.output_dir, exist_ok=True)
     results = {}
-    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
     loaded = None
     if args.universal:  # one mixed-corruption model for every noise type

@@ -7,6 +7,8 @@ Usage:
       --pipeline on_device --noise_type white --steps_per_epoch 500
   python -m audiodenoiser_torch.cli.train --base_dataset_path data \
       --model complex_mask --pipeline on_device --noise_type mixed --export_dir ./saved_models
+  python -m audiodenoiser_torch.cli.train --base_dataset_path data \
+      --model router --pipeline on_device --noise_type mixed --export_dir ./saved_models
 
 ``--pipeline npy`` reads prebuilt (noisy, clean) spectrogram pairs
 (``cli.create_train_dataset``); ``--pipeline on_device`` synthesizes
@@ -18,7 +20,10 @@ windows of ``--chunk_seconds``. The best model is exported as
 pairs (``train.mask``) and exports ``mask_denoiser_{noise_type}.ckpt``.
 A ``.json`` sidecar records what a loader needs to rebuild the model
 (the mask head; a rate other than 8 kHz). ``cli.serve`` and ``cli.test``
-load either. The training extras are JAX's: ``--lr_schedule`` and
+load either. ``--model router`` (``--pipeline on_device --noise_type
+mixed``) trains the noise router on the labelled mixed stream for
+``epochs x steps_per_epoch`` steps and exports ``noise_router.ckpt`` with
+a sidecar recording its training window, the router of ``--auto_route``. The training extras are JAX's: ``--lr_schedule`` and
 ``--warmup_steps``, ``--grad_accum``, ``--ema_decay`` (also exports
 ``best_model_ema.ckpt``), ``--remat``, ``--resume`` with
 ``--ckpt_every``, and ``--profile_dir`` (a ``torch.profiler`` trace).
@@ -52,7 +57,6 @@ UNPORTED = {
     "distill_features": "ROADMAP A.10 (distillation)",
 }
 _UNPORTED_SWITCHES = {"export_quantized", "attn_bottleneck", "s2d_stem", "fsdp"}
-UNPORTED_MODELS = {"router": "ROADMAP A.10 (router)"}
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
 
 
@@ -74,8 +78,9 @@ def parse_args(argv=None):
                    help="'all' trains the four specialists in turn; 'mixed' one "
                    "universal model (needs --pipeline on_device)")
     p.add_argument("--pipeline", choices=["npy", "on_device"], default="npy")
-    p.add_argument("--model", choices=["unet", "complex_mask", *UNPORTED_MODELS],
-                   default="unet")
+    p.add_argument("--model", choices=["unet", "complex_mask", "router"], default="unet",
+                   help="router: the noise-type classifier of the self-routing "
+                   "deployment (needs --pipeline on_device --noise_type mixed)")
     p.add_argument("--precision", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps_per_epoch", type=int, default=None,
@@ -152,12 +157,12 @@ def _check_ported(args) -> None:
     for name, item in UNPORTED.items():
         if hasattr(args, name):
             raise SystemExit(f"--{name} is not ported yet: {item}")
-    if args.model in UNPORTED_MODELS:
-        raise SystemExit(f"--model {args.model} is not ported yet: "
-                         f"{UNPORTED_MODELS[args.model]}")
     if args.model == "complex_mask" and args.pipeline != "on_device":
         raise SystemExit("--model complex_mask requires --pipeline on_device "
                          "(it trains on waveform pairs)")
+    if args.model == "router" and (args.pipeline != "on_device" or args.noise_type != "mixed"):
+        raise SystemExit("--model router requires --pipeline on_device --noise_type mixed "
+                         "(labels come from the per-example corruption draw)")
     if args.noise_type == "mixed" and args.pipeline != "on_device":
         raise SystemExit("--noise_type mixed requires --pipeline on_device")
     if args.augment and args.pipeline != "on_device":
@@ -190,9 +195,8 @@ def _npy_batches(args):
     return train_batches, val_batches, max(1, -(-len(tr_idx) // args.batch_size))
 
 
-def _on_device_batches(args, device):
-    import torch
-
+def _mixers(args, device):
+    """The training and validation mixers of the on-device pipeline."""
     from audiodenoiser_torch.data.builders import load_clean_chunks
     from audiodenoiser_torch.data.dataset import split_train_val
     from audiodenoiser_torch.data.pipeline import NoiseBank, OnDeviceMixer
@@ -227,6 +231,13 @@ def _on_device_batches(args, device):
     # validation stays at the reference's fixed SNR, un-augmented
     val_mixer = OnDeviceMixer(chunks[va_idx], args.noise_type, noise_bank=bank,
                               sample_rate=sr, device=device)
+    return mixer, val_mixer
+
+
+def _on_device_batches(args, device):
+    import torch
+
+    mixer, val_mixer = _mixers(args, device)
     n_steps = args.steps_per_epoch or max(1, len(mixer) // args.batch_size)
     val_steps = max(1, n_steps // 10)
     print(f"On-device pipeline: {len(mixer)} clean chunks, {n_steps} steps/epoch, "
@@ -266,6 +277,8 @@ def main(argv=None):
     from audiodenoiser_torch.utils.profiling import maybe_trace
 
     device = resolve_device(args.device)
+    if args.model == "router":
+        return _train_router(args, device)
     cfg = FitConfig(run_name=args.run_name, output_path=args.output_path,
                     epochs=args.epochs, batch_size=args.batch_size,
                     learning_rate=args.learning_rate, seed=args.seed,
@@ -324,6 +337,45 @@ def main(argv=None):
             shutil.copyfile(result["best_path"], dst)
             print(f"Exported best model to {dst}")
     return result
+
+
+def _train_router(args, device):
+    """``--model router``: ``fit_router`` on the labelled mixed stream for
+    ``epochs x steps_per_epoch`` steps, then the Flax-layout export
+    ``checkpoints/noise_router.ckpt`` (and with ``--export_dir`` the same
+    there), each with a sidecar recording the training window."""
+    import torch
+
+    from audiodenoiser_torch.models.convert import router_flax_from_state_dict
+    from audiodenoiser_torch.models.router import NoiseClassifier
+    from audiodenoiser_torch.train.checkpoints import export_model
+    from audiodenoiser_torch.train.router import fit_router
+    from audiodenoiser_torch.utils.profiling import maybe_trace
+
+    mixer, _ = _mixers(args, device)
+    steps = args.epochs * (args.steps_per_epoch or max(1, len(mixer) // args.batch_size))
+    print(f"On-device pipeline: {len(mixer)} clean chunks, {steps} router steps.")
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    with maybe_trace(args.profile_dir):
+        state, acc = fit_router(mixer, steps=steps, batch_size=args.batch_size,
+                                learning_rate=args.learning_rate, seed=args.seed,
+                                model=NoiseClassifier(dtype=dtype))
+    print(f"Router held-out accuracy: {acc:.3f}")
+    params = router_flax_from_state_dict(state.model.state_dict())
+
+    def export_router(path):
+        export_model(path, params, {})
+        # the training crop, so that windowed scoring matches it (load_mixture)
+        with open(os.path.splitext(path)[0] + ".json", "w") as f:
+            json.dump({"window": list(mixer.target_size)}, f)
+
+    best = os.path.join(args.output_path, args.run_name, "checkpoints", "noise_router.ckpt")
+    export_router(best)
+    if args.export_dir:
+        dst = os.path.join(args.export_dir, "noise_router.ckpt")
+        export_router(dst)
+        print(f"Exported router to {dst}")
+    return {"best_path": best, "router_accuracy": acc}
 
 
 def _mask_family(args, device, cfg):

@@ -12,14 +12,14 @@ float32, after the reference loader's float16 round trip.
 
 ``sample_audio`` returns the raw (noisy, clean) (B, chunk) waveforms of
 the same draws instead, with no STFT: the complex-mask family's stream.
+``sample_labeled`` (``noise_type="mixed"`` only) adds each example's
+corruption index, the draw's ``choice``: the noise router's stream.
 
 Randomness is split from the arithmetic: ``draw(generator, batch)``
 makes every random tensor a batch needs, ``sample_from(draws)`` and
 ``sample_audio_from(draws)`` are deterministic given them, and ``sample``
 and ``sample_audio`` are draw and arithmetic together. A test can so give
 the port the JAX package's own draws.
-
-Not ported yet (ROADMAP A.10): ``sample_labeled`` (the router stream).
 """
 
 from __future__ import annotations
@@ -206,6 +206,24 @@ class OnDeviceMixer:
     def sample(self, generator: torch.Generator, batch_size: int):
         """(noisy, clean) (B, 1, 256, 64) float32 batches."""
         return self.sample_from(self.draw(generator, batch_size))
+
+    def sample_labeled_from(self, draws: Draws):
+        """(noisy, clean, label) from ``draws``: the (B, 1, F, T) features
+        of ``sample_from`` (one K1 launch for both) and the (B,) corruption
+        index (0 white, 1 urban, 2 reverb, 3 noise_cancellation)."""
+        self._require_mixed()
+        noisy, clean = self.sample_from(draws)
+        return noisy, clean, draws["choice"].to(self.device)
+
+    def sample_labeled(self, generator: torch.Generator, batch_size: int):
+        """(noisy, clean, label) mixed-corruption batches, the training
+        stream of the noise router (``train.router``)."""
+        self._require_mixed()
+        return self.sample_labeled_from(self.draw(generator, batch_size))
+
+    def _require_mixed(self) -> None:
+        if self.noise_type != "mixed":
+            raise ValueError("sample_labeled requires noise_type='mixed'")
 
     def sample_audio(self, generator: torch.Generator, batch_size: int):
         """(noisy, clean) (B, chunk) float32 waveform batches, the input of

@@ -27,8 +27,12 @@ The session state stays on the runner's device between calls. A session
 runs its windows one at a time, at batch 1, where JAX scans a packet's
 windows in power-of-two dispatches to bound its recompiles: the results
 are those of JAX's scan, and in bf16 they do not change with the packet
-sizes (cuDNN picks kernels by batch size, ROADMAP C.1). The noise-routed
-session needs the router (ROADMAP A.10).
+sizes (cuDNN picks kernels by batch size, ROADMAP C.1).
+
+- ``RoutedStreamingSession``: the noise router (``eval.ensemble``) picks
+  the specialist on the stream's first chunk and re-routes every
+  ``reclassify_every`` chunks; on a switch the WOLA state moves whole to
+  the new specialist's session, so the next window crossfades the two.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from audiodenoiser_torch.dsp.window import hann_window
+from audiodenoiser_torch.models.router import NOISE_CLASSES
 
 
 def _empty() -> np.ndarray:
@@ -183,6 +188,114 @@ class StreamingSession:
         self._flushed = True
         pad = self.p.flush_padding(len(self._staging))
         return self._advance(np.zeros(pad, np.float32))
+
+
+class RoutedStreamingSession:
+    """Self-routing real-time denoising over a ``MixtureOfDenoisers``.
+
+    The router classifies the stream's first full chunk and the chunk goes
+    to that specialist's WOLA session: one chunk of router listening on top
+    of the session's own chunk of latency. Every ``reclassify_every``
+    chunks of input (None: never) the router scores the latest chunk
+    again; when the label changes, the old session's WOLA state (the
+    previous hop and the overlap-add carry, device tensors, the staging,
+    the lead-in left to drop and the sample counts) moves whole to the new
+    specialist's session, whose next window crossfades out of the old
+    expert's tail. ``chosen`` names the current specialist, ``switches``
+    counts the changes. Either family: magnitude experts stream in
+    ``noisy_phase``, mask experts in ``complex_mask``.
+    """
+
+    def __init__(self, mixture, chunk_samples: int = 16000, sample_rate: int = 8000,
+                 precision: str = "kernel", reclassify_every: Optional[int] = 4):
+        self.mixture = mixture
+        self.chunk = chunk_samples
+        self.sample_rate = sample_rate
+        self.precision = precision
+        self.reclassify_every = reclassify_every
+        self._buffer = _empty()
+        self._inner: Optional[StreamingSession] = None
+        self.chosen: Optional[str] = None
+        self.switches = 0
+        self._label: Optional[int] = None
+        self._recent = _empty()  # the latest <= chunk input samples
+        self._since_check = 0  # input samples since the last routing check
+
+    def _streamer_for(self, label: int) -> StreamingDenoiser:
+        """One ``StreamingDenoiser`` per (label, chunk, rate, precision,
+        mode), cached on the mixture for every later stream."""
+        from audiodenoiser_torch.eval.runner import DenoiserRunner
+
+        cache = getattr(self.mixture, "_stream_cache", None)
+        if cache is None:
+            cache = self.mixture._stream_cache = {}
+        mode = "complex_mask" if self.mixture.family == "mask" else "noisy_phase"
+        key = (label, self.chunk, self.sample_rate, self.precision, mode)
+        if key not in cache:
+            runner = DenoiserRunner(self.mixture.expert_models[label], self.mixture.n_fft,
+                                    self.mixture.hop, device=self.mixture.device,
+                                    precision=self.precision)
+            cache[key] = StreamingDenoiser(runner, self.chunk, self.sample_rate)
+        return cache[key]
+
+    @property
+    def latency_samples(self) -> int:
+        # one chunk of router listening + the WOLA chunk
+        return 2 * self.chunk
+
+    def _classify_chunk(self, chunk: np.ndarray) -> int:
+        return int(self.mixture.classify_waveform(torch.from_numpy(chunk)[None])[0])
+
+    def _maybe_reclassify(self, samples: np.ndarray) -> None:
+        if self.reclassify_every is None or self._inner is None:
+            return
+        self._recent = np.concatenate([self._recent, samples])[-self.chunk:]
+        self._since_check += len(samples)
+        if (self._since_check < self.reclassify_every * self.chunk
+                or len(self._recent) < self.chunk):
+            return
+        self._since_check = 0
+        label = self._classify_chunk(self._recent)
+        if label == self._label:
+            return
+        old, new = self._inner, self._streamer_for(label).session()
+        for name in ("_state", "_staging", "_drop", "_fed", "_emitted"):
+            setattr(new, name, getattr(old, name))
+        self._inner, self._label = new, label
+        self.chosen = NOISE_CLASSES[label]
+        self.switches += 1
+
+    def _route(self, chunk_for_classify: np.ndarray, buffered: np.ndarray) -> np.ndarray:
+        """Classify, open the chosen specialist's session and hand it the
+        buffered samples (for ``process`` and a short stream's ``flush``)."""
+        label = self._classify_chunk(chunk_for_classify)
+        self._label = label
+        self.chosen = NOISE_CLASSES[label]
+        self._inner = self._streamer_for(label).session()
+        self._recent = buffered[-self.chunk:]
+        self._buffer = _empty()
+        return self._inner.process(buffered)
+
+    def process(self, samples) -> np.ndarray:
+        samples = np.asarray(samples, np.float32).ravel()
+        if self._inner is not None:
+            self._maybe_reclassify(samples)
+            return self._inner.process(samples)
+        self._buffer = np.concatenate([self._buffer, samples])
+        if len(self._buffer) < self.chunk:
+            return _empty()
+        return self._route(self._buffer[: self.chunk], self._buffer)
+
+    def flush(self) -> np.ndarray:
+        if self._inner is None and len(self._buffer):
+            # a short stream: route on the zero-padded buffer, feed only the
+            # real samples, so that as many samples come out as went in
+            padded = np.concatenate([self._buffer, np.zeros(self.chunk, np.float32)])
+            head = self._route(padded[: self.chunk], self._buffer)
+            return np.concatenate([head, self._inner.flush()])
+        if self._inner is None:
+            return _empty()
+        return self._inner.flush()
 
 
 class LowLatencyStreamingDenoiser:

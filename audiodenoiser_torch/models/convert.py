@@ -179,3 +179,58 @@ def random_flax_variables(seed: int = 0,
         cin = f
     params["out"] = conv(1, cin, out_channels)
     return {"params": params, "batch_stats": stats}
+
+
+# the noise router (models/router.py): conv{i}/{kernel,bias} ->
+# convs.{i}.{weight,bias}, gn{i}/{scale,bias} -> gns.{i}.{weight,bias},
+# head/{kernel,bias} -> head.{weight,bias} with the Dense kernel transposed
+
+
+def router_state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The ``params`` tree of a Flax ``NoiseClassifier`` (numpy arrays) ->
+    a state_dict that the port's ``NoiseClassifier`` of the same widths
+    loads with ``strict=True``."""
+    out: dict = {}
+    for i in range(sum(1 for k in params if k.startswith("conv"))):
+        _conv(params[f"conv{i}"], out, f"convs.{i}")
+        out[f"gns.{i}.weight"] = _t(params[f"gn{i}"]["scale"])
+        out[f"gns.{i}.bias"] = _t(params[f"gn{i}"]["bias"])
+    out["head.weight"] = _t(np.asarray(params["head"]["kernel"]).T)
+    out["head.bias"] = _t(params["head"]["bias"])
+    return out
+
+
+def router_flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's ``NoiseClassifier`` state_dict (any device) -> the Flax
+    ``params`` tree of float32 numpy arrays, the inverse of
+    ``router_state_dict_from_flax``."""
+    params: dict = {}
+    for i in range(sum(1 for k in state_dict if k.startswith("convs.") and k.endswith(".weight"))):
+        params[f"conv{i}"] = _conv_inv(state_dict, f"convs.{i}")
+        params[f"gn{i}"] = {"scale": _np(state_dict[f"gns.{i}.weight"]).copy(),
+                            "bias": _np(state_dict[f"gns.{i}.bias"]).copy()}
+    params["head"] = {"kernel": np.ascontiguousarray(_np(state_dict["head.weight"]).T),
+                      "bias": _np(state_dict["head.bias"]).copy()}
+    return params
+
+
+def random_router_flax_variables(seed: int = 0, widths: Sequence[int] = (16, 32, 64, 128),
+                                 num_classes: int = 4) -> dict:
+    """Seeded random ``{"params": ...}`` of a Flax ``NoiseClassifier``:
+    He-scaled HWIO kernels, non-trivial GroupNorm scales and biases, a
+    LeCun-scaled head."""
+    rng = np.random.default_rng(seed)
+
+    def f32(std, shape):
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
+    params, cin = {}, 1
+    for i, w in enumerate(widths):
+        params[f"conv{i}"] = {"kernel": f32(np.sqrt(2.0 / (9 * cin)), (3, 3, cin, w)),
+                              "bias": f32(0.1, w)}
+        params[f"gn{i}"] = {"scale": (1.0 + f32(0.2, w)).astype(np.float32),
+                            "bias": f32(0.3, w)}
+        cin = w
+    params["head"] = {"kernel": f32(np.sqrt(1.0 / cin), (cin, num_classes)),
+                      "bias": f32(0.1, num_classes)}
+    return {"params": params}

@@ -13,13 +13,16 @@
   text with a latency histogram) and ``POST /denoise`` with WAV bytes in
   and out (``X-Latency-Ms`` header, ``?mode=``: the Griffin-Lim modes
   draw their initial phase from one constant seed, as the JAX service's
-  constant key does); with a ``stream_factory``
+  constant key does; ``mode=auto`` when the service has a noise router
+  and expert runners: the coalesced batch is classified on the device and
+  each predicted group runs through its specialist); with a ``stream_factory``
   also the chunked streaming API, ``POST /stream/start``,
   ``POST /stream/{id}`` and ``POST /stream/{id}/flush``; with a
   ``reload_fn`` also ``POST /admin/reload``, a hot swap of the model.
-- ``DenoiseService.reload``: the next batch runs on the new runner; the
-  batch on the device finishes on the old one. ``generation`` counts the
-  swaps (``adt_model_generation``, ``/healthz``'s ``model_generation``).
+- ``DenoiseService.reload``: the next batch runs on the new runner (and
+  router and experts); the batch on the device finishes on the old ones.
+  ``generation`` counts the swaps (``adt_model_generation``,
+  ``/healthz``'s ``model_generation``).
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+import audiodenoiser_torch.dsp.stft as stft_lib
 from audiodenoiser_torch.data.wav_io import read_wav, write_wav
 from audiodenoiser_torch.device import device_name
+from audiodenoiser_torch.eval.ensemble import windowed_logits
 from audiodenoiser_torch.eval.streaming import ResampledStreamingSession
 
 
@@ -78,6 +83,9 @@ class DenoiseService:
         max_batch: int = 8,
         max_queue: int = 128,
         warmup: bool = False,
+        router=None,  # (NoiseClassifier, training window) for mode='auto'
+        expert_runners=None,  # {label index: DenoiserRunner} for mode='auto'
+        auto_expert_mode: str = "noisy_phase",  # the specialists' mode
         bypass_db=None,  # identity-bypass gate threshold (dB); None/<=0 off
     ):
         self.runner = runner
@@ -101,6 +109,14 @@ class DenoiseService:
         self._lat_sum_ms = 0.0
         self._lat_n = 0
         self._metrics_lock = threading.Lock()
+        self.auto_expert_mode = auto_expert_mode
+        # (classify, expert runners), swapped as one by reload()
+        self._auto = None
+        if router is not None and expert_runners is not None:
+            self._auto = (self._build_classifier(router, runner), expert_runners)
+        if default_mode == "auto" and self._auto is None:
+            raise ValueError("default_mode='auto' requires router and expert_runners "
+                             "(cli.serve --auto_route)")
         if warmup:
             self._warmup()
         self._queue: queue.Queue = queue.Queue(maxsize=max_queue)
@@ -109,31 +125,61 @@ class DenoiseService:
         )
         self._worker.start()
 
-    def _warmup(self, runner=None):
-        """Run the first bucket at batch 1 and ``max_batch`` before serving,
-        so the first requests do not pay the kernel build and cuDNN set-up."""
+    @property
+    def expert_runners(self):
+        return None if self._auto is None else self._auto[1]
+
+    @staticmethod
+    def _build_classifier(router, runner):
+        """(B, samples) audio -> (B,) numpy labels: the centred STFT on the
+        runner's path (K1 on the card), its magnitude, the router's
+        windowed vote (``eval.ensemble.windowed_logits``) and the argmax."""
+        model, window = router
+        model = model.to(runner.device).eval()
+
+        @torch.inference_mode()
+        def classify(audio):
+            a = torch.as_tensor(audio, dtype=torch.float32).to(runner.device)
+            mag = stft_lib.stft(a, runner.n_fft, runner.hop, center=True,
+                                precision=runner.precision).abs()
+            return windowed_logits(model, mag[:, None], window).argmax(-1).cpu().numpy()
+
+        return classify
+
+    def _warmup(self, runner=None, auto=None):
+        """Run the first bucket at batch 1 and ``max_batch`` before serving
+        (through the router and every expert in ``mode=auto``), so the first
+        requests do not pay the kernel build and cuDNN set-up."""
         runner = self.runner if runner is None else runner
+        auto = self._auto if auto is None else auto
         for b in {1, self.max_batch}:
             z = torch.zeros((b, self.bucket), dtype=torch.float32)
-            runner.denoise_audio(z, mode=self.default_mode, bypass_db=self.bypass_db)
+            if self.default_mode != "auto":
+                runner.denoise_audio(z, mode=self.default_mode, bypass_db=self.bypass_db)
+                continue
+            auto[0](z)
+            for expert in auto[1].values():
+                expert.denoise_audio(z, mode=self.auto_expert_mode, bypass_db=self.bypass_db)
 
     def reload(self, runner=None, warmup: bool = False, expert_runners=None,
                router=None) -> int:
         """Swap in a new model generation without dropping traffic.
 
-        The new runner is warmed up first (``warmup``), then swapped in:
-        the batch on the device finishes on the old runner, every later
-        batch runs on the new one. Returns the new generation. The routed
-        deployment's ``expert_runners`` and ``router`` are not ported
-        (ROADMAP A.10)."""
-        if expert_runners is not None or router is not None:
-            raise NotImplementedError(
-                "reloading a routed deployment is not ported yet: ROADMAP A.10 "
-                "(noise router and specialists)")
+        The new runner, router and experts (each None keeps the current
+        one) are warmed up first (``warmup``), then swapped in: the batch
+        on the device finishes on the old ones, every later batch runs on
+        the new. Returns the new generation."""
         runner = self.runner if runner is None else runner
+        auto = self._auto
+        if router is not None or expert_runners is not None:
+            if auto is None and (router is None or expert_runners is None):
+                raise ValueError("a first routed generation needs both router and "
+                                 "expert_runners")
+            classify = auto[0] if router is None else self._build_classifier(router, runner)
+            auto = (classify, auto[1] if expert_runners is None else expert_runners)
         if warmup:
-            self._warmup(runner)
-        self.runner = runner
+            self._warmup(runner, auto)
+        self.runner, self._auto = runner, auto
         with self._metrics_lock:
             self.generation += 1
             return self.generation
@@ -172,18 +218,21 @@ class DenoiseService:
 
     def _run_batch(self, batch):
         first = batch[0]
-        runner = self.runner  # one generation for the whole batch
+        runner, auto = self.runner, self._auto  # one generation for the whole batch
         try:
             b_pad = _pow2_batch(len(batch), self.max_batch)
             stacked = np.zeros((b_pad, first.bucket), np.float32)
             for i, r in enumerate(batch):
                 stacked[i, : r.n] = r.audio[: r.n]
-            out = runner.denoise_audio(
-                torch.from_numpy(stacked), mode=first.mode,
-                bypass_db=self.bypass_db,
-            ).float().cpu().numpy()
-            for i, r in enumerate(batch):
-                r.result = out[i, : r.n]
+            if first.mode == "auto":
+                self._dispatch_auto(batch, stacked, auto)
+            else:
+                out = runner.denoise_audio(
+                    torch.from_numpy(stacked), mode=first.mode,
+                    bypass_db=self.bypass_db,
+                ).float().cpu().numpy()
+                for i, r in enumerate(batch):
+                    r.result = out[i, : r.n]
             self.batches_run += 1
             self.requests_served += len(batch)
         except Exception as e:  # propagate to every waiter
@@ -193,9 +242,29 @@ class DenoiseService:
             for r in batch:
                 r.done.set()
 
+    def _dispatch_auto(self, batch, stacked, auto):
+        """Router-dispatched batch: classify the power-of-two padded rows in
+        one call (the padded rows' labels are discarded), then run each
+        predicted group, padded to a power of two, through its specialist."""
+        classify, experts = auto
+        labels = classify(torch.from_numpy(stacked))
+        for lab in sorted(set(labels[: len(batch)].tolist())):
+            idx = [i for i in range(len(batch)) if labels[i] == lab]
+            sub = np.zeros((_pow2_batch(len(idx), self.max_batch), stacked.shape[1]),
+                           np.float32)
+            sub[: len(idx)] = stacked[idx]
+            out = experts[int(lab)].denoise_audio(
+                torch.from_numpy(sub), mode=self.auto_expert_mode,
+                bypass_db=self.bypass_db).float().cpu().numpy()
+            for j, i in enumerate(idx):
+                batch[i].result = out[j, : batch[i].n]
+
     def denoise(self, audio: np.ndarray, mode: str | None = None) -> np.ndarray:
         """Denoise one mono clip (float32 [-1,1]); thread-safe, batched."""
         mode = mode or self.default_mode
+        if mode == "auto" and self._auto is None:
+            raise ValueError("mode='auto' requires the service to be built with a router "
+                             "and expert runners (cli.serve --auto_route)")
         n = len(audio)
         if n == 0:
             raise ValueError("empty audio")

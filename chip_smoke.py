@@ -121,6 +121,25 @@ from the root of a checkout. Phases, each fatal on failure:
    resumed one (K1, K2 and K3 counted exactly); then bf16 batch-16 steps
    with K3: peak memory and step time with and without remat, with an EMA
    and with ``--grad_accum 2``;
+6e. the self-routing deployment at full width, over phase 4c's test set
+   and phase 6d's wavs: four seeded 31,042,369-parameter magnitude and
+   four 31,043,586-parameter residual mask specialists written with
+   ``export_model``; ``cli.train --model router --pipeline on_device
+   --noise_type mixed`` in a subprocess (300 steps of 64; the export, its
+   window sidecar, 98,148 parameters, held-out accuracy above 0.5);
+   ``cli.serve --auto_route``: 8 ``/denoise?mode=auto`` requests corrupted
+   the four ways, seven coalesced behind the first, each against its
+   predicted expert's runner on the padded group the service formed, K1
+   launched once a classify call and once a group, K2 once a group (FFT
+   entries only, K4 0), a ``?mode=auto`` stream of 6 s against a direct
+   ``RoutedStreamingSession``, ``/admin/reload`` to generation 1 answering
+   the next request; in fp32, card against CPU, the router's logits on 8
+   clips, a routed ``denoise_waveform`` and a stream re-routed every 1 s
+   chunk whose corruption turns from white noise to reverb (the same
+   switches); ``cli.test --auto_route`` for both families (routed metrics
+   files, finite, routing accuracy printed); the router's forward at 256
+   windows and a routed batch of 256 mixed-corruption 2 s clips against
+   one expert on the whole batch, on one JSON line with the card;
 7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded,
    with ``pallas_deconv`` (K1, K2 and K3 counted; K1 and K2 through their
    FFT entries and K3 through TMA + wgmma only) and in ``complex_mask`` mode
@@ -2300,34 +2319,32 @@ def extras_mask(torch, tmp):
     check(os.path.exists(res["best_ema_path"]), "the mask fit exported no EMA model")
 
 
-def phase_train_extras(torch, rows, card):
-    """Phase 6d: the training set and the training extras."""
+def phase_train_extras(torch, rows, card, tmp):
+    """Phase 6d: the training set and the training extras; its wavs stay
+    in ``tmp`` for phase 6e."""
     from audiodenoiser_torch.ops.cuda import KERNELS, reset_launch_counts
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_6d_")
-    try:
-        reset_launch_counts()
-        clean, noise = extras_native(torch, tmp)
-        dataset = extras_dataset(torch, tmp, clean, noise, card)
-        export = extras_train_clis(torch, tmp, dataset, clean)
-        extras_ckpt_clis(torch, tmp, export)
-        reset_launch_counts()
-        extras_resume_fp32(torch, tmp)
-        extras_remat_fp32(torch)
-        extras_accum_fp32(torch)
-        extras_mask(torch, tmp)
-        launches = {k.__name__: k.launches for k in KERNELS}
-        require_variants("phase 6d's in-process runs", {"stft_kernel": "fft",
-                                                        "istft_kernel": "fft"})
-        print(f"[6d launches] in-process training runs: {json.dumps(launches)}", flush=True)
-        check(all(launches[k] > 0 for k in ("stft_kernel", "istft_kernel", "deconv_kernel")),
-              "phase 6d did not run K1, K2 and K3")
-        count_off_path(rows, "phase 6d")
-        for name, n in launches.items():
-            rows[name]["launches_6d"] = n
-        extras_bench(torch, card)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    reset_launch_counts()
+    clean, noise = extras_native(torch, tmp)
+    dataset = extras_dataset(torch, tmp, clean, noise, card)
+    export = extras_train_clis(torch, tmp, dataset, clean)
+    extras_ckpt_clis(torch, tmp, export)
+    reset_launch_counts()
+    extras_resume_fp32(torch, tmp)
+    extras_remat_fp32(torch)
+    extras_accum_fp32(torch)
+    extras_mask(torch, tmp)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    require_variants("phase 6d's in-process runs", {"stft_kernel": "fft",
+                                                    "istft_kernel": "fft"})
+    print(f"[6d launches] in-process training runs: {json.dumps(launches)}", flush=True)
+    check(all(launches[k] > 0 for k in ("stft_kernel", "istft_kernel", "deconv_kernel")),
+          "phase 6d did not run K1, K2 and K3")
+    count_off_path(rows, "phase 6d")
+    for name, n in launches.items():
+        rows[name]["launches_6d"] = n
+    extras_bench(torch, card)
 
 
 GL_ITERS = 50
@@ -2623,18 +2640,369 @@ def eval_http(torch, rng, saved):
         server.server_close()
 
 
-def phase_eval(torch, rng, mask_variables, card):
-    """Phase 4c: the evaluation path on the card."""
+def phase_eval(torch, rng, mask_variables, card, tmp):
+    """Phase 4c: the evaluation path on the card; its test set and wavs
+    stay in ``tmp`` for phase 6e."""
     eval_istft_edges(torch, rng)
     eval_griffin_lim(torch, card)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    saved = eval_cli(tmp, mask_variables, card)
+    eval_http(torch, rng, saved)
+    print(f"[eval] phase 4c's files, CLIs and requests in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+ROUTER_PARAMS = 98_148
+ROUTER_STEPS, ROUTER_BATCH = 300, 64
+ROUTED_CLIPS = 256  # the routed bench's batch of mixed-corruption 2 s clips
+
+
+def _routed_exports(saved):
+    """Four seeded full-width specialists of each family, as ``cli.serve
+    --auto_route`` and ``cli.test --auto_route`` read them; the mask ones
+    with ``cli.train``'s per-type bounds (8 for noise_cancellation)."""
+    from audiodenoiser_torch.models import NOISE_CLASSES, random_flax_variables
+    from audiodenoiser_torch.train.checkpoints import export_model
+
+    os.makedirs(saved)
+    counts = set()
+    for i, nt in enumerate(NOISE_CLASSES):
+        for stem, chans in (("unet_denoiser", {}),
+                            ("mask_denoiser", dict(in_channels=3, out_channels=2))):
+            v = random_flax_variables(i, **chans)
+            counts.add((stem, sum(a.size for a in _leaves(v["params"]).values())))
+            path = os.path.join(saved, f"{stem}_{nt}.ckpt")
+            export_model(path, v["params"], v["batch_stats"])
+            if stem == "mask_denoiser":
+                with open(os.path.splitext(path)[0] + ".json", "w") as f:
+                    json.dump({"width_mult": 1.0, "residual": True,
+                               "mask_bound": 8.0 if nt == "noise_cancellation" else 2.0}, f)
+    check(counts == {("unet_denoiser", PARAMS_FULL), ("mask_denoiser", PARAMS_MASK)},
+          f"specialists' parameter counts {counts}")
+
+
+def _routed_clips(torch, n_each, seconds, seed, device="cpu"):
+    """``4 * n_each`` speech-like clips, ``n_each`` corrupted each way
+    (white and urban at 8 dB, reverb, noise cancellation on every block),
+    in ``NOISE_CLASSES`` order, and their true labels."""
+    import numpy as np
+
+    from audiodenoiser_torch.dsp import noise as noise_lib
+    from audiodenoiser_torch.train.bench import synth_chunks, synth_noise_clips
+
+    n = int(seconds * SR)
+    clean = torch.from_numpy(synth_chunks(4 * n_each, seed=seed)[:, :n]).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    clip = torch.from_numpy(synth_noise_clips(1, seed=seed)[0]).to(device)
+    parts = clean.split(n_each)
+    out = torch.cat([noise_lib.white(parts[0], 8.0, gen),
+                     noise_lib.urban(parts[1], clip, 8.0, start=0),
+                     noise_lib.reverb(parts[2]),
+                     noise_lib.noise_cancellation(
+                         parts[3], gate=torch.ones((n_each, -(-n // 16000)), dtype=torch.bool,
+                                                   device=device))])
+    return out, np.repeat(np.arange(4), n_each)
+
+
+class _GatedClassifier:
+    """Wraps a service's classifier: records each batch it scores and its
+    labels; once ``close()`` is called, the next call holds the dispatcher
+    (``holding`` set) until ``open()``, so that later requests coalesce."""
+
+    def __init__(self, classify):
+        self.classify = classify
+        self.gate, self.holding = threading.Event(), threading.Event()
+        self.gate.set()
+        self.calls = []
+
+    def close(self):
+        self.gate.clear()
+
+    def open(self):
+        self.gate.set()
+
+    def __call__(self, batch):
+        if not self.gate.is_set():
+            self.holding.set()
+            self.gate.wait(timeout=60)
+        labels = self.classify(batch)
+        self.calls.append((batch.numpy().copy(), labels))
+        return labels
+
+
+def routed_router_cli(tmp, wavs, saved):
+    """``cli.train --model router`` on phase 6d's wavs, in a subprocess."""
+    return _start_cli("cli.train --model router", [
+        "audiodenoiser_torch.cli.train", "--base_dataset_path", wavs, "--model", "router",
+        "--pipeline", "on_device", "--noise_type", "mixed", "--batch_size", str(ROUTER_BATCH),
+        "--epochs", "1", "--steps_per_epoch", str(ROUTER_STEPS), "--learning_rate", "1e-3",
+        "--output_path", os.path.join(tmp, "router_runs"), "--export_dir", saved], tmp)
+
+
+def routed_router_check(torch, started, saved):
+    """The router CLI's held-out accuracy (> 0.5, as the JAX package's
+    test requires), its export, sidecar and parameter count."""
+    from audiodenoiser_torch.eval.ensemble import load_router
+    from audiodenoiser_torch.models import count_params
+
+    out, wall = _finish_cli(started)
+    m = re.search(r"Router held-out accuracy: (\S+)", out)
+    check(m is not None, "cli.train --model router printed no held-out accuracy")
+    acc = float(m.group(1))
+    path = os.path.join(saved, "noise_router.ckpt")
+    check(os.path.exists(path), "cli.train --model router exported no noise_router.ckpt")
+    with open(os.path.join(saved, "noise_router.json")) as f:
+        sidecar = json.load(f)
+    router, window = load_router(path)
+    n = count_params(router)
+    print(f"[routed] cli.train --model router: {ROUTER_STEPS} steps of {ROUTER_BATCH} in "
+          f"{wall:.1f} s with the process's start, held-out accuracy {acc:.3f}, "
+          f"{n:,} parameters, sidecar {sidecar}", flush=True)
+    check(acc > 0.5, f"router held-out accuracy {acc} not above 0.5")
+    check(n == ROUTER_PARAMS and sidecar == {"window": [256, 64]} and window == (256, 64),
+          "the router's export")
+
+
+def routed_serve(torch, rows, saved):
+    """``cli.serve --auto_route``: 8 ``/denoise?mode=auto`` requests (the
+    first alone, seven coalesced behind it), each against its predicted
+    expert's runner on the padded group the service formed, K1 and K2
+    counted; one ``?mode=auto`` stream; a reload to generation 1."""
+    import numpy as np
+
+    from audiodenoiser_torch.data.wav_io import read_wav
+    from audiodenoiser_torch.eval.streaming import RoutedStreamingSession
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+
+    t0 = time.perf_counter()
+    service, server, url = _serve(["--auto_route", "--saved_models_dir", saved, "--port", "0",
+                                   "--max_seconds", "10"])
+    try:
+        mix = server.current_generation()["mixture"]
+        print(f"[routed] cli.serve --auto_route built and warmed up in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(service.default_mode == "auto" and len(service.expert_runners) == 4
+              and mix.family == "magnitude", "cli.serve --auto_route built the wrong deployment")
+        noisy, truth = _routed_clips(torch, 2, 2.0, seed=21)
+        lengths = [16000, 12000, 15000, 9000, 16000, 13000, 11000, 14000]
+        clips = [noisy[i, :n].numpy() for i, n in enumerate(lengths)]
+        sent = [read_wav(io.BytesIO(_wav(c)))[0] for c in clips]
+        gated = _GatedClassifier(service._auto[0])
+        service._auto = (gated, service._auto[1])
+        answers = {}
+
+        def post(i):
+            answers[i] = _post(url, _wav(clips[i]), "?mode=auto")
+
+        reset_launch_counts()
+        gated.close()
+        threads = [threading.Thread(target=post, args=(0,))]
+        threads[0].start()
+        check(gated.holding.wait(timeout=60), "the first routed request never dispatched")
+        for i in range(1, 8):
+            threads.append(threading.Thread(target=post, args=(i,)))
+            threads[-1].start()
+        deadline = time.monotonic() + 30
+        while "adt_queue_depth 7" not in service.metrics_text():
+            check(time.monotonic() < deadline, "the 7 routed requests never queued")
+            time.sleep(0.01)
+        gated.open()
+        for t in threads:
+            t.join(timeout=300)
+            check(not t.is_alive(), "a routed request never finished")
+        launches = {k.__name__: k.launches for k in (stft_kernel, istft_kernel)}
+        groups = [len(set(labels[: len(np.nonzero(batch.any(axis=1))[0])].tolist()))
+                  for batch, labels in gated.calls]
+        print(f"[routed] 8 requests in {len(gated.calls)} batches, router labels "
+              f"{[labels.tolist() for _, labels in gated.calls]} (true {truth.tolist()}), "
+              f"{sum(groups)} expert groups, launches {launches}", flush=True)
+        check(len(gated.calls) == 2, "the seven routed requests did not coalesce")
+        check(launches == {"stft_kernel": len(gated.calls) + sum(groups),
+                           "istft_kernel": sum(groups)},
+              "K1 != classify calls + expert groups or K2 != expert groups")
+        _stream_kernels(rows, "the routed requests")
+        for name, n in launches.items():
+            rows[name]["launches"] += n
+            rows[name]["launches_routed"] = n
+        # each answer against its expert on the group the service formed
+        for i, clip in enumerate(sent):
+            (batch, labels), row = next(
+                ((b, lab), r) for b, lab in gated.calls for r in range(len(b))
+                if np.array_equal(b[r, : len(clip)], clip) and not b[r, len(clip):].any())
+            real = len(np.nonzero(batch.any(axis=1))[0])
+            idx = [r for r in range(real) if labels[r] == labels[row]]
+            sub = np.zeros((1 << (len(idx) - 1).bit_length(), batch.shape[1]), np.float32)
+            sub[: len(idx)] = batch[idx]
+            direct = service.expert_runners[int(labels[row])].denoise_audio(
+                torch.from_numpy(sub))[idx.index(row), : len(clip)]
+            check_answer(f"auto {i} ({int(labels[row])} of {len(idx)})", clip, answers[i], direct)
+        # a routed stream: as many samples out as in, as a direct session
+        signal = noisy[:3].reshape(-1)[: 6 * SR].numpy()
+        packets = _ragged(len(signal), 6)
+        info = _start(url, "?mode=auto")
+        out = _feed(url, info["session"], signal, packets)
+        direct = RoutedStreamingSession(mix, chunk_samples=2 * SR)
+        ref = _session_out(direct, signal, packets)
+        print(f"[routed] /stream/start?mode=auto: latency_samples {info['latency_samples']}, "
+              f"{len(out)} of {len(signal)} samples out, chosen {direct.chosen!r}, switches "
+              f"{direct.switches}, rel_err vs a direct session {_rel(out, ref):.3e}", flush=True)
+        check(info["latency_samples"] == 4 * SR and len(out) == len(signal)
+              and bool(np.isfinite(out).all()), "the routed stream")
+        check(_rel(out, ref) < SERVE_TOL, "the routed stream disagrees with a direct session")
+        # reload: generation 1 serves the next mode=auto request
+        t0 = time.perf_counter()
+        code, body = _http_code(url, "/admin/reload")
+        new = server.current_generation()["mixture"]
+        print(f"[routed] /admin/reload: {code} {body} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        check(code == 200 and json.loads(body)["generation"] == 1 and service.generation == 1
+              and new is not mix, "the routed reload")
+        answer = _post(url, _wav(clips[2]), "?mode=auto")
+        padded = torch.from_numpy(np.pad(sent[2], (0, 2 * SR - len(sent[2])))[None])
+        label = int(new.classify_waveform(padded)[0])
+        check_answer("auto after reload", sent[2], answer,
+                     new.runners[label].denoise_audio(padded)[0, : len(sent[2])])
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def routed_fp32(torch, saved):
+    """fp32 card (K1, K2, cuDNN without TF32) against the CPU (plain):
+    the router's logits on 8 clips, a routed ``denoise_waveform`` with the
+    same labels, and a routed stream whose corruption changes halfway."""
+    import numpy as np
+
+    from audiodenoiser_torch.dsp import noise as noise_lib
+    from audiodenoiser_torch.dsp.stft import stft
+    from audiodenoiser_torch.eval.ensemble import load_mixture
+    from audiodenoiser_torch.eval.streaming import RoutedStreamingSession
+    from audiodenoiser_torch.train.bench import synth_chunks
+
+    noisy, _ = _routed_clips(torch, 2, 2.0, seed=22)
+    # 5 s of white noise, then 5 s of reverb, re-routed every chunk of 1 s
+    speech = torch.from_numpy(synth_chunks(6, seed=24).reshape(2, -1)[:, : 5 * SR])
+    signal = torch.cat([noise_lib.white(speech[:1], 8.0, torch.Generator().manual_seed(5))[0],
+                        noise_lib.reverb(speech[1:])[0]]).numpy()
+    packets = _ragged(len(signal), 9)
+    out, sessions = {}, {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for d in ("cuda", "cpu"):
+            mix = load_mixture(saved, dtype=torch.float32, device=d, router_dtype=torch.float32)
+            x = noisy.to(d)
+            mag = stft(x, N_FFT, HOP, precision=mix.precision).abs()
+            sessions[d] = RoutedStreamingSession(mix, chunk_samples=SR, reclassify_every=1)
+            out[d] = {"logits": mix.logits(mag[:, None]).cpu(),
+                      "wave": mix.denoise_waveform(x[:4], labels=np.arange(4)).cpu(),
+                      "stream": _session_out(sessions[d], signal, packets)}
+    err = ((out["cuda"]["logits"] - out["cpu"]["logits"]).abs().max()
+           / out["cpu"]["logits"].abs().max()).item()
+    rel = _rel(out["cuda"]["wave"], out["cpu"]["wave"])
+    print(f"[routed fp32] router logits of 8 clips card vs CPU: max|d|/max|CPU| {err:.3e}; "
+          f"denoise_waveform through the four experts (labels 0-3): rel_err {rel:.3e}",
+          flush=True)
+    check(err <= 1e-5, "the router's fp32 logits card vs CPU")
+    check(rel < SLICE_TOL, "routed denoise_waveform fp32 card vs CPU")
+    card, cpu = sessions["cuda"], sessions["cpu"]
+    rel = _rel(out["cuda"]["stream"], out["cpu"]["stream"])
+    print(f"[routed fp32] stream white -> reverb, re-routed every 1 s chunk: "
+          f"{len(out['cuda']['stream'])} of {len(signal)} samples, chosen {card.chosen!r} / "
+          f"{cpu.chosen!r}, switches card {card.switches} CPU {cpu.switches}, "
+          f"rel_err {rel:.3e}", flush=True)
+    check(len(out["cuda"]["stream"]) == len(signal) and rel < SLICE_TOL,
+          "routed stream fp32 card vs CPU")
+    check(card.switches == cpu.switches and card.chosen == cpu.chosen,
+          "the routed streams switched differently on the card and the CPU")
+
+
+def routed_eval_start(tmp, eval_dir, saved):
+    """``cli.test --auto_route`` for both families, two subprocesses."""
+    base = ["audiodenoiser_torch.cli.test", "--auto_route", "--saved_models_dir", saved]
+    return [_start_cli("cli.test --auto_route", base + [
+                "--test_data_dir", os.path.join(eval_dir, "test_processed"),
+                "--output_dir", os.path.join(tmp, "routed_unet")], tmp),
+            _start_cli("cli.test --auto_route --model complex_mask", base + [
+                "--model", "complex_mask", "--clean_dir", os.path.join(eval_dir, "test", "clean"),
+                "--noise_dir", os.path.join(eval_dir, "test", "noise"),
+                "--output_dir", os.path.join(tmp, "routed_mask")], tmp)]
+
+
+def routed_eval_check(tmp, started, card):
+    from audiodenoiser_torch.models import NOISE_CLASSES
+
+    for run, out_dir in zip(started, ("routed_unet", "routed_mask")):
+        stdout, wall = _finish_cli(run)
+        acc = {}
+        for nt in NOISE_CLASSES:
+            path = os.path.join(tmp, out_dir, f"{nt}_routed_metrics.txt")
+            check(os.path.exists(path), f"{run[0]} wrote no {nt}_routed_metrics.txt")
+            lines = [l for l in open(path).read().splitlines()[1:] if not l.startswith("#")]
+            numbers = [float(l.split(": ")[1].split()[0]) for l in lines]
+            check(len(numbers) >= 5 and all(math.isfinite(x) for x in numbers),
+                  f"{run[0]}: {nt}'s metrics {numbers}")
+            acc[nt] = numbers[0]
+        launches = re.findall(r"^\[launches\] auto_route (.*)$", stdout, re.M)
+        print(f"[routed] {run[0]}: exit 0 in {wall:.1f} s ({card}); routing accuracy "
+              f"{json.dumps(acc)}; launches {launches[0] if launches else None}", flush=True)
+        check(len(launches) == 1, f"{run[0]} printed no [launches] line")
+
+
+def routed_bench(torch, saved, card):
+    """The router's forward at 256 windows of (256, 64), and a routed batch
+    of 256 mixed-corruption 2 s clips through the four folded bf16
+    experts against one expert on the whole batch, in CUDA events."""
+    import numpy as np
+
+    from audiodenoiser_torch.eval.ensemble import load_mixture
+
+    mix = load_mixture(saved)  # bf16 experts and router, folded, K1/K2
+    x = torch.rand((256, 1, 256, 64), device="cuda") * 3
+    with torch.inference_mode():
+        router_ms = time_ms(lambda: mix.router(x), reps=20)
+    wavs, truth = _routed_clips(torch, ROUTED_CLIPS // 4, 2.0, seed=25, device="cuda")
+    labels = mix.classify_waveform(wavs).cpu().numpy()
+    counts = np.bincount(labels, minlength=4).tolist()
+    padded = [1 << (n - 1).bit_length() if n else 0 for n in counts]
+    classify_ms = time_ms(lambda: mix.classify_waveform(wavs), reps=10)
+    denoise_ms = time_ms(lambda: mix.denoise_waveform(wavs, labels=labels), reps=5, warmup=2)
+    routed_ms = time_ms(lambda: mix.denoise_waveform(wavs), reps=5, warmup=2)
+    single_ms = time_ms(lambda: mix.runners[0].denoise_audio(wavs), reps=5, warmup=2)
+    frames = ROUTED_CLIPS * (1 + 2 * SR // HOP)
+    line = {"metric": "routed_frames_per_s", "value": frames / routed_ms * 1e3,
+            "single_model_frames_per_s": frames / single_ms * 1e3,
+            "routed_ms": routed_ms, "classify_ms": classify_ms, "denoise_ms": denoise_ms,
+            "single_model_ms": single_ms, "router_ms_256_windows": router_ms,
+            "group_sizes": counts, "padded_rows": sum(padded),
+            "routing_accuracy": float(np.mean(labels == truth)), "card": card}
+    print(f"[routed bench] {json.dumps(line)}", flush=True)
+    check(line["value"] > 0 and sum(counts) == ROUTED_CLIPS, "the routed bench")
+
+
+def phase_routed(torch, rows, card, eval_dir, wavs):
+    """Phase 6e: the self-routing deployment at full width."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6e_")
+    saved = os.path.join(tmp, "saved_models")
+    started = []
     try:
         t0 = time.perf_counter()
-        saved = eval_cli(tmp, mask_variables, card)
-        eval_http(torch, rng, saved)
-        print(f"[eval] phase 4c's files, CLIs and requests in {time.perf_counter() - t0:.1f} s",
+        _routed_exports(saved)
+        print(f"[routed] 8 full-width specialists written in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    finally:
+        started.append(routed_router_cli(tmp, wavs, saved))
+        routed_router_check(torch, started[0], saved)
+        started += routed_eval_start(tmp, eval_dir, saved)
+        routed_serve(torch, rows, saved)
+        count_off_path(rows, "phase 6e")
+        routed_fp32(torch, saved)
+        routed_eval_check(tmp, started[1:], card)
+        routed_bench(torch, saved, card)
+    finally:  # a failed check leaves no process running
+        for _, proc, log, *_ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2676,20 +3044,29 @@ def main() -> None:
     print(f"[stream] phase 3c in {time.perf_counter() - t0:.1f} s", flush=True)
     phase_slice_fp32(torch, rng)
     phase_mask_fp32(torch, rng, mask_variables)
-    t0 = time.perf_counter()
-    phase_eval(torch, rng, mask_variables, card)
-    print(f"[eval] phase 4c in {time.perf_counter() - t0:.1f} s", flush=True)
-    phase_train_step_fp32(torch)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    # phase 4c's test set and phase 6d's wavs stay here for phase 6e
+    shared = tempfile.mkdtemp(prefix="chip_smoke_shared_")
     try:
-        phase_train_fit(torch, rows, tmp)
-        phase_train_cli(tmp)
+        t0 = time.perf_counter()
+        phase_eval(torch, rng, mask_variables, card, os.path.join(shared, "eval"))
+        print(f"[eval] phase 4c in {time.perf_counter() - t0:.1f} s", flush=True)
+        phase_train_step_fp32(torch)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            phase_train_fit(torch, rows, tmp)
+            phase_train_cli(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        phase_mask_train(torch, rng, rows)
+        t0 = time.perf_counter()
+        phase_train_extras(torch, rows, card, os.path.join(shared, "6d"))
+        print(f"[6d] phase 6d in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_routed(torch, rows, card, os.path.join(shared, "eval"),
+                     os.path.join(shared, "6d", "wavs"))
+        print(f"[6e] phase 6e in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    phase_mask_train(torch, rng, rows)
-    t0 = time.perf_counter()
-    phase_train_extras(torch, rows, card)
-    print(f"[6d] phase 6d in {time.perf_counter() - t0:.1f} s", flush=True)
+        shutil.rmtree(shared, ignore_errors=True)
     reset_launch_counts()
     bench = run_bench(batch_size=256, clip_seconds=2.0, iters=20, profile_iters=3)
     print(f"[bench] {json.dumps(bench)}", flush=True)

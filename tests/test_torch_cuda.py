@@ -745,3 +745,89 @@ def test_resume_on_card_matches_an_uninterrupted_fit(dev, tmp_path):
                 assert torch.equal(b[key][k], t), (key, k)
             elif not k.endswith((*bn_fed, "running_mean")):
                 assert float((b[key][k] - t).norm() / (t.norm() + 1e-30)) <= 1e-6, (key, k)
+
+
+def _router(d, dtype=torch.float32, seed=5):
+    from audiodenoiser_torch.models import (
+        NoiseClassifier,
+        random_router_flax_variables,
+        router_state_dict_from_flax,
+    )
+
+    model = NoiseClassifier(dtype=dtype)
+    model.load_state_dict(router_state_dict_from_flax(random_router_flax_variables(seed)["params"]))
+    return model.eval().to(d)
+
+
+def _mixture(d, precision="kernel"):
+    from audiodenoiser_torch.eval.ensemble import MixtureOfDenoisers
+    from audiodenoiser_torch.models import (
+        NOISE_CLASSES,
+        UNet,
+        fold_for_inference,
+        load_flax_variables,
+        random_flax_variables,
+    )
+
+    experts = {nt: fold_for_inference(load_flax_variables(
+        UNet((8, 16, 32, 64), 128), random_flax_variables(60 + i, (8, 16, 32, 64), 128)).eval(),
+        torch.float32) for i, nt in enumerate(NOISE_CLASSES)}
+    return MixtureOfDenoisers(experts, _router(d), device=d, precision=precision)
+
+
+def test_router_on_card_matches_cpu(dev):
+    """The router's fp32 forward (SAME padding, fp32 GroupNorm) on the card
+    against the CPU, at the training crop and a whole odd-sized clip."""
+    rng = np.random.default_rng(6)
+    for shape in ((8, 1, 256, 64), (3, 1, 257, 151)):
+        x = torch.from_numpy(np.abs(rng.standard_normal(shape)).astype(np.float32) * 3)
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            card = _router(dev)(x.to(dev)).cpu()
+            cpu = _router("cpu")(x)
+        assert _max_rel(card, cpu) < 1e-5
+
+
+def test_classify_waveform_through_k1_matches_fft(dev):
+    """The routed deployment's classifier: K1's magnitudes and cuFFT's give
+    the same windowed logits, and K1 is launched once a call."""
+    from audiodenoiser_torch.eval.ensemble import windowed_logits
+    from audiodenoiser_torch.ops.cuda import stft_kernel
+
+    rng = np.random.default_rng(7)
+    wavs = torch.from_numpy(np.clip(0.3 * rng.standard_normal((16, 16000)), -1, 1)
+                            .astype(np.float32)).to(dev)
+    kernel, fft = _mixture(dev, "kernel"), _mixture(dev, "fft")
+    before = stft_kernel.launches
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        labels = kernel.classify_waveform(wavs)
+        assert stft_kernel.launches == before + 1
+        ref = fft.classify_waveform(wavs)
+        from audiodenoiser_torch.dsp.stft import stft
+
+        logits = [windowed_logits(m.router, stft(wavs, 512, 128, precision=p).abs()[:, None])
+                  for m, p in ((kernel, "kernel"), (fft, "fft"))]
+    assert _max_rel(logits[0], logits[1]) < 1e-5
+    torch.testing.assert_close(labels, ref, rtol=0, atol=0)
+
+
+def test_routed_denoise_waveform_matches_direct_expert_calls(dev):
+    """A routed batch on the card: each clip equals its expert runner's
+    call on the zero-padded power-of-two group; K1 and K2 are launched once
+    a group."""
+    from audiodenoiser_torch.ops.cuda import istft_kernel, stft_kernel
+
+    mix = _mixture(dev)
+    rng = np.random.default_rng(8)
+    wavs = torch.from_numpy(np.clip(0.2 * rng.standard_normal((7, 6000)), -1, 1)
+                            .astype(np.float32)).to(dev)
+    labels = np.array([0, 1, 2, 3, 0, 2, 2])
+    before = (stft_kernel.launches, istft_kernel.launches)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = mix.denoise_waveform(wavs, labels=labels)
+        assert (stft_kernel.launches - before[0], istft_kernel.launches - before[1]) == (4, 4)
+        for e in range(4):
+            idx = np.nonzero(labels == e)[0]
+            group = torch.zeros((1 << (len(idx) - 1).bit_length(), 6000), device=dev)
+            group[: len(idx)] = wavs[idx]
+            direct = mix.runners[e].denoise_audio(group)[: len(idx)]
+            assert _max_rel(out[idx], direct) < 1e-6

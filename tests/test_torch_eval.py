@@ -4,7 +4,7 @@ draws), ``build_test_dataset`` and ``cli.create_test_dataset`` (names,
 shapes, dtypes, and the contents the draws do not touch),
 ``eval.runner.test_single_noise_type`` and ``test_noise_type_waveform``
 (file names, metric keys, metrics), and ``cli.test`` (``--universal``,
-``--n_seeds``, the refusals).
+``--n_seeds``, the refusals; ``--auto_route`` is tests/test_torch_ensemble.py's).
 
 Narrow models (widths of ``width_mult`` 0.125) carry JAX's weights through
 ``state_dict_from_flax``; both sides run fp32. The synthetic clips include
@@ -373,13 +373,23 @@ class TestTestCLI:
         out = capsys.readouterr().out
         assert "not found. Skipping." in out and "Universal model 'mask_denoiser_mixed'" in out
 
-    @pytest.mark.parametrize("flags,item", [(["--auto_route"], "A.10"),
-                                            (["--ep", "dense"], "A.10"),
+    @pytest.mark.parametrize("flags,item", [(["--auto_route"], "A.11"),
+                                            (["--auto_route", "--ep", "dense"], "A.11"),
                                             (["--mesh", "on"], "A.11"),
                                             (["--model_parallel", "2"], "A.11")])
-    def test_unported_flags_name_their_item(self, flags, item):
+    def test_unported_flags_name_their_item(self, flags, item, monkeypatch, tmp_path):
+        """On four cards ``--auto_route`` would take the expert-parallel
+        dispatch (``--ep auto`` or ``dense``), which is not ported: it exits
+        before it loads anything. The device mesh is refused as ever."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
         with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-            port_test_cli.parse_args(flags)
+            port_test_cli.main(flags + ["--saved_models_dir", str(tmp_path),
+                                        "--output_dir", str(tmp_path / "o")])
+
+    def test_auto_route_refuses_the_mesh_flags(self):
+        with pytest.raises(SystemExit, match="builds its own expert-parallel mesh"):
+            port_test_cli.parse_args(["--auto_route", "--mesh", "on"])
 
 
 def _gap_table():

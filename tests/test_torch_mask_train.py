@@ -412,9 +412,9 @@ class TestFitAndCLI:
         with pytest.raises(SystemExit, match="requires --pipeline on_device"):
             main(["--base_dataset_path", str(tmp_path), "--model", "complex_mask",
                   "--noise_type", "white"])
-        with pytest.raises(SystemExit, match="A.10"):
+        with pytest.raises(SystemExit, match="requires --pipeline on_device --noise_type mixed"):
             main(["--base_dataset_path", str(tmp_path), "--model", "router",
-                  "--pipeline", "on_device", "--noise_type", "mixed"])
+                  "--noise_type", "mixed"])
 
 
 def test_mask_train_bench_on_cpu_when_asked():

@@ -4,7 +4,9 @@ service defines them: ``POST /admin/reload`` swaps in the checkpoint now
 in ``--saved_models_dir``; an open session finishes on its generation, new
 sessions and requests take the new one; a failed reload answers 500 and
 the old generation serves on. Pool slots are released when a session is
-refused or evicted. Models: folded fp32 mask models at width 0.125."""
+refused or evicted; a routed deployment (``--auto_route``) reloads its
+router and specialists as one generation. Models: folded fp32 models at
+width 0.125."""
 
 import json
 import threading
@@ -145,6 +147,49 @@ def test_reload_over_http(tmp_path):
         s.close()
 
 
+def test_routed_reload_over_http(tmp_path):
+    """``cli.serve --auto_route``: ``/admin/reload`` of new specialists and
+    a new router gives generation 1, and a ``mode=auto`` request after it
+    is the new mixture's routed answer."""
+    from audiodenoiser_torch.models import NOISE_CLASSES, random_router_flax_variables
+
+    def export(seed):
+        for i, nt in enumerate(NOISE_CLASSES):
+            v = random_flax_variables(seed + i, features=FEATS, bottleneck=BOTTLENECK)
+            export_model(str(tmp_path / f"unet_denoiser_{nt}.ckpt"), v["params"],
+                         v["batch_stats"])
+            with open(tmp_path / f"unet_denoiser_{nt}.json", "w") as f:
+                json.dump({"width_mult": 0.125}, f)
+        export_model(str(tmp_path / "noise_router.ckpt"),
+                     random_router_flax_variables(seed)["params"], {})
+
+    def routed(mix, clip):
+        padded = torch.from_numpy(np.pad(clip, (0, BUCKET - len(clip)))[None])
+        label = int(mix.classify_waveform(padded)[0])
+        return mix.runners[label].denoise_audio(padded)[0, : len(clip)].numpy()
+
+    export(70)
+    service, server, _ = serve_cli.build_server(serve_cli.parse_args([
+        "--auto_route", "--saved_models_dir", str(tmp_path), "--port", "0",
+        "--bucket_seconds", "0.25", "--device", "cpu", "--precision", "f32"]))
+    s = _Serving(server)
+    try:
+        clip = _audio(1500, seed=3)
+        old = server.current_generation()["mixture"]
+        assert _rel(service.denoise(clip), routed(old, clip)) < TOL
+        export(80)
+        info = json.loads(_post(f"{s.url}/admin/reload"))
+        assert info["generation"] == 1 and service.generation == 1
+        new = server.current_generation()["mixture"]
+        assert new is not old and service.expert_runners[0] is new.runners[0]
+        assert json.loads(_post(f"{s.url}/stream/start?mode=auto"))["generation"] == 1
+        want = routed(new, clip)
+        assert _rel(service.denoise(clip, mode="auto"), want) < TOL
+        assert _rel(want, routed(old, clip)) > 1e-2  # another generation's answer
+    finally:
+        s.close()
+
+
 class _Runner:
     device = None
 
@@ -155,6 +200,12 @@ class _Runner:
     def denoise_audio(self, audio, **kw):
         self.calls.append(tuple(audio.shape))
         return audio * self.scale
+
+
+class _SpectralRunner(_Runner):
+    """What the service's router reads off its runner: the STFT's shape,
+    path and device."""
+    n_fft, hop, precision, device = 512, 128, "fft", torch.device("cpu")
 
 
 class TestService:
@@ -176,8 +227,33 @@ class TestService:
 
     @pytest.mark.parametrize("kw", [dict(expert_runners={}), dict(router=object())])
     def test_routed_reload_is_refused(self, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            DenoiseService(_Runner()).reload(**kw)
+        """Half a routed generation cannot be swapped into a service that
+        has none: a router needs its experts and the experts a router."""
+        service = DenoiseService(_Runner())
+        with pytest.raises(ValueError, match="both router and expert_runners"):
+            service.reload(**kw)
+        assert service.generation == 0 and service.expert_runners is None
+
+    def test_routed_reload_swaps_router_and_experts(self):
+        """A routed generation swaps in whole and bumps the generation; the
+        new experts are warmed up before the swap."""
+        from audiodenoiser_torch.models import NoiseClassifier
+
+        old = {i: _Runner(scale=1.0) for i in range(4)}
+        service = DenoiseService(_SpectralRunner(), bucket_samples=100, max_batch=2,
+                                 router=(NoiseClassifier(dtype=torch.float32), (256, 64)),
+                                 expert_runners=old, default_mode="auto")
+        x = _audio(50)
+        np.testing.assert_array_equal(service.denoise(x), x)
+        new = {i: _Runner(scale=3.0) for i in range(4)}
+        seen = []
+        for r in new.values():
+            r.denoise_audio = (lambda audio, _r=r, **kw: seen.append(service.expert_runners
+                                                                      is new) or 3.0 * audio)
+        assert service.reload(expert_runners=new, warmup=True) == 1
+        assert seen and not any(seen) and service.expert_runners is new
+        np.testing.assert_allclose(service.denoise(x), 3.0 * x)
+        assert "adt_model_generation 1" in service.metrics_text()
 
     def test_no_reload_fn_is_501(self):
         s = _Serving(make_http_server(DenoiseService(_Runner()), "127.0.0.1", 0))

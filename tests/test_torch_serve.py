@@ -1,7 +1,9 @@
 """The port's HTTP denoise service: the cases of tests/test_serve.py that
 this slice carries (bucketing, coalescing, fairness, 503 on overload,
 error propagation, metrics, the HTTP surface), plus the port's service
-against the JAX service on the same weights."""
+against the JAX service on the same weights, and ``mode=auto``: each
+routed answer equal to its expert runner's on the power-of-two padded
+group the service formed, and the routed service against the JAX one."""
 
 import io
 import json
@@ -326,6 +328,107 @@ class TestServing:
         assert ours.shape == ref.shape == (6000,)
         rel = np.linalg.norm(ours - ref) / np.linalg.norm(ref)
         assert rel < 1e-4, rel
+
+
+def _router(seed=9):
+    from audiodenoiser_torch.models import (
+        NoiseClassifier,
+        random_router_flax_variables,
+        router_state_dict_from_flax,
+    )
+
+    params = random_router_flax_variables(seed)["params"]
+    model = NoiseClassifier(dtype=torch.float32)
+    model.load_state_dict(router_state_dict_from_flax(params), strict=True)
+    return model.eval(), params
+
+
+class _LoudnessRouter(nn.Module):
+    """A stand-in router that spreads clips over the experts by level:
+    the label nearest ``log10(mean magnitude) + 2``."""
+
+    def forward(self, x):
+        level = torch.log10(x.mean(dim=(1, 2, 3))) + 2.0
+        return -(level[:, None] - torch.arange(4.0)) ** 2
+
+
+def _routed_service(router=None, **kw):
+    experts = {i: _runner(30 + i) for i in range(4)}
+    router = _router()[0] if router is None else router
+    return DenoiseService(experts[0], bucket_samples=4000, router=(router, (256, 64)),
+                          expert_runners=experts, default_mode="auto", **kw), router, experts
+
+
+class TestRoutedService:
+    def test_answers_are_the_routed_experts_on_their_padded_groups(self):
+        """Five clips in one coalesced batch (padded to 8 rows): one router
+        call on the padded batch, then each predicted group zero-padded to
+        a power of two through its expert."""
+        from audiodenoiser_torch.dsp.stft import stft
+        from audiodenoiser_torch.eval.ensemble import windowed_logits
+        from audiodenoiser_torch.serve.server import _Request
+
+        service, router, experts = _routed_service(_LoudnessRouter())
+        rng = np.random.default_rng(7)
+        clips = [(s * rng.standard_normal(n)).clip(-1, 1).astype(np.float32)
+                 for s, n in ((0.05, 3000), (0.6, 4000), (0.2, 2500), (0.9, 3900), (0.01, 1000))]
+        batch = [_Request(c, len(c), "auto", 4000) for c in clips]
+        service._run_batch(batch)
+        stacked = np.zeros((8, 4000), np.float32)
+        for i, c in enumerate(clips):
+            stacked[i, : len(c)] = c
+        with torch.no_grad():
+            mag = stft(torch.from_numpy(stacked), 512, 128, center=True).abs()
+            labels = windowed_logits(router, mag[:, None]).argmax(-1).numpy()
+        assert len(set(labels[:5].tolist())) == 4  # a group per expert, one of two
+        assert service.batches_run == 1 and all(r.error is None for r in batch)
+        for lab in set(labels[:5].tolist()):
+            idx = [i for i in range(5) if labels[i] == lab]
+            sub = np.zeros((1 << (len(idx) - 1).bit_length(), 4000), np.float32)
+            sub[: len(idx)] = stacked[idx]
+            direct = experts[lab].denoise_audio(torch.from_numpy(sub)).numpy()
+            for j, i in enumerate(idx):
+                np.testing.assert_array_equal(batch[i].result, direct[j, : len(clips[i])])
+
+    def test_denoise_defaults_to_auto(self):
+        service, _, _ = _routed_service()
+        x = np.clip(0.3 * np.random.default_rng(8).standard_normal(3000), -1, 1).astype(np.float32)
+        assert service.default_mode == "auto" and len(service.expert_runners) == 4
+        out = service.denoise(x)
+        assert out.shape == x.shape and np.isfinite(out).all()
+        np.testing.assert_array_equal(service.denoise(x, mode="auto"), out)
+
+    def test_auto_needs_a_router(self):
+        with pytest.raises(ValueError, match="--auto_route"):
+            DenoiseService(_runner(), bucket_samples=4000, default_mode="auto")
+        with pytest.raises(ValueError, match="--auto_route"):
+            DenoiseService(_runner(), bucket_samples=4000).denoise(np.ones(100, np.float32),
+                                                                     mode="auto")
+
+    def test_matches_jax_routed_service(self):
+        """Same router, experts and clip: the port's mode=auto answer
+        against the JAX service's over its folded fp32 runners."""
+        from audiodenoiser_tpu.eval.runner import DenoiserRunner as JaxRunner
+        from audiodenoiser_tpu.models import UNet as FlaxUNet
+        from audiodenoiser_tpu.models import fold_runner_inputs
+        from audiodenoiser_tpu.models.router import NoiseClassifier as FlaxClassifier
+        from audiodenoiser_tpu.serve import DenoiseService as JaxService
+
+        jax_experts = {}
+        for i in range(4):
+            fm, fv = fold_runner_inputs(FlaxUNet(**NARROW), random_flax_variables(30 + i, **NARROW),
+                                        dtype=jnp.float32)
+            jax_experts[i] = JaxRunner(fm, fv)
+        _, params = _router()
+        jax_service = JaxService(jax_experts[0], bucket_samples=4000,
+                                 router=(FlaxClassifier(dtype=jnp.float32), params),
+                                 expert_runners=jax_experts, default_mode="auto")
+        audio = np.clip(0.3 * np.random.default_rng(9).standard_normal(5000), -1, 1)
+        audio = audio.astype(np.float32)
+        ref = jax_service.denoise(audio)
+        ours = _routed_service()[0].denoise(audio)
+        assert ours.shape == ref.shape == (5000,)
+        assert np.linalg.norm(ours - ref) / np.linalg.norm(ref) < 1e-4
 
 
 class TestServeCLI:

@@ -1,10 +1,13 @@
 """WOLA streaming (``eval/streaming.py``) against the JAX package's
-``StreamingDenoiser`` on the CPU, and the HTTP stream API of the port's
-server and serve CLI. A small chunk (2048) keeps the CPU time short.
-Bounds: 1e-5 relative L2 between the two packages (one STFT round trip
-per window); a session against the offline denoise of the same runner
-exactly (every window runs alone in both)."""
+``StreamingDenoiser`` on the CPU, the noise-routed session
+(``RoutedStreamingSession``) against the JAX package's, and the HTTP
+stream API of the port's server and serve CLI, routed streams included. A
+small chunk (2048) keeps the CPU time short. Bounds: 1e-5 relative L2
+between the two packages (one STFT round trip per window); a session
+against the offline denoise of the same runner exactly (every window runs
+alone in both)."""
 
+import io
 import json
 import threading
 import time
@@ -18,21 +21,29 @@ import torch
 
 from audiodenoiser_torch.cli import serve as serve_cli
 from audiodenoiser_torch.eval.runner import DenoiserRunner
-from audiodenoiser_torch.eval.streaming import StreamingDenoiser
+from audiodenoiser_torch.eval.ensemble import MixtureOfDenoisers
+from audiodenoiser_torch.eval.streaming import RoutedStreamingSession, StreamingDenoiser
 from audiodenoiser_torch.models import (
+    NOISE_CLASSES,
     ComplexMaskUNet,
+    NoiseClassifier,
     UNet,
     fold_for_inference,
     load_flax_variables,
     random_flax_variables,
+    random_router_flax_variables,
+    router_state_dict_from_flax,
 )
 from audiodenoiser_torch.serve import DenoiseService, make_http_server
 from audiodenoiser_torch.train.checkpoints import export_model
+from audiodenoiser_tpu.eval import ensemble as jax_ens
 from audiodenoiser_tpu.eval.runner import DenoiserRunner as JaxRunner
+from audiodenoiser_tpu.eval.streaming import RoutedStreamingSession as JaxRoutedSession
 from audiodenoiser_tpu.eval.streaming import StreamingDenoiser as JaxStreamer
 from audiodenoiser_tpu.models import ComplexMaskUNet as FlaxMaskUNet
 from audiodenoiser_tpu.models import UNet as FlaxUNet
 from audiodenoiser_tpu.models import fold_runner_inputs
+from audiodenoiser_tpu.models.router import NoiseClassifier as FlaxClassifier
 
 NARROW = dict(features=(8, 16, 32, 64), bottleneck=128)  # width_mult 0.125
 CHUNK = 2048
@@ -94,6 +105,119 @@ class TestAgainstJax:
             assert a.shape == b.shape
             if len(b):
                 assert _rel(a, b) < 1e-5, (n, _rel(a, b))
+
+
+THIN = dict(features=(4, 8), bottleneck=16)
+
+
+@pytest.fixture(scope="module")
+def routed_pair():
+    """(port mixture, JAX mixture): the same fp32 magnitude experts and router."""
+    params = random_router_flax_variables(7)["params"]
+    router = NoiseClassifier(dtype=torch.float32)
+    router.load_state_dict(router_state_dict_from_flax(params), strict=True)
+    experts, jax_experts = {}, {}
+    for i, nt in enumerate(NOISE_CLASSES):
+        v = random_flax_variables(40 + i, **THIN)
+        experts[nt] = load_flax_variables(UNet(**THIN), v)
+        jax_experts[nt] = (FlaxUNet(dtype=jnp.float32, **THIN), v)
+    return (MixtureOfDenoisers(experts, router, device="cpu"),
+            jax_ens.MixtureOfDenoisers(jax_experts, params,
+                                       router_model=FlaxClassifier(dtype=jnp.float32)))
+
+
+def _drive(session, x, packets):
+    """Each packet's output, then the flush's."""
+    outs, start = [], 0
+    for n in packets:
+        outs.append(session.process(x[start:start + n]))
+        start += n
+    return outs + [session.flush()]
+
+
+class _Scale(torch.nn.Module):
+    def __init__(self, k):
+        super().__init__()
+        self.k = k
+
+    def forward(self, x):
+        return self.k * x
+
+
+class _LoudRouted:
+    """A mixture whose router says 1 (urban) for a loud chunk, else 0."""
+    family, n_fft, hop = "magnitude", 512, 128
+
+    def __init__(self, experts, loud):
+        self.expert_models, self.expert_vars = experts, [{}, {}]
+        self.device = torch.device("cpu")
+        self._loud = loud
+
+    def classify_waveform(self, w):
+        return self._loud(w)
+
+
+class TestRoutedStreaming:
+    def test_matches_jax_and_the_chosen_expert(self, routed_pair):
+        mix, jax_mix = routed_pair
+        x = _audio(sum(PACKETS), seed=5)
+        sess, ref = RoutedStreamingSession(mix, CHUNK), JaxRoutedSession(jax_mix, CHUNK)
+        assert sess.latency_samples == ref.latency_samples == 2 * CHUNK
+        ours, want = _drive(sess, x, PACKETS), _drive(ref, x, PACKETS)
+        assert [len(a) for a in ours] == [len(b) for b in want]
+        y = np.concatenate(ours)
+        assert len(y) == len(x)
+        assert _rel(y, np.concatenate(want)) < 1e-5
+        assert sess.chosen == ref.chosen and sess.chosen in NOISE_CLASSES
+        assert sess.switches == ref.switches == 0
+        # no switch: the chosen expert's own WOLA session, exactly
+        label = NOISE_CLASSES.index(sess.chosen)
+        direct = StreamingDenoiser(mix.runners[label], CHUNK).session()
+        np.testing.assert_array_equal(y, np.concatenate(_drive(direct, x, PACKETS)))
+        assert (label, CHUNK, 8000, "kernel", "noisy_phase") in mix._stream_cache
+
+    def test_nothing_before_the_routing_chunk_and_a_short_flush(self, routed_pair):
+        mix, _ = routed_pair
+        sess = RoutedStreamingSession(mix, CHUNK)
+        assert len(sess.process(np.zeros(CHUNK - 1, np.float32))) == 0 and sess.chosen is None
+        short = RoutedStreamingSession(mix, CHUNK)
+        x = _audio(1000, seed=6)
+        assert len(short.process(x)) == 0
+        y = short.flush()
+        assert len(y) == 1000 and short.chosen in NOISE_CLASSES and np.isfinite(y).all()
+
+    def test_forced_switch_matches_jax(self):
+        """Quiet, then loud input under a stub router: the session switches
+        from the identity expert to the doubling one mid-stream, its WOLA
+        state carried over, as the JAX session does."""
+        import jax.numpy as jnp_
+
+        class _FlaxScale(FlaxUNet):
+            k: float = 1.0
+
+            def __call__(self, x, train=False):
+                return self.k * x
+
+        def loud_torch(w):
+            return torch.tensor([int(float(torch.as_tensor(w).abs().mean()) > 0.3)])
+
+        def loud_jax(w):
+            return jnp_.asarray([jnp_.where(jnp_.mean(jnp_.abs(w)) > 0.3, 1, 0)])
+
+        ours = _LoudRouted([_Scale(1.0), _Scale(2.0)], loud_torch)
+        ref = _LoudRouted([_FlaxScale(k=1.0), _FlaxScale(k=2.0)], loud_jax)
+        x = np.concatenate([0.1 * np.ones(3 * CHUNK), 0.6 * np.ones(6 * CHUNK)])
+        x = x.astype(np.float32)
+        packets = [3 * CHUNK] + [CHUNK] * 6
+        s = RoutedStreamingSession(ours, CHUNK, reclassify_every=1)
+        r = JaxRoutedSession(ref, CHUNK, reclassify_every=1)
+        a, b = _drive(s, x, packets), _drive(r, x, packets)
+        assert [len(p) for p in a] == [len(p) for p in b]
+        y = np.concatenate(a)
+        assert len(y) == len(x)
+        assert _rel(y, np.concatenate(b)) < 1e-5
+        assert s.switches == r.switches >= 1 and s.chosen == r.chosen == "urban"
+        np.testing.assert_allclose(y[-2 * CHUNK:], 1.2, atol=0.02)  # the 2x expert
 
 
 @pytest.fixture(scope="module")
@@ -329,7 +453,7 @@ class TestServeCLI:
             server.server_close()
             thread.join(timeout=10)
 
-    @pytest.mark.parametrize("flag,item", [(["--auto_route"], "A.10"),
+    @pytest.mark.parametrize("flag,item", [(["--auto_route", "--mesh", "on"], "A.11"),
                                            (["--mesh", "on"], "A.11"),
                                            (["--model_parallel", "2"], "A.11")])
     def test_unported_flags_name_their_item(self, mask_dir, flag, item):
@@ -402,7 +526,7 @@ class TestServeCLI:
     @pytest.mark.parametrize("model,mode,message", [
         ("complex_mask", "griffin_lim", "serves complex_mask"),
         ("unet", "reference_gl", None),  # a magnitude model serves the Griffin-Lim modes
-        ("complex_mask", "auto", "ROADMAP A.10"),
+        ("complex_mask", "auto", "requires --auto_route"),
         ("complex_mask", "noisy_phase", "serves complex_mask"),
         ("unet", "complex_mask", "serves noisy_phase"),
     ])
@@ -424,3 +548,61 @@ class TestServeCLI:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_cli.build_server(_cli(mask_dir))
+
+
+@pytest.fixture(scope="module")
+def routed_dir(tmp_path_factory):
+    """Four magnitude specialists at width 0.125 and a seeded router."""
+    d = tmp_path_factory.mktemp("routed")
+    for i, nt in enumerate(NOISE_CLASSES):
+        v = random_flax_variables(50 + i, **NARROW)
+        export_model(str(d / f"unet_denoiser_{nt}.ckpt"), v["params"], v["batch_stats"])
+        with open(d / f"unet_denoiser_{nt}.json", "w") as f:
+            json.dump({"width_mult": 0.125}, f)
+    export_model(str(d / "noise_router.ckpt"), random_router_flax_variables(8)["params"], {})
+    return d
+
+
+class TestRoutedServeCLI:
+    def test_auto_route_serves_requests_and_routed_streams(self, routed_dir):
+        from audiodenoiser_torch.data.wav_io import read_wav, write_wav
+
+        service, server, _ = serve_cli.build_server(serve_cli.parse_args([
+            "--auto_route", "--saved_models_dir", str(routed_dir), "--port", "0",
+            "--bucket_seconds", "0.25", "--device", "cpu", "--precision", "f32"]))
+        assert service.default_mode == "auto" and len(service.expert_runners) == 4
+        mix = server.current_generation()["mixture"]
+        assert mix.family == "magnitude" and mix.runners[0].precision == "kernel"
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            buf = io.BytesIO()
+            write_wav(buf, _audio(1500, seed=7), 8000)
+            req = urllib.request.Request(f"{url}/denoise?mode=auto", data=buf.getvalue(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got = read_wav(io.BytesIO(r.read()))[0]
+            sent = read_wav(io.BytesIO(buf.getvalue()))[0]
+            padded = torch.from_numpy(np.pad(sent, (0, 2000 - len(sent)))[None])
+            label = int(mix.classify_waveform(padded)[0])
+            want = mix.runners[label].denoise_audio(padded)[0, :1500].numpy()
+            back = io.BytesIO()
+            write_wav(back, want, 8000)  # the answer's 16-bit PCM
+            assert _rel(got, read_wav(io.BytesIO(back.getvalue()))[0]) < 1e-4
+            x = _audio(sum(PACKETS), seed=8)
+            for query in ("?mode=auto", ""):
+                info = json.loads(_post(f"{url}/stream/start{query}"))
+                assert info["latency_samples"] == 4000  # router chunk + WOLA chunk
+                out = b"".join(_post(f"{url}/stream/{info['session']}",
+                                     x[a:a + n].astype("<f4").tobytes())
+                               for a, n in zip(np.cumsum([0] + PACKETS[:-1]), PACKETS))
+                out += _post(f"{url}/stream/{info['session']}/flush")
+                y = np.frombuffer(out, "<f4")
+                direct = RoutedStreamingSession(mix, 2000)
+                np.testing.assert_array_equal(y, np.concatenate(_drive(direct, x, PACKETS)))
+            assert _code(f"{url}/stream/start?mode=complex_mask").code == 501
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)

@@ -466,7 +466,7 @@ class TestTrainCLI:
         assert out["steps"] == 2
 
     @pytest.mark.parametrize("flag", [["--fsdp"], ["--distill_from", "x"],
-                                      ["--model", "router"], ["--width_mult", "0.5"]])
+                                      ["--attn_bottleneck"], ["--width_mult", "0.5"]])
     def test_unported_flags_name_their_roadmap_item(self, tmp_path, flag):
         from audiodenoiser_torch.cli.train import main
 
