@@ -16,10 +16,21 @@ train   clipped AdamW, train/eval steps, ``fit``, exports and logs
 eval    the fused denoise runner and the throughput bench
 data    WAV IO, chunking, the ``.npy`` dataset, the on-device mixer
 serve   the HTTP denoise service
-cli     ``python -m audiodenoiser_torch.cli.{serve,train}``
+utils   tracing, timing and the finiteness guard
+cli     ``python -m audiodenoiser_torch.cli.{train,serve,test,bench,...}``
 
 Every entry point runs on ``torch.device("cuda")`` unless the caller
 passes another device; without a GPU it raises instead of falling back.
 """
 
 __version__ = "0.1.0"
+
+# the JAX package's constants, the port's own copy
+SAMPLE_RATE = 8000
+N_FFT = 512
+HOP_LENGTH = 128
+CHUNK_SECONDS = 2.0
+CHUNK_SAMPLES = int(SAMPLE_RATE * CHUNK_SECONDS)
+SNR_DB = 8.0
+NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
+TARGET_SIZE = (256, 64)

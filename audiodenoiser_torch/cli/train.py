@@ -9,6 +9,10 @@ Usage:
       --model complex_mask --pipeline on_device --noise_type mixed --export_dir ./saved_models
   python -m audiodenoiser_torch.cli.train --base_dataset_path data \
       --model router --pipeline on_device --noise_type mixed --export_dir ./saved_models
+  python -m audiodenoiser_torch.cli.train --base_dataset_path data \
+      --model complex_mask --pipeline on_device --noise_type mixed --width_mult 0.25 \
+      --distill_from saved_models/mask_denoiser_mixed.ckpt --distill_features 1.0 \
+      --export_dir ./students --export_quantized
 
 ``--pipeline npy`` reads prebuilt (noisy, clean) spectrogram pairs
 (``cli.create_train_dataset``); ``--pipeline on_device`` synthesizes
@@ -19,7 +23,7 @@ windows of ``--chunk_seconds``. The best model is exported as
 (on-device pipeline only) trains the complex-mask U-Net on raw waveform
 pairs (``train.mask``) and exports ``mask_denoiser_{noise_type}.ckpt``.
 A ``.json`` sidecar records what a loader needs to rebuild the model
-(the mask head; a rate other than 8 kHz). ``cli.serve`` and ``cli.test``
+(the mask head, ``--width_mult``, a rate other than 8 kHz). ``cli.serve`` and ``cli.test``
 load either. ``--model router`` (``--pipeline on_device --noise_type
 mixed``) trains the noise router on the labelled mixed stream for
 ``epochs x steps_per_epoch`` steps and exports ``noise_router.ckpt`` with
@@ -27,6 +31,11 @@ a sidecar recording its training window, the router of ``--auto_route``. The tra
 ``--warmup_steps``, ``--grad_accum``, ``--ema_decay`` (also exports
 ``best_model_ema.ckpt``), ``--remat``, ``--resume`` with
 ``--ckpt_every``, and ``--profile_dir`` (a ``torch.profiler`` trace).
+``--width_mult`` trains a compact student of either family; a mask
+student may learn from a frozen teacher export (``--distill_from``, the
+masked-spectrum term ``--distill_weight`` and the bottleneck attention
+term ``--distill_features``); ``--export_quantized`` ships the best model
+with int8 kernels.
 Flags of the JAX CLI that are not ported yet are accepted by name and stop
 the run with the ROADMAP item that ports them.
 """
@@ -42,21 +51,16 @@ import time
 # flags of the JAX CLI that the port does not run yet, with the ROADMAP
 # item that ports each
 UNPORTED = {
-    "export_quantized": "ROADMAP A.10 (int8 export)",
-    "width_mult": "ROADMAP A.10 (width_mult)",
-    "attn_bottleneck": "ROADMAP A.10 (attention bottleneck)",
-    "s2d_stem": "ROADMAP A.10 (s2d stem)",
-    "s2d_skip": "ROADMAP A.10 (s2d stem)",
+    "attn_bottleneck": "ROADMAP A.10b (attention bottleneck)",
+    "s2d_stem": "ROADMAP A.10b (s2d stem)",
+    "s2d_skip": "ROADMAP A.10b (s2d stem)",
     "model_parallel": "ROADMAP A.11 (parallelism)",
     "mesh": "ROADMAP A.11 (parallelism)",
     "fsdp": "ROADMAP A.11 (parallelism)",
     "pp_stages": "ROADMAP A.11 (parallelism)",
     "pp_microbatches": "ROADMAP A.11 (parallelism)",
-    "distill_from": "ROADMAP A.10 (distillation)",
-    "distill_weight": "ROADMAP A.10 (distillation)",
-    "distill_features": "ROADMAP A.10 (distillation)",
 }
-_UNPORTED_SWITCHES = {"export_quantized", "attn_bottleneck", "s2d_stem", "fsdp"}
+_UNPORTED_SWITCHES = {"attn_bottleneck", "s2d_stem", "fsdp"}
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
 
 
@@ -129,6 +133,20 @@ def parse_args(argv=None):
     p.add_argument("--mask_residual", choices=["on", "off"], default="on",
                    help="complex_mask: mask = identity + bounded deviation, with a "
                    "zero-initialised head (an exact pass-through at the start)")
+    p.add_argument("--width_mult", type=float, default=1.0,
+                   help="channel-width multiplier of a compact student (0.5 -> 7.8M "
+                   "parameters, 0.25 -> 2.0M; widths round to multiples of 8); recorded "
+                   "in the sidecar. 1.0: the 31M-parameter U-Net")
+    p.add_argument("--distill_from", type=str, default=None,
+                   help="complex_mask: a frozen teacher export (mask_denoiser_*.ckpt, its "
+                   "sidecar rebuilds it) whose masked spectrum the student matches")
+    p.add_argument("--distill_weight", type=float, default=0.5,
+                   help="weight of the teacher-matching term (with --distill_from)")
+    p.add_argument("--distill_features", type=float, default=0.0,
+                   help="weight of the attention-transfer term at the bottleneck (with "
+                   "--distill_from); 0 leaves it out")
+    p.add_argument("--export_quantized", action="store_true",
+                   help="export the best model to --export_dir with int8 conv kernels")
     p.add_argument("--device", type=str, default=None, help="default: the GPU")
     for name in UNPORTED:
         if name in _UNPORTED_SWITCHES:
@@ -160,6 +178,12 @@ def _check_ported(args) -> None:
     if args.model == "complex_mask" and args.pipeline != "on_device":
         raise SystemExit("--model complex_mask requires --pipeline on_device "
                          "(it trains on waveform pairs)")
+    if args.distill_from and args.model != "complex_mask":
+        raise SystemExit("--distill_from supports --model complex_mask only "
+                         "(the teacher term matches masked spectra)")
+    if args.distill_features and not args.distill_from:
+        raise SystemExit("--distill_features requires --distill_from "
+                         "(there is no teacher to match without it)")
     if args.model == "router" and (args.pipeline != "on_device" or args.noise_type != "mixed"):
         raise SystemExit("--model router requires --pipeline on_device --noise_type mixed "
                          "(labels come from the per-example corruption draw)")
@@ -286,7 +310,8 @@ def main(argv=None):
                     lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
                     grad_accum=args.grad_accum, remat=args.remat,
                     ckpt_every=args.ckpt_every, ema_decay=args.ema_decay,
-                    device=str(device), extra_config=vars(args))
+                    width_mult=args.width_mult, device=str(device),
+                    extra_config=vars(args))
     if args.pipeline == "npy":
         train_batches, val_batches, steps_per_epoch = _npy_batches(args)
     else:
@@ -298,9 +323,11 @@ def main(argv=None):
     fit_kwargs, meta = {}, None
     if args.model == "complex_mask":
         fit_kwargs, meta = _mask_family(args, device, cfg)
-    elif args.sample_rate != 8000:
-        # what a loader needs to rebuild the magnitude model at this rate
-        meta = {"width_mult": 1.0, "sample_rate": args.sample_rate}
+    elif args.width_mult != 1.0 or args.sample_rate != 8000:
+        # what a loader needs to rebuild the magnitude model
+        meta = {"width_mult": args.width_mult}
+        if args.sample_rate != 8000:
+            meta["sample_rate"] = args.sample_rate
     with maybe_trace(args.profile_dir):
         result = fit(cfg, train_batches, val_batches, **fit_kwargs)
 
@@ -334,8 +361,15 @@ def main(argv=None):
                 with open(os.path.splitext(dst)[0] + ".json", "w") as f:
                     json.dump(payload, f)
         if os.path.exists(result["best_path"]):
-            shutil.copyfile(result["best_path"], dst)
-            print(f"Exported best model to {dst}")
+            if args.export_quantized:
+                from audiodenoiser_torch.train.checkpoints import export_model, load_exported
+
+                payload = load_exported(result["best_path"])
+                export_model(dst, payload["params"], payload["batch_stats"], quantize=True)
+                print(f"Exported int8-quantized best model to {dst}")
+            else:
+                shutil.copyfile(result["best_path"], dst)
+                print(f"Exported best model to {dst}")
     return result
 
 
@@ -381,12 +415,16 @@ def _train_router(args, device):
 def _mask_family(args, device, cfg):
     """``fit``'s state factory and steps for ``--model complex_mask`` (with
     ``cfg``'s schedule and accumulation), and the sidecar that records the
-    head and a rate other than 8 kHz, with the JAX CLI's per-type
-    defaults: SI-SDR weight 0.5, clamp 30 dB, bound 8 where the stream
-    holds noise_cancellation (undoing its 0.2x attenuation needs ~5x gain),
-    else 2; a residual head starts as a zero-initialised pass-through."""
+    head, the width, a rate other than 8 kHz and the teacher, with the JAX
+    CLI's per-type defaults: SI-SDR weight 0.5, clamp 30 dB, bound 8 where
+    the stream holds noise_cancellation (undoing its 0.2x attenuation needs
+    ~5x gain), else 2; a residual head starts as a zero-initialised
+    pass-through. The teacher is the live-BN model of ``--distill_from``
+    in the run's dtype, frozen."""
     import torch
 
+    from audiodenoiser_torch.eval.runner import load_model_from_path
+    from audiodenoiser_torch.models.unet import width_kwargs
     from audiodenoiser_torch.train import mask as mask_lib
 
     si_w = 0.5 if args.si_sdr_weight is None else args.si_sdr_weight
@@ -398,16 +436,28 @@ def _mask_family(args, device, cfg):
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     meta = {"mask_bound": bound, "si_sdr_weight": si_w, "si_sdr_clamp": si_clamp,
             "residual": residual}
+    if args.width_mult != 1.0:
+        meta["width_mult"] = args.width_mult
     if args.sample_rate != 8000:
         meta["sample_rate"] = args.sample_rate
+    teacher = None
+    if args.distill_from:
+        teacher = load_model_from_path(args.distill_from, dtype=dtype, device=device,
+                                       stem="mask_denoiser", fold=False).requires_grad_(False)
+        meta["distilled_from"] = args.distill_from
+        if args.distill_features:
+            meta["distill_features"] = args.distill_features
     factory = lambda: mask_lib.create_mask_train_state(
         args.seed, mask_lib.ComplexMaskUNet(dtype=dtype, mask_bound=bound, residual=residual,
-                                            zero_out_init=residual),
+                                            zero_out_init=residual,
+                                            **width_kwargs(args.width_mult)),
         learning_rate=args.learning_rate, device=device, schedule=cfg.lr_schedule,
         warmup_steps=cfg.warmup_steps, total_steps=cfg.total_steps,
         grad_accum=cfg.grad_accum)
-    return {"state_factory": factory,
-            "steps": mask_lib.make_mask_steps(si_w, si_clamp)}, meta
+    steps = mask_lib.make_mask_steps(si_w, si_clamp, teacher=teacher,
+                                     distill_weight=args.distill_weight,
+                                     distill_feat_weight=args.distill_features)
+    return {"state_factory": factory, "steps": steps}, meta
 
 
 if __name__ == "__main__":

@@ -143,6 +143,10 @@ def stft(
     return spec.reshape(*lead, *spec.shape[-2:])
 
 
+def magnitude(spec: torch.Tensor) -> torch.Tensor:
+    return spec.abs()
+
+
 def magphase(spec: torch.Tensor):
     """librosa.magphase: (magnitude, unit-phase complex).
 

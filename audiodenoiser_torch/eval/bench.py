@@ -10,13 +10,22 @@ Flax tree layout by ``models.convert``.
 
   python -m audiodenoiser_torch.eval.bench --batch_size 256 [--pallas_deconv]
   python -m audiodenoiser_torch.eval.bench --mode complex_mask
+  python -m audiodenoiser_torch.eval.bench --width_mult 0.25 [--no-fold]
 
-prints one JSON line naming the card and its power limit, with the stream
-benches beside the batch numbers (each can be left out): a WOLA session
+prints one JSON line naming the card and its power limit, with the other
+legs beside the batch numbers (each can be left out): the training leg
+(``run_train_bench``: the full-width bf16 U-Net's train step at batch 256
+on fixed crops, ``train_samples_per_sec``, ``train_step_ms``,
+``train_tflops_per_sec`` from ``FlopCounterMode``, peak memory and the
+device's idle share), the compact student at ``width_mult`` 0.25 in the
+run's mode (``student_frames_per_sec``, only beside a full-width
+headline), and the stream benches: a WOLA session
 at 8 kHz and at 16 kHz (``stream16k_*``; 1 s packets, its realtime
 factor, wall ms a packet and device ms a window step), and pools of 8 and
 64 lockstep streams (``stream_pool{,64}_*``: aggregate realtime factor,
-ms a tick). With
+ms a tick), at the run's ``--width_mult``. ``--width_mult`` scales the
+U-Net's channels (``models.unet.scaled_widths``); ``--no-fold`` serves the
+live-BN bf16 model instead of the folded one. With
 ``--pallas_deconv`` the U-Net is the live-BN bf16 one, unfolded, whose
 four upsamplings run through the K3 kernel, as the JAX bench's option of
 that name runs its Pallas deconv. ``--mode complex_mask`` runs the
@@ -53,10 +62,11 @@ def card_info() -> str:
 
 def build_runner(seed: int = 0, dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = None, pallas_deconv: bool = False,
-                 mode: str = "noisy_phase"):
-    """A runner over the full-width folded U-Net with seeded random weights
-    (with ``pallas_deconv``: the live-BN U-Net with K3, unfolded; with
-    ``mode="complex_mask"``: the folded ``ComplexMaskUNet``)."""
+                 mode: str = "noisy_phase", width_mult: float = 1.0, fold: bool = True):
+    """A runner over the folded U-Net at ``width_mult`` with seeded random
+    weights (with ``pallas_deconv`` or ``fold=False``: the live-BN U-Net,
+    unfolded, with K3 for ``pallas_deconv``; with ``mode="complex_mask"``:
+    the ``ComplexMaskUNet``)."""
     from audiodenoiser_torch.eval.runner import MODES, DenoiserRunner
     from audiodenoiser_torch.models import (
         ComplexMaskUNet,
@@ -64,19 +74,21 @@ def build_runner(seed: int = 0, dtype: torch.dtype = torch.bfloat16,
         fold_for_inference,
         load_flax_variables,
         random_flax_variables,
+        width_kwargs,
     )
 
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     device = resolve_device(device)
+    widths = width_kwargs(width_mult)
     if mode == "complex_mask":
-        model = ComplexMaskUNet(dtype=dtype, pallas_deconv=pallas_deconv)
-        variables = random_flax_variables(seed, in_channels=3, out_channels=2)
+        model = ComplexMaskUNet(dtype=dtype, pallas_deconv=pallas_deconv, **widths)
+        variables = random_flax_variables(seed, **widths, in_channels=3, out_channels=2)
     else:
-        model = UNet(dtype=dtype, pallas_deconv=pallas_deconv)
-        variables = random_flax_variables(seed)
+        model = UNet(dtype=dtype, pallas_deconv=pallas_deconv, **widths)
+        variables = random_flax_variables(seed, **widths)
     load_flax_variables(model, variables)
-    if pallas_deconv:  # the kernel lives in the module a fold would replace
+    if pallas_deconv or not fold:  # K3 lives in the module a fold would replace
         return DenoiserRunner(model.eval(), device=device)
     return DenoiserRunner(fold_for_inference(model.eval(), dtype), device=device)
 
@@ -121,11 +133,15 @@ def device_breakdown(fn, iters: int, device: torch.device, top: int = 8) -> dict
 def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
               warmup: int = 3, pipelined: bool = True, seed: int = 0,
               device: DeviceLike = None, profile_iters: int = 0,
-              pallas_deconv: bool = False, mode: str = "noisy_phase") -> dict:
-    """Frames/s of the fused path in ``mode``; with ``profile_iters`` > 0
-    (CUDA only) also a ``device_breakdown`` of that many further batches."""
+              pallas_deconv: bool = False, mode: str = "noisy_phase",
+              width_mult: float = 1.0, fold: bool = True) -> dict:
+    """Frames/s of the fused path in ``mode`` at ``width_mult``; with
+    ``profile_iters`` > 0 (CUDA only) also a ``device_breakdown`` of that
+    many further batches."""
     device = resolve_device(device)
-    runner = build_runner(seed, device=device, pallas_deconv=pallas_deconv, mode=mode)
+    fold = fold and not pallas_deconv
+    runner = build_runner(seed, device=device, pallas_deconv=pallas_deconv, mode=mode,
+                          width_mult=width_mult, fold=fold)
     sr, hop = 8000, runner.hop
     n_samples = int(sr * clip_seconds)
     rng = np.random.default_rng(seed)
@@ -152,7 +168,10 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
     dt = time.perf_counter() - t0
     frames = batch_size * (1 + n_samples // hop) * iters
     net = ("ComplexMaskUNet" if mode == "complex_mask" else "UNet") + (
-        " live-BN bf16 with the K3 deconv" if pallas_deconv else " BN-folded bf16")
+        " live-BN bf16 with the K3 deconv" if pallas_deconv
+        else " BN-folded bf16" if fold else " live-BN bf16")
+    if width_mult != 1.0:
+        net += f" at width {width_mult:g}"
     result = {
         "metric": f"spectrogram_frames_per_sec (STFT->{net}->iSTFT, {mode})",
         "value": frames / dt,
@@ -162,6 +181,8 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
         "iters": iters,
         "pipelined": pipelined,
         "pallas_deconv": pallas_deconv,
+        "fold": fold,
+        "width_mult": width_mult,
         "mode": mode,
         "batch_ms": dt / iters * 1e3,
         "device": device_name(device),
@@ -171,6 +192,65 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
         result["profile"] = device_breakdown(lambda: runner.denoise_audio(audio),
                                              profile_iters, device)
     return result
+
+
+def run_train_bench(batch_size: int = 256, iters: int = 10, warmup: int = 2,
+                    seed: int = 0, device: DeviceLike = None,
+                    profile_iters: int = 0) -> dict:
+    """The training leg of the JAX bench: the full-width bf16 U-Net's
+    ``train_step`` (forward, combined loss, backward, clip, AdamW) on fixed
+    |N(0, 1)| (256, 64) crops with clean = 0.8 x noisy, ``iters`` steps
+    after ``warmup``, one synchronise at the end: ``train_samples_per_sec``,
+    ``train_step_ms``, ``train_tflops_per_sec`` (the operations of one
+    warm-up step as ``FlopCounterMode`` counts them) and on the card the
+    peak memory of the timed steps; with ``profile_iters`` (CUDA only) the
+    device's busy time and idle share over that many further steps."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    device = resolve_device(device)
+    state = create_train_state(seed, UNet(dtype=torch.bfloat16), device=device)
+    rng = np.random.default_rng(seed)
+    noisy = torch.from_numpy(np.abs(rng.standard_normal((batch_size, 1, 256, 64)))
+                             .astype(np.float32)).to(device)
+    clean = noisy * 0.8
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def step():
+        return train_step(state, noisy, clean)[1]
+
+    with FlopCounterMode(display=False) as counter:
+        step()
+    flops = counter.get_total_flops()
+    for _ in range(warmup - 1):
+        step()
+    sync()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        losses = step()
+    sync()
+    dt = time.perf_counter() - t0
+    out = {"train_samples_per_sec": batch_size * iters / dt,
+           "train_step_ms": dt / iters * 1e3,
+           "train_batch_size": batch_size,
+           "train_last_loss": float(losses.total)}
+    if flops:
+        out["train_tflops_per_sec"] = flops * iters / dt / 1e12
+    if device.type == "cuda":
+        out["train_peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        if profile_iters:
+            prof = device_breakdown(step, profile_iters, device)
+            out["train_device_busy_ms"] = prof["device_busy_ms"]
+            out["train_idle_share"] = prof.get("idle_share", "not measured")
+            out["train_profile_wall_ms"] = prof["wall_ms"]
+    return out
 
 
 def _stream_audio(rng, n: int) -> np.ndarray:
@@ -226,16 +306,16 @@ def run_stream_bench(packet_seconds: float = 1.0, total_seconds: float = 10.0,
 def run_multistream_bench(streams: int = 8, chunk: int = 16000, ticks: int = 10,
                           sample_rate: int = 8000, prefix: str = "stream_pool",
                           seed: int = 0, device: DeviceLike = None,
-                          profile_iters: int = 0) -> dict:
+                          profile_iters: int = 0, width_mult: float = 1.0) -> dict:
     """``streams`` lockstep streams in one ``MultiStreamWola`` of that
-    capacity over the full-width folded bf16 U-Net, one hop each a tick:
+    capacity over the folded bf16 U-Net at ``width_mult``, one hop each a tick:
     ``{prefix}_aggregate_rtf`` (seconds of audio a wall second over all
     streams) and ``{prefix}_tick_ms``; with ``profile_iters`` (CUDA only)
     ``{prefix}_tick_profile``, a ``device_breakdown`` of that many ticks."""
     from audiodenoiser_torch.eval.streaming import MultiStreamWola
 
     device = resolve_device(device)
-    runner = build_runner(seed, device=device)
+    runner = build_runner(seed, device=device, width_mult=width_mult)
     pool = MultiStreamWola(runner, capacity=streams, chunk_samples=chunk,
                            sample_rate=sample_rate)
     rng = np.random.default_rng(seed)
@@ -257,8 +337,11 @@ def run_multistream_bench(streams: int = 8, chunk: int = 16000, ticks: int = 10,
 
 def stream_benches(no_stream: bool = False, no_stream16k: bool = False,
                    no_pool: bool = False, no_pool64: bool = False,
-                   device: DeviceLike = None, profile_iters: int = 0) -> dict:
-    """The stream benches that are not left out, as ``main`` runs them."""
+                   device: DeviceLike = None, profile_iters: int = 0,
+                   width_mult: float = 1.0) -> dict:
+    """The stream benches that are not left out, as ``main`` runs them:
+    the sessions at full width, the pools at ``width_mult``, as in the JAX
+    bench."""
     kw = dict(device=device, profile_iters=profile_iters)
     out = {}
     if not no_stream:
@@ -266,9 +349,10 @@ def stream_benches(no_stream: bool = False, no_stream16k: bool = False,
     if not no_stream16k:
         out.update(run_stream_bench(sample_rate=16000, prefix="stream16k", **kw))
     if not no_pool:
-        out.update(run_multistream_bench(**kw))
+        out.update(run_multistream_bench(width_mult=width_mult, **kw))
     if not no_pool64:
-        out.update(run_multistream_bench(streams=64, ticks=5, prefix="stream_pool64", **kw))
+        out.update(run_multistream_bench(streams=64, ticks=5, prefix="stream_pool64",
+                                         width_mult=width_mult, **kw))
     return out
 
 
@@ -291,12 +375,28 @@ def main(argv=None):
                    help="leave out the 8-stream pool bench")
     p.add_argument("--no_pool64", action="store_true",
                    help="leave out the 64-stream pool bench")
+    p.add_argument("--no_train", action="store_true", help="leave out the training leg")
+    p.add_argument("--train_batch_size", type=int, default=256)
+    p.add_argument("--no_student", action="store_true",
+                   help="leave out the compact student (width 0.25) beside the headline")
+    p.add_argument("--width_mult", type=float, default=1.0,
+                   help="bench a width-scaled compact student instead of the 31M U-Net")
+    p.add_argument("--fold", action=argparse.BooleanOptionalAction, default=True,
+                   help="fold eval-mode BatchNorm into the convs (the serving path); "
+                   "--no-fold measures the live-BN model")
     args = p.parse_args(argv)
     result = run_bench(args.batch_size, args.clip_seconds, args.iters,
-                       pipelined=not args.latency,
-                       pallas_deconv=args.pallas_deconv, mode=args.mode)
+                       pipelined=not args.latency, pallas_deconv=args.pallas_deconv,
+                       mode=args.mode, width_mult=args.width_mult, fold=args.fold)
+    if not args.no_train:
+        result.update(run_train_bench(args.train_batch_size, profile_iters=3))
     result.update(stream_benches(args.no_stream, args.no_stream16k, args.no_pool,
-                                 args.no_pool64))
+                                 args.no_pool64, width_mult=args.width_mult))
+    if not args.no_student and args.width_mult == 1.0:
+        student = run_bench(args.batch_size, args.clip_seconds, max(5, args.iters // 2),
+                            pipelined=not args.latency, mode=args.mode, width_mult=0.25)
+        result["student_width_mult"] = 0.25
+        result["student_frames_per_sec"] = student["value"]
     print(json.dumps(result))
 
 

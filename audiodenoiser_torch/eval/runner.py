@@ -112,7 +112,7 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
     if asked:
         raise NotImplementedError(
             f"{sidecar} asks for {', '.join(asked)}: these U-Net variants are not "
-            "ported yet (ROADMAP A.10)")
+            "ported yet (ROADMAP A.10b)")
     kwargs = width_kwargs(float(meta.get("width_mult", 1.0)))
     if stem == "mask_denoiser":
         model = ComplexMaskUNet(mask_bound=float(meta.get("mask_bound", 2.0)),

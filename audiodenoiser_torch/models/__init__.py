@@ -18,9 +18,15 @@ from audiodenoiser_torch.models.convert import (
 )
 from audiodenoiser_torch.models.folded import FoldedUNet, fold_for_inference
 from audiodenoiser_torch.models.router import NOISE_CLASSES, NoiseClassifier
-from audiodenoiser_torch.models.unet import UNet, count_params, scaled_widths, width_kwargs
+from audiodenoiser_torch.models.unet import (
+    DoubleConv,
+    UNet,
+    count_params,
+    scaled_widths,
+    width_kwargs,
+)
 
-__all__ = ["UNet", "ComplexMaskUNet", "FoldedUNet", "fold_for_inference", "count_params",
+__all__ = ["UNet", "DoubleConv", "ComplexMaskUNet", "FoldedUNet", "fold_for_inference", "count_params",
            "scaled_widths", "width_kwargs", "spectrogram_features", "apply_mask",
            "denoise_waveform", "state_dict_from_flax", "flax_from_state_dict", "random_flax_variables",
            "load_flax_variables", "NOISE_CLASSES", "NoiseClassifier",

@@ -12,11 +12,12 @@ complex-mask steps of ``train.mask`` on raw waveform batches.
 
 The optimizer takes JAX's schedules (constant with a linear warm-up, or
 warm-up plus cosine decay) and gradient accumulation (``optax.MultiSteps``);
-``fit`` adds an EMA of the weights, ``remat``, and a resume state written
-every ``ckpt_every`` epochs (``train.checkpoints``).
+``fit`` adds an EMA of the weights, ``remat``, ``width_mult`` (the
+compact student family of ``models.unet.scaled_widths``) and a resume
+state written every ``ckpt_every`` epochs (``train.checkpoints``).
 
-Not ported yet: the device mesh and FSDP (ROADMAP A.11); width_mult, the
-s2d stem and the attention bottleneck (A.10).
+Not ported yet: the device mesh and FSDP (ROADMAP A.11); the s2d stem and
+the attention bottleneck (A.10b).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from torch import nn
 from audiodenoiser_torch.device import DeviceLike, device_name, resolve_device
 from audiodenoiser_torch.losses import CombinedLossOutput, combined_perceptual_loss
 from audiodenoiser_torch.models.convert import flax_from_state_dict, state_dict_from_flax
-from audiodenoiser_torch.models.unet import UNet
+from audiodenoiser_torch.models.unet import UNet, width_kwargs
 from audiodenoiser_torch.train import checkpoints as ckpt_lib
 from audiodenoiser_torch.train.logging_utils import ScalarWriter, setup_logger
 
@@ -282,6 +283,7 @@ class FitConfig:
     remat: bool = False
     ckpt_every: int = 1  # write the resume state every N epochs (and after the last)
     ema_decay: Optional[float] = None  # e.g. 0.999: track, validate and export an EMA
+    width_mult: float = 1.0  # channel widths of models.unet.scaled_widths; 1.0: 31M params
     device: Optional[str] = None  # None: the card
     extra_config: dict = field(default_factory=dict)
 
@@ -327,8 +329,8 @@ def fit(config: FitConfig,
     batches, numpy arrays or tensors: (B, 1, F, T) magnitudes for the
     default steps, what ``steps`` takes otherwise. ``state_factory``
     supplies the model and optimizer (how a ``UNet(pallas_deconv=True)``
-    reaches training); by default a full-width ``UNet`` in the configured
-    precision and ``remat``, initialised from ``config.seed``, with the
+    reaches training); by default a ``UNet`` at the configured width, in the
+    configured precision and ``remat``, initialised from ``config.seed``, with the
     configured schedule and accumulation. ``steps`` is a ``(train_step,
     eval_step)`` pair (``train.mask.make_mask_steps``); by default the
     magnitude U-Net's.
@@ -358,7 +360,8 @@ def fit(config: FitConfig,
         state = state_factory()
     else:
         dtype = torch.bfloat16 if config.precision == "bf16" else torch.float32
-        state = create_train_state(config.seed, UNet(dtype=dtype, remat=config.remat),
+        model = UNet(dtype=dtype, remat=config.remat, **width_kwargs(config.width_mult))
+        state = create_train_state(config.seed, model,
                                    learning_rate=config.learning_rate,
                                    device=config.device, schedule=config.lr_schedule,
                                    warmup_steps=config.warmup_steps,

@@ -17,8 +17,9 @@ from the root of a checkout. Phases, each fatal on failure:
    16 kHz mixer's (32 windows of 1.5 s); K2
    on a spectrum with large imaginary DC and Nyquist parts, and K2's time
    a call at the bench shape for each number of frames a block may compute;
-   K3 at the four upsamplings of a batch-16 training step and of a
-   batch-256 bench batch, in bf16 and fp32, forward and backward; K4
+   K3 at the four upsamplings of a batch-16 training step, of a
+   batch-256 bench batch and of the width-0.25 student's batch-16 mask
+   step, in bf16 and fp32, forward and backward; K4
    (overlap-add, a standalone op that no path calls) at the bench shape, a
    ragged one at hop 100 and batch 10 at hop 512, in fp32 and bf16. Each
    library's variant counters say which entry ran: K1's and K2's FFT entries
@@ -140,10 +141,27 @@ from the root of a checkout. Phases, each fatal on failure:
    files, finite, routing accuracy printed); the router's forward at 256
    windows and a routed batch of 256 mixed-corruption 2 s clips against
    one expert on the whole batch, on one JSON line with the card;
+6f. the compact distilled student, width 0.25, over phase 6d's wavs: a
+   seeded full-width residual mask teacher (bound 8) exported with its
+   sidecar; ``cli.train --model complex_mask --noise_type mixed
+   --width_mult 0.25 --distill_from <teacher> --distill_features 1.0
+   --export_quantized`` in a subprocess (an int8-v1 export of 1,944,066
+   parameters, JAX's sidecar keys); one fp32 distilled step on the card
+   against the CPU from the same trees and draws (losses and weights
+   within 1e-4, K1 2, K2 1, K3 4 launches); ``fit`` of the bf16 student
+   with K3 against the bf16 live-BN teacher, K1, K2 and K3 counted exactly
+   (K3 through wgmma only), then its ms a step and peak memory with and
+   without the teacher; the int8 export served by ``cli.serve --model
+   complex_mask --noise_type mixed`` (5 ``/denoise`` answers against direct
+   calls, a 3 s stream as long out as in); the student's serving benches
+   at batch 256 (folded in both modes, live-BN with K3) and the training
+   leg of ``eval.bench`` at batch 256 and 16, each with its device idle
+   share;
 7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded,
    with ``pallas_deconv`` (K1, K2 and K3 counted; K1 and K2 through their
    FFT entries and K3 through TMA + wgmma only) and in ``complex_mask`` mode
-   (K1 and K2 counted, through their FFT entries only).
+   (K1 and K2 counted, through their FFT entries only), and the student's
+   frames/s beside each headline.
 
 Before the last line come one JSON object listing every kernel with its
 launches on its path, error and times, then the card's name and power
@@ -189,6 +207,9 @@ DECONV_TRAIN = ((16, 1024, 16, 4, 512), (16, 512, 32, 8, 256),
                 (16, 256, 64, 16, 128), (16, 128, 128, 32, 64))
 DECONV_BENCH = ((256, 1024, 16, 7, 512), (256, 512, 32, 15, 256),
                 (256, 256, 64, 31, 128), (256, 128, 128, 63, 64))
+# ... and of the width-0.25 student's mask step (batch 16 of 2 s clips, 257 x 126)
+DECONV_STUDENT = ((16, 256, 16, 7, 128), (16, 128, 32, 15, 64),
+                  (16, 64, 64, 31, 32), (16, 32, 128, 63, 16))
 TRAIN_TOL = 1e-4  # fp32 training step, card vs CPU: loss, grad norm, BN stats
 
 
@@ -411,7 +432,9 @@ def phase_kernels(torch, rng):
             times = timings(kernel, plain, library)
             print(f"[kernels] {name} {label}: {show(times)} bound_ms={bound:.4f} "
                   f"({bound_by}) direct_dft_ms={dft_ms:.4f}", flush=True)
-            if label != "bench":
+            if label != "bench":  # the bench shape comes first
+                rows[name].setdefault("other_shapes", {})[label] = {
+                    **times, "bound_ms": bound, "bound_by": bound_by}
                 continue
             rows[name] = {
                 "name": name, "route": "cuda",
@@ -1211,9 +1234,10 @@ def phase_deconv(torch, rng):
     )
 
     dev = torch.device("cuda")
-    totals = {"train": {}, "bench": {}}
+    totals = {"train": {}, "bench": {}, "student": {}}
     train_err = 0.0
-    for label, shapes in (("train", DECONV_TRAIN), ("bench", DECONV_BENCH)):
+    for label, shapes in (("train", DECONV_TRAIN), ("bench", DECONV_BENCH),
+                          ("student", DECONV_STUDENT)):
         for b, cin, h, w, cout in shapes:
             x32 = torch.from_numpy(rng.standard_normal((b, h, w, cin), dtype="float32")).to(dev)
             x32 = x32.permute(0, 3, 1, 2)  # logical NCHW, channels_last memory
@@ -1267,17 +1291,19 @@ def phase_deconv(torch, rng):
                   f"{show(times)} bound_ms={bound:.4f} ({bound_by})", flush=True)
             del x32, xb
             torch.cuda.empty_cache()
-    for label, shapes in (("train", DECONV_TRAIN), ("bench", DECONV_BENCH)):
+    for label, shapes in (("train", DECONV_TRAIN), ("bench", DECONV_BENCH),
+                          ("student", DECONV_STUDENT)):
         bound, bound_by = deconv_bound_ms(shapes, 2)
-        print(f"[kernels] deconv_kernel {label}, four upsamplings: {show(totals[label])} "
-              f"bound_ms={bound:.4f} ({bound_by})", flush=True)
+        totals[label].update(bound_ms=bound, bound_by=bound_by)
+        print(f"[kernels] deconv_kernel {label}, four upsamplings: "
+              f"{show({k: v for k, v in totals[label].items() if k != 'bound_by'})} "
+              f"({bound_by})", flush=True)
     print(f"[kernels] K3 variants used in phase 2: {variant_launches(deconv_kernel)}", flush=True)
-    bound, bound_by = deconv_bound_ms(DECONV_TRAIN, 2)
     return {"name": "deconv_kernel", "route": "cuda",
             "source": "audiodenoiser_torch/csrc/deconv_kernel.cu",
             "replaces": "audiodenoiser_tpu/ops/pallas/deconv_kernel.py:117",
-            "max_abs_err": train_err, "bound_ms": bound, "bound_by": bound_by,
-            **totals["train"]}
+            "max_abs_err": train_err, **totals["train"],
+            "student_shapes": totals["student"]}
 
 
 def ola_bound_ms(batch: int, n_frames: int, n_fft: int, hop: int) -> tuple[float, str]:
@@ -3006,6 +3032,328 @@ def phase_routed(torch, rows, card, eval_dir, wavs):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+PARAMS_STUDENT = 1_944_066  # the width-0.25 ComplexMaskUNet (README's compact student)
+STUDENT_WIDTH = 0.25
+STUDENT_STEPS, STUDENT_VAL, STUDENT_BATCH = 8, 2, 16  # phase 6f's in-process fit
+
+
+def _student_sidecar(teacher):
+    """``cli.train``'s sidecar for the distilled mixed student, JAX's keys."""
+    return {**MASK_SIDECAR, "width_mult": STUDENT_WIDTH, "distilled_from": teacher,
+            "distill_features": 1.0}
+
+
+def student_teacher(tmp):
+    """Phase 6f (a): a seeded full-width residual mask teacher (bound 8)
+    exported with its sidecar; returns its path and variables."""
+    from audiodenoiser_torch.models import random_flax_variables
+    from audiodenoiser_torch.train.checkpoints import export_model
+
+    variables = random_flax_variables(11, in_channels=3, out_channels=2)
+    path = os.path.join(tmp, "teacher", "mask_denoiser_mixed.ckpt")
+    export_model(path, variables["params"], variables["batch_stats"])
+    with open(os.path.splitext(path)[0] + ".json", "w") as f:
+        json.dump({"width_mult": 1.0, "mask_bound": 8.0, "residual": True}, f)
+    return path, variables
+
+
+def student_cli_start(tmp, wavs, teacher):
+    """Phase 6f (b), started: the distilled, quantized student through
+    ``cli.train`` on phase 6d's wavs, in a subprocess."""
+    export = os.path.join(tmp, "student_saved")
+    return export, _start_cli("cli.train student", [
+        "audiodenoiser_torch.cli.train", "--base_dataset_path", wavs, "--pipeline", "on_device",
+        "--model", "complex_mask", "--noise_type", "mixed", "--width_mult", str(STUDENT_WIDTH),
+        "--distill_from", teacher, "--distill_features", "1.0", "--epochs", "1",
+        "--steps_per_epoch", "4", "--output_path", os.path.join(tmp, "student_runs"),
+        "--export_dir", export, "--export_quantized"], tmp)
+
+
+def student_cli_check(torch, started, export, teacher):
+    """Phase 6f (b): the export is int8-v1 with JAX's sidecar keys, and the
+    student it holds has 1,944,066 parameters."""
+    from audiodenoiser_torch.eval.runner import load_model_from_path
+    from audiodenoiser_torch.models import count_params
+    from audiodenoiser_torch.train import msgpack_codec
+    from audiodenoiser_torch.train.checkpoints import INT8_FORMAT
+
+    out, wall = _finish_cli(started)
+    path = os.path.join(export, "mask_denoiser_mixed.ckpt")
+    with open(os.path.splitext(path)[0] + ".json") as f:
+        meta = json.load(f)
+    with open(path, "rb") as f:
+        fmt = msgpack_codec.restore(f.read()).get("format")
+    model = load_model_from_path(path, dtype=torch.float32, device="cpu", fold=False)
+    n = count_params(model)
+    print(f"[6f] cli.train student: exit 0 in {wall:.1f} s with the process's start; "
+          f"{n} parameters, {os.path.getsize(path)} byte {fmt} export, sidecar {meta}",
+          flush=True)
+    check(n == PARAMS_STUDENT, f"the student has {n} parameters, not {PARAMS_STUDENT}")
+    check(fmt == INT8_FORMAT, f"--export_quantized wrote format {fmt}")
+    check(meta == _student_sidecar(teacher), f"the student's sidecar {meta}")
+
+
+def _distilled_step(torch, s_vars, t_vars, noisy, clean, dev):
+    """One fp32 distilled step of the width-0.25 student (K3) against the
+    full-width teacher on ``dev``: its losses and updated weights by name."""
+    from audiodenoiser_torch.models import ComplexMaskUNet, state_dict_from_flax, width_kwargs
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
+
+    teacher = ComplexMaskUNet(mask_bound=8.0, residual=True)
+    teacher.load_state_dict(state_dict_from_flax(t_vars))
+    teacher = teacher.to(dev).eval().requires_grad_(False)
+    model = ComplexMaskUNet(**width_kwargs(STUDENT_WIDTH), mask_bound=8.0, residual=True,
+                            pallas_deconv=True)
+    state = create_mask_train_state(0, model, variables=s_vars, device=dev)
+    step = make_mask_steps(0.5, 30.0, teacher=teacher, distill_weight=0.5,
+                           distill_feat_weight=1.0)[0]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        state, losses = step(state, noisy.to(dev), clean.to(dev))
+    return ([float(x) for x in losses],
+            {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+
+def student_step_fp32(torch, t_vars):
+    """Phase 6f (c): one fp32 distilled step, card (K1, K2 and its
+    gradient, K3) against CPU (plain versions), from one student tree, the
+    teacher of (a) and one batch of the mixed mixer: losses and weights
+    within 1e-4 relative L2 (the conv biases that feed a train-mode
+    BatchNorm, whose gradient is rounding alone, printed apart)."""
+    from audiodenoiser_torch.models import (
+        random_flax_variables,
+        state_dict_from_flax,
+        width_kwargs,
+    )
+    from audiodenoiser_torch.ops.cuda import (
+        deconv_kernel,
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+    )
+
+    s_vars = random_flax_variables(12, **width_kwargs(STUDENT_WIDTH), in_channels=3,
+                                   out_channels=2)
+    noisy, clean = _mask_mixer(torch, 8, 4, "cpu").sample_audio(
+        torch.Generator().manual_seed(6), 2)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got[dev] = _distilled_step(torch, s_vars, t_vars, noisy, clean, dev)
+        if dev == "cuda":
+            counts = (stft_kernel.launches, istft_kernel.launches, deconv_kernel.launches)
+            check(counts == (2, 1, 4), f"the fp32 distilled step launched K1, K2, K3 {counts}")
+        print(f"[6f fp32] distilled step on {dev} in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    (lc, wc), (lp, wp) = got["cuda"], got["cpu"]
+    start = state_dict_from_flax(s_vars)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    held = [n for n in wp if not n.endswith(BN_FED_BIASES)]
+    weights = _rel_l2(torch.cat([wc[n].flatten() for n in held]),
+                      torch.cat([wp[n].flatten() for n in held]))
+    steps = _rel_l2(torch.cat([(wc[n] - start[n]).flatten() for n in held]),
+                    torch.cat([(wp[n] - start[n]).flatten() for n in held]))
+    by_name = {n: _rel_l2(wc[n], wp[n]) for n in wp}
+    fed = {n: e for n, e in by_name.items() if n.endswith(BN_FED_BIASES)}
+    print(f"[6f fp32] width 0.25 student + full-width teacher, card vs CPU: losses "
+          f"{[round(x, 6) for x in lc]} vs {[round(x, 6) for x in lp]} (max rel "
+          f"{loss_err:.3e}); updated weights rel L2 {weights:.3e} over all, worst "
+          f"{_worst({n: by_name[n] for n in held})}; the AdamW steps themselves rel L2 "
+          f"{steps:.3e}; BN-fed conv biases, printed apart: worst {_worst(fed, 2)}", flush=True)
+    check(all(math.isfinite(x) for x in lc) and loss_err <= TRAIN_TOL,
+          "fp32 distilled step: the losses, card vs CPU")
+    check(weights <= TRAIN_TOL, "fp32 distilled step: the updated weights, card vs CPU")
+
+
+def _student_state(torch, dtype):
+    from audiodenoiser_torch.models import ComplexMaskUNet, width_kwargs
+    from audiodenoiser_torch.train.mask import create_mask_train_state
+
+    return create_mask_train_state(0, ComplexMaskUNet(
+        **width_kwargs(STUDENT_WIDTH), dtype=dtype, pallas_deconv=True, mask_bound=8.0,
+        residual=True, zero_out_init=True))
+
+
+def student_fit(torch, rows, tmp, teacher_path, card):
+    """Phase 6f (d): ``fit`` of the bf16 width-0.25 student with K3 against
+    the bf16 live-BN teacher on the mixed mixer: K1 2 launches a train step
+    and 1 a validation step, K2 1 a step, K3 4 a student forward (the
+    teacher's upsamplings are cuDNN's), K4 0; then the ms a step with and
+    without the teacher and each one's peak memory."""
+    from audiodenoiser_torch.eval.runner import load_model_from_path
+    from audiodenoiser_torch.ops.cuda import (
+        deconv_kernel,
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+    )
+    from audiodenoiser_torch.train.bench import _time_steps
+    from audiodenoiser_torch.train.loop import FitConfig, fit
+    from audiodenoiser_torch.train.mask import make_mask_steps
+
+    teacher = load_model_from_path(teacher_path, dtype=torch.bfloat16,
+                                   fold=False).requires_grad_(False)
+    distilled = make_mask_steps(0.5, 30.0, teacher=teacher, distill_weight=0.5,
+                                distill_feat_weight=1.0)
+    mixer, val_mixer = _mask_mixer(torch, 64, 7, "cuda"), _mask_mixer(torch, 8, 9, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = FitConfig(run_name="student", output_path=os.path.join(tmp, "student_fit"), epochs=1,
+                    batch_size=STUDENT_BATCH, precision="bf16", log_every=0)
+    batch = STUDENT_BATCH
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(cfg, lambda e: (mixer.sample_audio(gen, batch) for _ in range(STUDENT_STEPS)),
+              lambda: (val_mixer.sample_audio(gen, batch) for _ in range(STUDENT_VAL)),
+              state_factory=lambda: _student_state(torch, torch.bfloat16), steps=distilled)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = (stft_kernel.launches, istft_kernel.launches, deconv_kernel.launches)
+    forwards = STUDENT_STEPS + STUDENT_VAL
+    want = (2 * STUDENT_STEPS + STUDENT_VAL, forwards, 4 * forwards)
+    print(f"[6f fit] {STUDENT_STEPS} distilled steps + {STUDENT_VAL} validation at batch "
+          f"{batch} in {fit_s:.2f} s (set-up and export included); history "
+          f"{res['history']}; launches K1={counts[0]} K2={counts[1]} K3={counts[2]}, "
+          f"expected {want}", flush=True)
+    check(all(math.isfinite(v) for v in res["history"][0].values()), "the student's fit")
+    check(counts == want, "the distilled fit's K1/K2/K3 launches")
+    seen = require_variants("the distilled fit", {"stft_kernel": "fft", "istft_kernel": "fft",
+                                                  "deconv_kernel": "wgmma"})
+    count_off_path(rows, "the distilled fit")
+    check(not any(m._forward_hooks for m in res["state"].model.modules())
+          and not any(m._forward_hooks for m in teacher.modules()),
+          "a feature tap outlived the fit")
+    launches = dict(zip(("stft_kernel", "istft_kernel", "deconv_kernel"), counts))
+
+    timed = {}
+    for label, steps in (("with_teacher", distilled), ("without_teacher",
+                                                       make_mask_steps(0.5, 30.0))):
+        state = _student_state(torch, torch.bfloat16)
+
+        def step():
+            return steps[0](state, *mixer.sample_audio(gen, batch))[1]
+
+        r = _time_steps(step, label, batch, 10, 3, torch.device("cuda"), 3)
+        prof = r.pop("profile")
+        timed[label] = {"step_ms": r["step_ms"], "samples_per_sec": r["value"],
+                        "peak_memory_gib": r["peak_memory_gib"],
+                        "device_busy_ms": prof["device_busy_ms"],
+                        "idle_share": prof.get("idle_share", "not measured")}
+        del state
+        torch.cuda.empty_cache()
+    print(f"[6f fit] bf16 batch {batch}, 10 steps after 3, profile of 3: {json.dumps(timed)}; "
+          f"{card}", flush=True)
+    return launches, seen
+
+
+def student_serve(torch, rng, rows, export):
+    """Phase 6f (e): the int8 student export served by ``cli.serve --model
+    complex_mask --noise_type mixed`` (width from its sidecar, folded to
+    bf16): 5 ``/denoise`` requests, each against a direct call on the batch
+    the service formed, and one ``/stream`` session as long out as in."""
+    import numpy as np
+
+    from audiodenoiser_torch.data.wav_io import read_wav
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+
+    service, server, url = _serve(["--model", "complex_mask", "--noise_type", "mixed",
+                                   "--saved_models_dir", export, "--port", "0",
+                                   "--max_seconds", "10"])
+    try:
+        runner = service.runner
+        widths = runner.model.features
+        check(widths == (16, 32, 64, 128) and runner.model.mask_bound == 8.0
+              and runner.model.mask_residual and runner.device.type == "cuda",
+              "cli.serve built the wrong student")
+        clips = [_signal(rng, int(round(s * SR))) for s in (0.5, 1.3, 2.0, 2.7, 3.1)]
+        signal = _signal(rng, 3 * SR)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = [_post(url, _wav(c), "?mode=complex_mask") for c in clips]
+        info = _start(url)
+        out = _feed(url, info["session"], signal, (1000, 4000, 7000, 12000))
+        serve_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in (stft_kernel, istft_kernel)}
+        print(f"[6f serve] the int8 student folded to bf16 (widths {widths} from its sidecar): "
+              f"5 requests and a 3 s stream in {serve_s:.3f} s, stream {len(out)} of "
+              f"{len(signal)} samples, launches {launches}", flush=True)
+        check(len(out) == len(signal) and bool(np.isfinite(out).all()),
+              "the student's stream did not return as many samples as it was fed")
+        _stream_kernels(rows, "the student's requests and stream")
+        for clip, answer in zip(clips, answers):
+            sent = read_wav(io.BytesIO(_wav(clip)))[0]
+            padded = np.zeros((1, service._bucket_len(len(sent))), np.float32)
+            padded[0, : len(sent)] = sent
+            direct = runner.denoise_audio(torch.from_numpy(padded))[0, : len(sent)]
+            check_answer(f"student {len(clip) / SR:.1f} s", sent, answer, direct)
+    finally:
+        server.shutdown()
+        server.server_close()
+    return launches
+
+
+def student_bench(torch, card):
+    """Phase 6f (f): the student's serving benches at batch 256 (folded, in
+    both modes, and live-BN with K3), and the training leg of
+    ``eval.bench`` (full width, fixed crops) at batch 256 and 16, each with
+    its device idle share and peak memory."""
+    from audiodenoiser_torch.eval.bench import run_bench, run_train_bench
+    from audiodenoiser_torch.ops.cuda import deconv_kernel, reset_launch_counts
+
+    out = {}
+    for label, kw in (("noisy_phase", {}), ("complex_mask", {"mode": "complex_mask"}),
+                      ("pallas_deconv", {"pallas_deconv": True})):
+        reset_launch_counts()
+        r = run_bench(batch_size=256, clip_seconds=2.0, iters=10, profile_iters=3,
+                      width_mult=STUDENT_WIDTH, **kw)
+        expect = {"stft_kernel": "fft", "istft_kernel": "fft"}
+        if kw.get("pallas_deconv"):
+            expect["deconv_kernel"] = "wgmma"
+            check(deconv_kernel.launches == 4 * (3 + 10 + 3), "the student K3 bench's launches")
+        require_variants(f"the student's {label} bench", expect)
+        prof = r.pop("profile")
+        out[label] = {"frames_per_sec": r["value"], "batch_ms": r["batch_ms"],
+                      "device_busy_ms": prof["device_busy_ms"],
+                      "idle_share": prof.get("idle_share", "not measured")}
+        print(f"[6f bench] student {label}: {json.dumps(r)}; profile "
+              f"{json.dumps({k: v for k, v in prof.items() if k != 'top'})}", flush=True)
+        for row in prof.get("top", [])[:6]:
+            print(f"[6f bench] student {label} profile: {row['ms']:.4f} ms {row['share']:.3f} "
+                  f"{row['kernel']}", flush=True)
+        check(r["value"] > 0, f"the student's {label} bench measured nothing")
+    for batch in (256, 16):
+        torch.cuda.empty_cache()
+        r = run_train_bench(batch, profile_iters=3)
+        out[f"train_b{batch}"] = r
+        print(f"[6f train leg] batch {batch}: {json.dumps(r)}; {card}", flush=True)
+        check(math.isfinite(r["train_last_loss"]) and r["train_samples_per_sec"] > 0,
+              f"the training leg at batch {batch}")
+    return out
+
+
+def phase_student(torch, rng, rows, card, wavs):
+    """Phase 6f: the compact distilled student at width 0.25."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6f_")
+    started = None
+    try:
+        teacher, t_vars = student_teacher(tmp)
+        export, started = student_cli_start(tmp, wavs, teacher)
+        student_step_fp32(torch, t_vars)
+        fit_launches, seen = student_fit(torch, rows, tmp, teacher, card)
+        student_cli_check(torch, started, export, teacher)
+        serve_launches = student_serve(torch, rng, rows, export)
+        for name, n in fit_launches.items():
+            n += serve_launches.get(name, 0)
+            rows[name]["launches"] += n
+            rows[name]["launches_student"] = n
+        rows["deconv_kernel"]["student_variant_launches"] = seen["deconv_kernel"]
+        return student_bench(torch, card)
+    finally:
+        if started is not None and started[1].poll() is None:  # a check failed first
+            started[1].kill()
+            started[1].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -3065,6 +3413,9 @@ def main() -> None:
         phase_routed(torch, rows, card, os.path.join(shared, "eval"),
                      os.path.join(shared, "6d", "wavs"))
         print(f"[6e] phase 6e in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        student = phase_student(torch, rng, rows, card, os.path.join(shared, "6d", "wavs"))
+        print(f"[6f] phase 6f in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
     reset_launch_counts()
@@ -3093,6 +3444,13 @@ def main() -> None:
           f"batch) vs live-BN with K3 {bench_k3['value']:.1f} frames/s "
           f"({bench_k3['batch_ms']:.2f} ms) vs folded complex_mask "
           f"{bench_mask['value']:.1f} frames/s ({bench_mask['batch_ms']:.2f} ms)", flush=True)
+    print(f"[bench] the width-0.25 student beside the full-width headline: noisy phase "
+          f"{student['noisy_phase']['frames_per_sec']:.1f} vs {bench['value']:.1f} frames/s "
+          f"({student['noisy_phase']['frames_per_sec'] / bench['value']:.3f}x), complex mask "
+          f"{student['complex_mask']['frames_per_sec']:.1f} vs {bench_mask['value']:.1f} "
+          f"({student['complex_mask']['frames_per_sec'] / bench_mask['value']:.3f}x); training "
+          f"leg {student['train_b256']['train_samples_per_sec']:.1f} samples/s at batch 256, "
+          f"{student['train_b16']['train_samples_per_sec']:.1f} at batch 16; {card}", flush=True)
 
     check(all("launches" in r for r in rows.values()), "a kernel's launches were not read")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

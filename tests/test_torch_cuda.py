@@ -191,6 +191,10 @@ DECONV_SHAPES = [
     (9, 128, 16, 4, 64),       # batch not a multiple of any tile
     (1, 16, 4, 63, 8),         # wide odd W, batch 1, narrow channels
     (2, 20, 3, 5, 6),          # Cin and 4*Cout not multiples of 8
+    (16, 256, 16, 7, 128),     # the width-0.25 student's four upsamplings in a
+    (16, 128, 32, 15, 64),     # mask step, batch 16 of 2 s clips
+    (16, 64, 64, 31, 32),
+    (16, 32, 128, 63, 16),
 ]
 
 
@@ -583,6 +587,109 @@ def test_mask_step_on_card_matches_cpu(dev):
     for name, p in ref.named_parameters():
         if not name.endswith(("double_conv.0.bias", "double_conv.3.bias")):
             assert float((grads[name].double() - p.grad).norm() / p.grad.norm()) < 1e-4, name
+
+
+def test_distilled_step_on_card_matches_autograd_of_plain(dev):
+    """One fp32 distilled mask step (both teacher terms, SI-SDR on) on the
+    card through K1, K2 and its gradient, and K3 in the student, against
+    the same step through the plain versions (``torch.fft`` transforms,
+    cuDNN's transposed convolutions) and autograd on the card, at two
+    levels, the teacher twice the student's width, from one weight tree and
+    the same waveforms: the losses within 1e-5 relative and the loss's
+    gradient with respect to the mask within 1e-4 relative L2; then every
+    parameter gradient of the kernel path within 1e-4 relative L2 of a
+    float64 backward of the same input, mask cotangent and attention term
+    (the arbiter of fp32 gradients, as in ``test_mask_step_on_card_matches_cpu``;
+    a conv bias feeding train-mode BN has a gradient of rounding alone and
+    is left out). The teacher's gradients stay untouched; K1 2, K2 1, K3 2
+    launches."""
+    from types import SimpleNamespace
+
+    from torch import nn
+
+    import audiodenoiser_torch.dsp.stft as stft_lib
+    from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
+        random_flax_variables,
+        state_dict_from_flax,
+    )
+    from audiodenoiser_torch.ops.cuda import (
+        deconv_kernel,
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+    )
+    from audiodenoiser_torch.train import mask as mask_lib
+    from audiodenoiser_torch.train.bench import synth_chunks
+
+    class Tap(nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model, self.bottleneck = model, model.bottleneck
+
+        def forward(self, x):
+            y = self.model(x)
+            y.retain_grad()
+            self.x, self.y = x, y
+            return y
+
+    student_w, teacher_w = dict(features=(8, 16), bottleneck=32), dict(features=(16, 32),
+                                                                         bottleneck=64)
+    sv = random_flax_variables(2, **student_w, in_channels=3, out_channels=2)
+    tv = random_flax_variables(4, **teacher_w, in_channels=3, out_channels=2)
+    clean = torch.from_numpy(synth_chunks(2, seed=6)).to(dev)
+    noisy = (clean + 0.1 * torch.randn(clean.shape, generator=torch.Generator().manual_seed(3))
+             .to(dev)).clamp(-1, 1)
+    plain = SimpleNamespace(
+        stft=lambda *a, **kw: stft_lib.stft(*a, **{**kw, "precision": "fft"}),
+        istft=lambda *a, **kw: stft_lib.istft(*a, **{**kw, "precision": "fft"}))
+
+    def models(dtype, kernel=False):
+        teacher = ComplexMaskUNet(**teacher_w, mask_bound=8.0, residual=True, dtype=dtype)
+        teacher.load_state_dict(state_dict_from_flax(tv))
+        model = ComplexMaskUNet(**student_w, mask_bound=8.0, residual=True,
+                                pallas_deconv=kernel, dtype=dtype)
+        model.load_state_dict(state_dict_from_flax(sv))
+        return (model.to(dev, dtype).train(),
+                teacher.to(dev, dtype).eval().requires_grad_(False))
+
+    got = {}
+    for kernel in (True, False):
+        model, teacher = models(torch.float32, kernel)
+        tap = Tap(model)
+        reset_launch_counts()
+        with pytest.MonkeyPatch.context() as mp:
+            if not kernel:
+                mp.setattr(mask_lib, "stft_lib", plain)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                losses = mask_lib._mask_losses(tap, noisy, clean, 0.5, 30.0, teacher, 0.5, 1.0)
+                losses.total.backward()
+        torch.cuda.synchronize()
+        launches = (stft_kernel.launches, istft_kernel.launches, deconv_kernel.launches)
+        assert launches == ((2, 1, 2) if kernel else (0, 0, 0))
+        assert all(p.grad is None for p in teacher.parameters())
+        got[kernel] = ([float(x.detach()) for x in losses], tap.x.detach(), tap.y.grad,
+                       {n: p.grad.double() for n, p in model.named_parameters()})
+    (lk, x, g, grads), (lp, _, gp, _) = got[True], got[False]
+    for a, b in zip(lk, lp):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    assert float((g - gp).norm() / gp.norm()) < 1e-4
+
+    def attention(f):
+        a = f.square().mean(dim=1)
+        return a / (torch.linalg.vector_norm(a, dim=(-2, -1), keepdim=True) + 1e-8)
+
+    model, teacher = models(torch.float64)
+    with mask_lib._tapped(model, True) as s_feats, mask_lib._tapped(teacher, True) as t_feats:
+        y = model(x.double())
+        with torch.no_grad():
+            teacher(x.double())
+    feat = (attention(s_feats[0]) - attention(t_feats[0])).square().sum(dim=(-2, -1)).mean()
+    ((y * g.double()).sum() + 1.0 * feat).backward()
+    for name, p in model.named_parameters():
+        if not name.endswith(("double_conv.0.bias", "double_conv.3.bias")):
+            err = float((grads[name] - p.grad).norm() / p.grad.norm())
+            assert err < 1e-4, f"{name}: {err:.3e}"
 
 
 def test_build_train_dataset_on_card_matches_cpu(dev, tmp_path):

@@ -173,11 +173,17 @@ class TestMaskStep:
         for k, v in state.model.state_dict().items():
             torch.testing.assert_close(v, before[k], rtol=0, atol=0)
 
-    def test_distillation_is_refused_by_name(self):
-        with pytest.raises(NotImplementedError, match="teacher.*A.10"):
-            port_mask.make_mask_steps(0.5, teacher=(None, None))
-        with pytest.raises(NotImplementedError, match="distill_weight"):
-            port_mask.make_mask_steps(distill_weight=0.1)
+    def test_distillation_is_refused_by_name(self, tmp_path):
+        """The refusals the JAX CLI keeps, with its messages: a teacher for
+        the magnitude family, and the feature term without a teacher."""
+        from audiodenoiser_torch.cli.train import main
+
+        base = ["--base_dataset_path", str(tmp_path), "--pipeline", "on_device",
+                "--noise_type", "white", "--device", "cpu"]
+        with pytest.raises(SystemExit, match="--distill_from supports --model complex_mask"):
+            main([*base, "--model", "unet", "--distill_from", "whatever.ckpt"])
+        with pytest.raises(SystemExit, match="--distill_features requires --distill_from"):
+            main([*base, "--model", "complex_mask", "--distill_features", "1.0"])
 
 
 class TestZeroInit:
