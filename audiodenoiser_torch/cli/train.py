@@ -13,6 +13,9 @@ Usage:
       --model complex_mask --pipeline on_device --noise_type mixed --width_mult 0.25 \
       --distill_from saved_models/mask_denoiser_mixed.ckpt --distill_features 1.0 \
       --export_dir ./students --export_quantized
+  python -m audiodenoiser_torch.cli.train --base_dataset_path data \
+      --model complex_mask --pipeline on_device --noise_type mixed --s2d_stem --s2d_skip 16 \
+      --attn_bottleneck --export_dir ./saved_models
 
 ``--pipeline npy`` reads prebuilt (noisy, clean) spectrogram pairs
 (``cli.create_train_dataset``); ``--pipeline on_device`` synthesizes
@@ -23,7 +26,8 @@ windows of ``--chunk_seconds``. The best model is exported as
 (on-device pipeline only) trains the complex-mask U-Net on raw waveform
 pairs (``train.mask``) and exports ``mask_denoiser_{noise_type}.ckpt``.
 A ``.json`` sidecar records what a loader needs to rebuild the model
-(the mask head, ``--width_mult``, a rate other than 8 kHz). ``cli.serve`` and ``cli.test``
+(the mask head, ``--width_mult``, the U-Net variant, a rate other than
+8 kHz). ``cli.serve`` and ``cli.test``
 load either. ``--model router`` (``--pipeline on_device --noise_type
 mixed``) trains the noise router on the labelled mixed stream for
 ``epochs x steps_per_epoch`` steps and exports ``noise_router.ckpt`` with
@@ -35,9 +39,14 @@ a sidecar recording its training window, the router of ``--auto_route``. The tra
 student may learn from a frozen teacher export (``--distill_from``, the
 masked-spectrum term ``--distill_weight`` and the bottleneck attention
 term ``--distill_features``); ``--export_quantized`` ships the best model
-with int8 kernels.
-Flags of the JAX CLI that are not ported yet are accepted by name and stop
-the run with the ROADMAP item that ports them.
+with int8 kernels. The U-Net variants of either family are JAX's:
+``--s2d_stem`` (space-to-depth stem, a half-resolution pyramid),
+``--s2d_skip K`` (with it, the full-resolution refinement path) and
+``--attn_bottleneck`` (self-attention after the bottleneck). On the GPU
+the run ends with one ``[launches]`` JSON line, each kernel's launches by
+variant.
+Flags of the JAX CLI that are not ported yet (parallelism) are accepted by
+name and stop the run with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -51,16 +60,13 @@ import time
 # flags of the JAX CLI that the port does not run yet, with the ROADMAP
 # item that ports each
 UNPORTED = {
-    "attn_bottleneck": "ROADMAP A.10b (attention bottleneck)",
-    "s2d_stem": "ROADMAP A.10b (s2d stem)",
-    "s2d_skip": "ROADMAP A.10b (s2d stem)",
     "model_parallel": "ROADMAP A.11 (parallelism)",
     "mesh": "ROADMAP A.11 (parallelism)",
     "fsdp": "ROADMAP A.11 (parallelism)",
     "pp_stages": "ROADMAP A.11 (parallelism)",
     "pp_microbatches": "ROADMAP A.11 (parallelism)",
 }
-_UNPORTED_SWITCHES = {"attn_bottleneck", "s2d_stem", "fsdp"}
+_UNPORTED_SWITCHES = {"fsdp"}
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
 
 
@@ -147,6 +153,16 @@ def parse_args(argv=None):
                    "--distill_from); 0 leaves it out")
     p.add_argument("--export_quantized", action="store_true",
                    help="export the best model to --export_dir with int8 conv kernels")
+    p.add_argument("--attn_bottleneck", action="store_true",
+                   help="one residual self-attention block after the U-Net bottleneck "
+                   "(clip-wide context); recorded in the sidecar")
+    p.add_argument("--s2d_stem", action="store_true",
+                   help="space-to-depth stem + sub-pixel head: the whole pyramid at half "
+                   "resolution; recorded in the sidecar")
+    p.add_argument("--s2d_skip", type=int, default=0,
+                   help="with --s2d_stem: width of a full-resolution refinement path (one "
+                   "BN-free Conv3x3 -> ReLU on the input, a final Conv3x3); 0 disables; "
+                   "recorded in the sidecar")
     p.add_argument("--device", type=str, default=None, help="default: the GPU")
     for name in UNPORTED:
         if name in _UNPORTED_SWITCHES:
@@ -175,6 +191,9 @@ def _check_ported(args) -> None:
     for name, item in UNPORTED.items():
         if hasattr(args, name):
             raise SystemExit(f"--{name} is not ported yet: {item}")
+    if args.s2d_skip and not args.s2d_stem:
+        raise SystemExit("--s2d_skip requires --s2d_stem (it refines the "
+                         "sub-pixel head)")
     if args.model == "complex_mask" and args.pipeline != "on_device":
         raise SystemExit("--model complex_mask requires --pipeline on_device "
                          "(it trains on waveform pairs)")
@@ -310,7 +329,8 @@ def main(argv=None):
                     lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
                     grad_accum=args.grad_accum, remat=args.remat,
                     ckpt_every=args.ckpt_every, ema_decay=args.ema_decay,
-                    width_mult=args.width_mult, device=str(device),
+                    width_mult=args.width_mult, attn_bottleneck=args.attn_bottleneck,
+                    s2d_stem=args.s2d_stem, s2d_skip=args.s2d_skip, device=str(device),
                     extra_config=vars(args))
     if args.pipeline == "npy":
         train_batches, val_batches, steps_per_epoch = _npy_batches(args)
@@ -323,13 +343,21 @@ def main(argv=None):
     fit_kwargs, meta = {}, None
     if args.model == "complex_mask":
         fit_kwargs, meta = _mask_family(args, device, cfg)
-    elif args.width_mult != 1.0 or args.sample_rate != 8000:
+    elif (args.width_mult != 1.0 or args.attn_bottleneck or args.s2d_stem
+          or args.sample_rate != 8000):
         # what a loader needs to rebuild the magnitude model
-        meta = {"width_mult": args.width_mult}
+        meta = {"width_mult": args.width_mult, **_variant_meta(args)}
         if args.sample_rate != 8000:
             meta["sample_rate"] = args.sample_rate
+    from audiodenoiser_torch.ops.cuda import KERNELS, reset_launch_counts, variant_launches
+
+    reset_launch_counts()  # this run's launches alone (--noise_type all runs four)
     with maybe_trace(args.profile_dir):
         result = fit(cfg, train_batches, val_batches, **fit_kwargs)
+    if device.type == "cuda":
+        counts = {k.__name__: {"launches": k.launches, **variant_launches(k)}
+                  for k in KERNELS}
+        print(f"[launches] {json.dumps(counts)}", flush=True)
 
     run_meta = os.path.splitext(result["best_path"])[0] + ".json"
     if meta is not None and result["exported_best"]:
@@ -371,6 +399,18 @@ def main(argv=None):
                 shutil.copyfile(result["best_path"], dst)
                 print(f"Exported best model to {dst}")
     return result
+
+
+def _variant_meta(args) -> dict:
+    """The sidecar keys of the U-Net variant, JAX's: set switches only."""
+    meta = {}
+    if args.attn_bottleneck:
+        meta["attn_bottleneck"] = True
+    if args.s2d_stem:
+        meta["s2d_stem"] = True
+    if args.s2d_skip:
+        meta["s2d_skip"] = args.s2d_skip
+    return meta
 
 
 def _train_router(args, device):
@@ -415,12 +455,14 @@ def _train_router(args, device):
 def _mask_family(args, device, cfg):
     """``fit``'s state factory and steps for ``--model complex_mask`` (with
     ``cfg``'s schedule and accumulation), and the sidecar that records the
-    head, the width, a rate other than 8 kHz and the teacher, with the JAX
-    CLI's per-type defaults: SI-SDR weight 0.5, clamp 30 dB, bound 8 where
+    head, the width, the variant, a rate other than 8 kHz and the teacher,
+    with the JAX CLI's per-type defaults: SI-SDR weight 0.5, clamp 30 dB, bound 8 where
     the stream holds noise_cancellation (undoing its 0.2x attenuation needs
     ~5x gain), else 2; a residual head starts as a zero-initialised
     pass-through. The teacher is the live-BN model of ``--distill_from``
-    in the run's dtype, frozen."""
+    in the run's dtype, frozen; ``--distill_features`` needs it at the
+    student's bottleneck size (an s2d student's is half a plain
+    teacher's)."""
     import torch
 
     from audiodenoiser_torch.eval.runner import load_model_from_path
@@ -438,18 +480,27 @@ def _mask_family(args, device, cfg):
             "residual": residual}
     if args.width_mult != 1.0:
         meta["width_mult"] = args.width_mult
+    meta.update(_variant_meta(args))
     if args.sample_rate != 8000:
         meta["sample_rate"] = args.sample_rate
     teacher = None
     if args.distill_from:
         teacher = load_model_from_path(args.distill_from, dtype=dtype, device=device,
                                        stem="mask_denoiser", fold=False).requires_grad_(False)
+        if args.distill_features and teacher.s2d_stem != args.s2d_stem:
+            raise SystemExit(
+                "--distill_features compares the student's and the teacher's bottleneck "
+                "maps, which need the same --s2d_stem: an s2d bottleneck is half the size "
+                f"of a plain one (student s2d_stem={args.s2d_stem}, teacher "
+                f"s2d_stem={teacher.s2d_stem})")
         meta["distilled_from"] = args.distill_from
         if args.distill_features:
             meta["distill_features"] = args.distill_features
     factory = lambda: mask_lib.create_mask_train_state(
         args.seed, mask_lib.ComplexMaskUNet(dtype=dtype, mask_bound=bound, residual=residual,
                                             zero_out_init=residual,
+                                            attn_bottleneck=args.attn_bottleneck,
+                                            s2d_stem=args.s2d_stem, s2d_skip=args.s2d_skip,
                                             **width_kwargs(args.width_mult)),
         learning_rate=args.learning_rate, device=device, schedule=cfg.lr_schedule,
         warmup_steps=cfg.warmup_steps, total_steps=cfg.total_steps,

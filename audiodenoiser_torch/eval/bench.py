@@ -11,6 +11,7 @@ Flax tree layout by ``models.convert``.
   python -m audiodenoiser_torch.eval.bench --batch_size 256 [--pallas_deconv]
   python -m audiodenoiser_torch.eval.bench --mode complex_mask
   python -m audiodenoiser_torch.eval.bench --width_mult 0.25 [--no-fold]
+  python -m audiodenoiser_torch.eval.bench --mode int8
 
 prints one JSON line naming the card and its power limit, with the other
 legs beside the batch numbers (each can be left out): the training leg
@@ -23,7 +24,12 @@ headline), and the stream benches: a WOLA session
 at 8 kHz and at 16 kHz (``stream16k_*``; 1 s packets, its realtime
 factor, wall ms a packet and device ms a window step), and pools of 8 and
 64 lockstep streams (``stream_pool{,64}_*``: aggregate realtime factor,
-ms a tick), at the run's ``--width_mult``. ``--width_mult`` scales the
+ms a tick), at the run's ``--width_mult``; beside a full-width headline
+the JAX bench's variant legs: the s2d stem and the s2d stem with a
+16-channel refinement path in the run's mode and fold
+(``s2d_frames_per_sec``, ``s2d_skip16_frames_per_sec``), the s2d training
+leg (``s2d_train_*``) and int8 compute (``int8_frames_per_sec``, with its
+peak memory); ``--no_s2d`` and ``--no_int8`` leave them out. ``--width_mult`` scales the
 U-Net's channels (``models.unet.scaled_widths``); ``--no-fold`` serves the
 live-BN bf16 model instead of the folded one. With
 ``--pallas_deconv`` the U-Net is the live-BN bf16 one, unfolded, whose
@@ -31,7 +37,9 @@ four upsamplings run through the K3 kernel, as the JAX bench's option of
 that name runs its Pallas deconv. ``--mode complex_mask`` runs the
 BN-folded bf16 ``ComplexMaskUNet`` (31,043,586 parameters, mask bound 2)
 in ``complex_mask`` mode: the same STFT and iSTFT kernels, a 3-channel
-input and a 2-channel tanh mask.
+input and a 2-channel tanh mask. ``--mode int8`` runs ``Int8UNet``
+(``models.int8``: BN folded, int8 weights and activations, int32 products
+through ``torch._int_mm``) in ``noisy_phase`` mode.
 """
 
 from __future__ import annotations
@@ -62,32 +70,40 @@ def card_info() -> str:
 
 def build_runner(seed: int = 0, dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = None, pallas_deconv: bool = False,
-                 mode: str = "noisy_phase", width_mult: float = 1.0, fold: bool = True):
+                 mode: str = "noisy_phase", width_mult: float = 1.0, fold: bool = True,
+                 s2d: bool = False, s2d_skip: int = 0, attn: bool = False):
     """A runner over the folded U-Net at ``width_mult`` with seeded random
     weights (with ``pallas_deconv`` or ``fold=False``: the live-BN U-Net,
     unfolded, with K3 for ``pallas_deconv``; with ``mode="complex_mask"``:
-    the ``ComplexMaskUNet``)."""
+    the ``ComplexMaskUNet``; with ``mode="int8"``: ``Int8UNet`` in
+    ``noisy_phase`` mode). ``s2d``, ``s2d_skip`` and ``attn`` build the
+    variant (``s2d_stem``, ``s2d_skip``, ``attn_bottleneck``)."""
     from audiodenoiser_torch.eval.runner import MODES, DenoiserRunner
     from audiodenoiser_torch.models import (
         ComplexMaskUNet,
         UNet,
         fold_for_inference,
         load_flax_variables,
+        prepare_int8,
         random_flax_variables,
         width_kwargs,
     )
 
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode not in (*MODES, "int8"):
+        raise ValueError(f"mode must be one of {(*MODES, 'int8')}, got {mode!r}")
     device = resolve_device(device)
     widths = width_kwargs(width_mult)
+    variant = dict(s2d_stem=s2d, s2d_skip=s2d_skip, attn_bottleneck=attn)
     if mode == "complex_mask":
-        model = ComplexMaskUNet(dtype=dtype, pallas_deconv=pallas_deconv, **widths)
-        variables = random_flax_variables(seed, **widths, in_channels=3, out_channels=2)
+        model = ComplexMaskUNet(dtype=dtype, pallas_deconv=pallas_deconv, **widths, **variant)
+        variables = random_flax_variables(seed, **widths, in_channels=3, out_channels=2,
+                                          **variant)
     else:
-        model = UNet(dtype=dtype, pallas_deconv=pallas_deconv, **widths)
-        variables = random_flax_variables(seed, **widths)
+        model = UNet(dtype=dtype, pallas_deconv=pallas_deconv, **widths, **variant)
+        variables = random_flax_variables(seed, **widths, **variant)
     load_flax_variables(model, variables)
+    if mode == "int8":
+        return DenoiserRunner(prepare_int8(model.eval().to(device)), device=device)
     if pallas_deconv or not fold:  # K3 lives in the module a fold would replace
         return DenoiserRunner(model.eval(), device=device)
     return DenoiserRunner(fold_for_inference(model.eval(), dtype), device=device)
@@ -134,14 +150,17 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
               warmup: int = 3, pipelined: bool = True, seed: int = 0,
               device: DeviceLike = None, profile_iters: int = 0,
               pallas_deconv: bool = False, mode: str = "noisy_phase",
-              width_mult: float = 1.0, fold: bool = True) -> dict:
-    """Frames/s of the fused path in ``mode`` at ``width_mult``; with
-    ``profile_iters`` > 0 (CUDA only) also a ``device_breakdown`` of that
-    many further batches."""
+              width_mult: float = 1.0, fold: bool = True, s2d: bool = False,
+              s2d_skip: int = 0, attn: bool = False) -> dict:
+    """Frames/s of the fused path in ``mode`` at ``width_mult`` and variant
+    (``build_runner``), with the peak memory of the timed batches on the
+    card; with ``profile_iters`` > 0 (CUDA only) also a
+    ``device_breakdown`` of that many further batches."""
     device = resolve_device(device)
-    fold = fold and not pallas_deconv
+    fold = fold and not pallas_deconv and mode != "int8"
     runner = build_runner(seed, device=device, pallas_deconv=pallas_deconv, mode=mode,
-                          width_mult=width_mult, fold=fold)
+                          width_mult=width_mult, fold=fold, s2d=s2d, s2d_skip=s2d_skip,
+                          attn=attn)
     sr, hop = 8000, runner.hop
     n_samples = int(sr * clip_seconds)
     rng = np.random.default_rng(seed)
@@ -156,6 +175,8 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
     for _ in range(warmup):
         runner.denoise_audio(audio)
     sync()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     if pipelined:
         outs = [runner.denoise_audio(audio) for _ in range(iters)]
@@ -168,10 +189,15 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
     dt = time.perf_counter() - t0
     frames = batch_size * (1 + n_samples // hop) * iters
     net = ("ComplexMaskUNet" if mode == "complex_mask" else "UNet") + (
-        " live-BN bf16 with the K3 deconv" if pallas_deconv
+        " int8 compute" if mode == "int8"
+        else " live-BN bf16 with the K3 deconv" if pallas_deconv
         else " BN-folded bf16" if fold else " live-BN bf16")
     if width_mult != 1.0:
         net += f" at width {width_mult:g}"
+    if s2d:
+        net += " with the s2d stem" + (f" and s2d_skip {s2d_skip}" if s2d_skip else "")
+    if attn:
+        net += " with the attention bottleneck"
     result = {
         "metric": f"spectrogram_frames_per_sec (STFT->{net}->iSTFT, {mode})",
         "value": frames / dt,
@@ -183,11 +209,16 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
         "pallas_deconv": pallas_deconv,
         "fold": fold,
         "width_mult": width_mult,
+        "s2d": s2d,
+        "s2d_skip": s2d_skip if s2d else 0,
+        "attn": attn,
         "mode": mode,
         "batch_ms": dt / iters * 1e3,
         "device": device_name(device),
         "card": card_info() if device.type == "cuda" else "cpu",
     }
+    if device.type == "cuda":
+        result["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
     if profile_iters and device.type == "cuda":
         result["profile"] = device_breakdown(lambda: runner.denoise_audio(audio),
                                              profile_iters, device)
@@ -196,7 +227,7 @@ def run_bench(batch_size: int = 256, clip_seconds: float = 2.0, iters: int = 20,
 
 def run_train_bench(batch_size: int = 256, iters: int = 10, warmup: int = 2,
                     seed: int = 0, device: DeviceLike = None,
-                    profile_iters: int = 0) -> dict:
+                    profile_iters: int = 0, s2d: bool = False) -> dict:
     """The training leg of the JAX bench: the full-width bf16 U-Net's
     ``train_step`` (forward, combined loss, backward, clip, AdamW) on fixed
     |N(0, 1)| (256, 64) crops with clean = 0.8 x noisy, ``iters`` steps
@@ -204,14 +235,15 @@ def run_train_bench(batch_size: int = 256, iters: int = 10, warmup: int = 2,
     ``train_step_ms``, ``train_tflops_per_sec`` (the operations of one
     warm-up step as ``FlopCounterMode`` counts them) and on the card the
     peak memory of the timed steps; with ``profile_iters`` (CUDA only) the
-    device's busy time and idle share over that many further steps."""
+    device's busy time and idle share over that many further steps. With
+    ``s2d`` the U-Net has the s2d stem and the keys start ``s2d_train_``."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from audiodenoiser_torch.models import UNet
     from audiodenoiser_torch.train.loop import create_train_state, train_step
 
     device = resolve_device(device)
-    state = create_train_state(seed, UNet(dtype=torch.bfloat16), device=device)
+    state = create_train_state(seed, UNet(dtype=torch.bfloat16, s2d_stem=s2d), device=device)
     rng = np.random.default_rng(seed)
     noisy = torch.from_numpy(np.abs(rng.standard_normal((batch_size, 1, 256, 64)))
                              .astype(np.float32)).to(device)
@@ -237,19 +269,21 @@ def run_train_bench(batch_size: int = 256, iters: int = 10, warmup: int = 2,
         losses = step()
     sync()
     dt = time.perf_counter() - t0
-    out = {"train_samples_per_sec": batch_size * iters / dt,
-           "train_step_ms": dt / iters * 1e3,
-           "train_batch_size": batch_size,
-           "train_last_loss": float(losses.total)}
+    pre = "s2d_train" if s2d else "train"
+    out = {f"{pre}_samples_per_sec": batch_size * iters / dt,
+           f"{pre}_step_ms": dt / iters * 1e3,
+           f"{pre}_batch_size": batch_size,
+           f"{pre}_last_loss": float(losses.total)}
     if flops:
-        out["train_tflops_per_sec"] = flops * iters / dt / 1e12
+        out[f"{pre}_tflops_per_sec"] = flops * iters / dt / 1e12
     if device.type == "cuda":
-        out["train_peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        out[f"{pre}_peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
         if profile_iters:
             prof = device_breakdown(step, profile_iters, device)
-            out["train_device_busy_ms"] = prof["device_busy_ms"]
-            out["train_idle_share"] = prof.get("idle_share", "not measured")
-            out["train_profile_wall_ms"] = prof["wall_ms"]
+            out[f"{pre}_device_busy_ms"] = prof["device_busy_ms"]
+            out[f"{pre}_idle_share"] = prof.get("idle_share", "not measured")
+            out[f"{pre}_profile_wall_ms"] = prof["wall_ms"]
+            out[f"{pre}_profile_top"] = prof.get("top", [])
     return out
 
 
@@ -365,8 +399,10 @@ def main(argv=None):
                    help="synchronise after every batch instead of pipelining")
     p.add_argument("--pallas_deconv", action="store_true",
                    help="the live-BN U-Net with the K3 deconv kernel, unfolded")
-    p.add_argument("--mode", choices=["noisy_phase", "complex_mask"], default="noisy_phase",
-                   help="complex_mask: the folded ComplexMaskUNet in its own mode")
+    p.add_argument("--mode", choices=["noisy_phase", "complex_mask", "int8"],
+                   default="noisy_phase",
+                   help="complex_mask: the folded ComplexMaskUNet in its own mode; int8: "
+                   "Int8UNet (int8 compute) in noisy_phase mode")
     p.add_argument("--no_stream", action="store_true",
                    help="leave out the 8 kHz stream bench")
     p.add_argument("--no_stream16k", action="store_true",
@@ -379,6 +415,9 @@ def main(argv=None):
     p.add_argument("--train_batch_size", type=int, default=256)
     p.add_argument("--no_student", action="store_true",
                    help="leave out the compact student (width 0.25) beside the headline")
+    p.add_argument("--no_s2d", action="store_true",
+                   help="leave out the s2d stem legs (s2d, s2d_skip 16, the s2d training leg)")
+    p.add_argument("--no_int8", action="store_true", help="leave out the int8 compute leg")
     p.add_argument("--width_mult", type=float, default=1.0,
                    help="bench a width-scaled compact student instead of the 31M U-Net")
     p.add_argument("--fold", action=argparse.BooleanOptionalAction, default=True,
@@ -397,6 +436,22 @@ def main(argv=None):
                             pipelined=not args.latency, mode=args.mode, width_mult=0.25)
         result["student_width_mult"] = 0.25
         result["student_frames_per_sec"] = student["value"]
+    if not args.no_s2d and args.width_mult == 1.0:
+        # int8 compute covers the plain U-Net only: its s2d legs run bf16
+        mode = "noisy_phase" if args.mode == "int8" else args.mode
+        for key, skip in (("s2d_frames_per_sec", 0), ("s2d_skip16_frames_per_sec", 16)):
+            leg = run_bench(args.batch_size, args.clip_seconds, max(5, args.iters // 2),
+                            pipelined=not args.latency, mode=mode, fold=args.fold,
+                            s2d=True, s2d_skip=skip)
+            result[key] = leg["value"]
+        if not args.no_train:
+            result.update(run_train_bench(args.train_batch_size, s2d=True))
+    if not args.no_int8 and args.width_mult == 1.0:
+        leg = run_bench(args.batch_size, args.clip_seconds, max(5, args.iters // 2),
+                        pipelined=not args.latency, mode="int8")
+        result["int8_frames_per_sec"] = leg["value"]
+        if "peak_memory_gib" in leg:
+            result["int8_peak_memory_gib"] = leg["peak_memory_gib"]
     print(json.dumps(result))
 
 

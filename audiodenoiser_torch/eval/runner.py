@@ -52,8 +52,6 @@ from audiodenoiser_torch.train.checkpoints import load_exported
 # Griffin-Lim reconstruction modes of a magnitude model, by griffin_lim mode
 GL_MODES = {"griffin_lim": "correct", "reference_gl": "reference"}
 MODES = ("noisy_phase", "complex_mask", *GL_MODES)
-# sidecar options of UNet variants the port has not reached
-UNPORTED_SIDECAR = ("s2d_stem", "s2d_skip", "attn_bottleneck")
 
 
 def identity_bypass(out: torch.Tensor, orig: torch.Tensor,
@@ -98,8 +96,9 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
     """Load a ``.ckpt`` export by path and fold it for inference on
     ``device`` (``fold=False``: the live-BN eval model). Its ``.json``
     sidecar, when there is one, rebuilds the architecture: ``width_mult``,
-    and for ``stem="mask_denoiser"`` the mask head's ``mask_bound``
-    (default 2.0) and ``residual``."""
+    the variants ``attn_bottleneck``, ``s2d_stem`` and ``s2d_skip``, and
+    for ``stem="mask_denoiser"`` the mask head's ``mask_bound`` (default
+    2.0) and ``residual``."""
     device = resolve_device(device)
     if not os.path.exists(path):
         raise FileNotFoundError(f"Model file not found: {path}")
@@ -108,12 +107,13 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
     if os.path.exists(sidecar):
         with open(sidecar) as f:
             meta = json.load(f)
-    asked = [k for k in UNPORTED_SIDECAR if meta.get(k)]
-    if asked:
-        raise NotImplementedError(
-            f"{sidecar} asks for {', '.join(asked)}: these U-Net variants are not "
-            "ported yet (ROADMAP A.10b)")
     kwargs = width_kwargs(float(meta.get("width_mult", 1.0)))
+    if meta.get("attn_bottleneck"):
+        kwargs["attn_bottleneck"] = True
+    if meta.get("s2d_stem"):
+        kwargs["s2d_stem"] = True
+    if meta.get("s2d_skip"):
+        kwargs["s2d_skip"] = int(meta["s2d_skip"])
     if stem == "mask_denoiser":
         model = ComplexMaskUNet(mask_bound=float(meta.get("mask_bound", 2.0)),
                                 residual=bool(meta.get("residual", False)), **kwargs)

@@ -11,8 +11,14 @@ port imports nothing of the JAX package:
   up{k-1}_deconv            -> upconv{k}.up
   up{k-1}_conv/*            -> upconv{k}.conv.double_conv.*
   out                       -> out
+  s2d_skip_conv, s2d_refine -> s2d_skip_conv, s2d_refine
+  bottleneck_attn/ln        -> bottleneck_attn.ln (scale -> weight)
+  bottleneck_attn/mhsa/{query,key,value,out} -> bottleneck_attn.{query,key,value,out}
 
-A Conv kernel goes from HWIO to OIHW. A Flax ConvTranspose kernel is
+A Conv kernel goes from HWIO to OIHW. The attention's DenseGeneral
+kernels, (c, heads, d) for query, key and value and (heads, d, c) for
+``out``, flatten their head axes into the (out, in) weight of a
+``Linear``; the (heads, d) biases flatten alike. A Flax ConvTranspose kernel is
 spatially flipped against torch's adjoint convention: the flip is undone
 with ``k[::-1, ::-1]`` before the kernel goes to (Cin, Cout, kh, kw).
 BatchNorm gains the ``num_batches_tracked`` that a strict load expects.
@@ -60,10 +66,26 @@ def _double(p, s, out: dict, prefix: str) -> None:
         _bn(p[f"bn{i}"], s[f"bn{i}"], out, f"{prefix}.double_conv.{bi}")
 
 
+_ATTN = ("query", "key", "value", "out")
+
+
+def _attention(p: Mapping[str, Any], out: dict, prefix: str) -> None:
+    out[f"{prefix}.ln.weight"] = _t(p["ln"]["scale"])
+    out[f"{prefix}.ln.bias"] = _t(p["ln"]["bias"])
+    for name in _ATTN:
+        k = np.asarray(p["mhsa"][name]["kernel"])
+        if name == "out":  # (heads, d, c)
+            w = k.reshape(-1, k.shape[-1]).T
+        else:  # (c, heads, d)
+            w = k.reshape(k.shape[0], -1).T
+        out[f"{prefix}.{name}.weight"] = _t(w)
+        out[f"{prefix}.{name}.bias"] = _t(np.asarray(p["mhsa"][name]["bias"]).reshape(-1))
+
+
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """``{"params", "batch_stats"}`` of a Flax ``UNet`` (numpy arrays) ->
-    a state_dict that the port's ``UNet`` of the same widths loads with
-    ``strict=True``."""
+    """``{"params", "batch_stats"}`` of a Flax ``UNet`` (numpy arrays), any
+    of its variants -> a state_dict that the port's ``UNet`` of the same
+    widths and switches loads with ``strict=True``."""
     params, stats = variables["params"], variables["batch_stats"]
     levels = sum(1 for k in params if k.startswith("down"))
     out: dict = {}
@@ -71,11 +93,15 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
         _double(params[f"down{k - 1}"], stats[f"down{k - 1}"], out,
                 f"downconv{k}.conv")
     _double(params["bottleneck"], stats["bottleneck"], out, "bottleneck")
+    if "bottleneck_attn" in params:
+        _attention(params["bottleneck_attn"], out, "bottleneck_attn")
     for k in range(1, levels + 1):
         _deconv(params[f"up{k - 1}_deconv"], out, f"upconv{k}.up")
         _double(params[f"up{k - 1}_conv"], stats[f"up{k - 1}_conv"], out,
                 f"upconv{k}.conv")
-    _conv(params["out"], out, "out")
+    for name in ("out", "s2d_skip_conv", "s2d_refine"):
+        if name in params:
+            _conv(params[name], out, name)
     return out
 
 
@@ -105,6 +131,21 @@ def _double_inv(sd, prefix: str):
     return p, s
 
 
+def _attention_inv(sd, prefix: str, heads: int = 4) -> dict:
+    p = {"ln": {"scale": _np(sd[f"{prefix}.ln.weight"]).copy(),
+                "bias": _np(sd[f"{prefix}.ln.bias"]).copy()}, "mhsa": {}}
+    for name in _ATTN:
+        w = _np(sd[f"{prefix}.{name}.weight"])
+        b = _np(sd[f"{prefix}.{name}.bias"]).copy()
+        if name == "out":
+            k = w.T.reshape(heads, -1, w.shape[0])
+        else:
+            k = w.T.reshape(w.shape[1], heads, -1)
+            b = b.reshape(heads, -1)
+        p["mhsa"][name] = {"kernel": np.ascontiguousarray(k), "bias": b}
+    return p
+
+
 def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The port's ``UNet`` / ``ComplexMaskUNet`` state_dict (any device) ->
     ``{"params", "batch_stats"}`` of float32 numpy arrays in the Flax tree
@@ -117,11 +158,15 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict:
         params[f"down{k - 1}"], stats[f"down{k - 1}"] = _double_inv(
             state_dict, f"downconv{k}.conv")
     params["bottleneck"], stats["bottleneck"] = _double_inv(state_dict, "bottleneck")
+    if "bottleneck_attn.ln.weight" in state_dict:
+        params["bottleneck_attn"] = _attention_inv(state_dict, "bottleneck_attn")
     for k in range(1, levels + 1):
         params[f"up{k - 1}_deconv"] = _deconv_inv(state_dict, f"upconv{k}.up")
         params[f"up{k - 1}_conv"], stats[f"up{k - 1}_conv"] = _double_inv(
             state_dict, f"upconv{k}.conv")
-    params["out"] = _conv_inv(state_dict, "out")
+    for name in ("out", "s2d_skip_conv", "s2d_refine"):
+        if f"{name}.weight" in state_dict:
+            params[name] = _conv_inv(state_dict, name)
     return {"params": params, "batch_stats": stats}
 
 
@@ -137,14 +182,19 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mo
 def random_flax_variables(seed: int = 0,
                           features: Sequence[int] = (64, 128, 256, 512),
                           bottleneck: int = 1024, in_channels: int = 1,
-                          out_channels: int = 1) -> dict:
+                          out_channels: int = 1, s2d_stem: bool = False,
+                          s2d_skip: int = 0, attn_bottleneck: bool = False) -> dict:
     """Seeded random variables in the Flax ``UNet`` tree layout (HWIO
     kernels; BatchNorm ``scale``/``bias`` and ``mean``/``var``), with
     non-trivial BN statistics so that a fold is load-bearing. He-scaled
     kernels keep activations of order one through the full depth.
     ``in_channels`` and ``out_channels`` (default 1 and 1, the magnitude
-    U-Net) size the first conv and the 1x1 head: 3 and 2 give the tree of
-    a ``ComplexMaskUNet``."""
+    U-Net) size the first conv and the head: 3 and 2 give the tree of a
+    ``ComplexMaskUNet``. ``s2d_stem``, ``s2d_skip`` and ``attn_bottleneck``
+    give the variants' trees; the attention's output projection is
+    nonzero (Flax starts it at zero, which makes the block a no-op), its
+    LayerNorm non-trivial. The plain tree's draws do not change with the
+    switches off."""
     rng = np.random.default_rng(seed)
 
     def conv(kh: int, cin: int, cout: int) -> dict:
@@ -166,8 +216,11 @@ def random_flax_variables(seed: int = 0,
             }
         return p, s
 
+    def f32(std, shape):
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
     params, stats = {}, {}
-    cin = in_channels
+    cin = 4 * in_channels if s2d_stem else in_channels
     for i, f in enumerate(features):
         params[f"down{i}"], stats[f"down{i}"] = double(cin, f)
         cin = f
@@ -177,7 +230,22 @@ def random_flax_variables(seed: int = 0,
         params[f"up{i}_deconv"] = conv(2, cin, f)
         params[f"up{i}_conv"], stats[f"up{i}_conv"] = double(2 * f, f)
         cin = f
-    params["out"] = conv(1, cin, out_channels)
+    skip = s2d_skip if s2d_stem else 0
+    head = skip or out_channels
+    params["out"] = conv(1, cin, 4 * head if s2d_stem else head)
+    if skip:
+        params["s2d_skip_conv"] = conv(3, in_channels, skip)
+        params["s2d_refine"] = conv(3, 2 * skip, out_channels)
+    if attn_bottleneck:
+        c, qkv, heads = bottleneck, max(64, bottleneck // 4), 4
+        mhsa = {name: {"kernel": f32(np.sqrt(1.0 / c), (c, heads, qkv // heads)),
+                       "bias": f32(0.1, (heads, qkv // heads))}
+                for name in ("query", "key", "value")}
+        mhsa["out"] = {"kernel": f32(np.sqrt(1.0 / qkv), (heads, qkv // heads, c)),
+                       "bias": f32(0.1, c)}
+        params["bottleneck_attn"] = {
+            "ln": {"scale": (1.0 + f32(0.2, c)).astype(np.float32), "bias": f32(0.3, c)},
+            "mhsa": mhsa}
     return {"params": params, "batch_stats": stats}
 
 

@@ -8,6 +8,13 @@ and the biases stay float32, cast into the conv epilogue at call time.
 Convolutions and deconvolutions go to cuDNN (``F.conv2d`` /
 ``F.conv_transpose2d``), as the JAX folded graph leaves them to XLA.
 
+The variants fold the same way. The s2d stem's first conv and the
+unpacked head are ordinary convolutions; the refinement path's
+``s2d_skip_conv`` and ``s2d_refine`` have no BatchNorm and are carried
+over as the deconvolutions and ``out`` are. The attention block cannot be
+folded: a copy of it runs unfolded on the folded activations, in the
+fold's dtype, as JAX runs its ``BottleneckAttention`` there.
+
 A folded ``ComplexMaskUNet`` keeps its mask head (``mask_bound``,
 ``mask_residual``). The head runs in float32 on the output cast back to
 the input's dtype, as the live ``ComplexMaskUNet`` runs it; the JAX
@@ -17,6 +24,7 @@ differ by about one bf16 rounding of the mask.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import torch
@@ -24,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiodenoiser_torch.models.complex_mask import mask_head
-from audiodenoiser_torch.models.unet import UNet, pad_to_match
+from audiodenoiser_torch.models.unet import UNet, depth_to_space, pad_to_match, space_to_depth
 
 
 class _Conv(nn.Module):
@@ -60,16 +68,24 @@ class FoldedUNet(nn.Module):
     computes in ``dtype`` with activations and kernels in ``channels_last``
     memory (NHWC, the layout of cuDNN's Hopper convolution kernels: in NCHW
     every convolution paid a transpose in and one out). With ``mask_bound``
-    set, the output goes through the complex-mask head."""
+    set, the output goes through the complex-mask head. ``s2d_stem``,
+    ``s2d_skip`` and ``attn`` (the unfolded attention block, or None) are
+    the U-Net's variants."""
 
     def __init__(self, convs: dict, features: Sequence[int],
                  dtype: torch.dtype = torch.bfloat16,
-                 mask_bound: Optional[float] = None, mask_residual: bool = False):
+                 mask_bound: Optional[float] = None, mask_residual: bool = False,
+                 s2d_stem: bool = False, s2d_skip: int = 0, out_channels: int = 1,
+                 attn: Optional[nn.Module] = None):
         super().__init__()
         self.features = tuple(features)
         self.dtype = dtype
         self.mask_bound = mask_bound
         self.mask_residual = mask_residual
+        self.s2d_stem = s2d_stem
+        self.s2d_skip = s2d_skip
+        self.out_channels = out_channels
+        self.attn = attn
         self.convs = nn.ModuleDict(convs)
 
     def _double(self, h: torch.Tensor, name: str) -> torch.Tensor:
@@ -79,16 +95,33 @@ class FoldedUNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype
         h = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        if self.s2d_stem:
+            in_h, in_w = h.shape[-2:]
+            if in_h % 2 or in_w % 2:
+                h = F.pad(h, (0, in_w % 2, 0, in_h % 2))
+            x_full = h
+            h = space_to_depth(h)
         skips = []
         for i in range(len(self.features)):
             h = self._double(h, f"down{i}")
             skips.append(h)
             h = F.max_pool2d(h, 2)
         h = self._double(h, "bottleneck")
+        if self.attn is not None:
+            h = self.attn(h)
         for i, skip in enumerate(reversed(skips)):
             h = pad_to_match(self.convs[f"up{i}_deconv"](h), skip)
             h = self._double(torch.cat([skip, h], dim=1), f"up{i}_conv")
-        out = self.convs["out"](h, relu=False).to(in_dtype)
+        h = self.convs["out"](h, relu=False)
+        if self.s2d_stem:
+            if self.s2d_skip:
+                fr = self.convs["s2d_skip_conv"](x_full)
+                h = self.convs["s2d_refine"](
+                    torch.cat([depth_to_space(h, self.s2d_skip), fr], dim=1), relu=False)
+            else:
+                h = depth_to_space(h, self.out_channels)
+            h = h[..., :in_h, :in_w]
+        out = h.to(in_dtype)
         if self.mask_bound is not None:
             out = mask_head(out, self.mask_bound, self.mask_residual)
         return out
@@ -98,7 +131,8 @@ def fold_for_inference(model: UNet,
                        dtype: torch.dtype = torch.bfloat16) -> FoldedUNet:
     """Fold every DoubleConv's eval BatchNorm and pre-cast kernels to
     ``dtype``; the result lives on ``model``'s device. A
-    ``ComplexMaskUNet`` keeps its mask head."""
+    ``ComplexMaskUNet`` keeps its mask head, a variant its stem, refinement
+    path and attention block."""
     convs = {}
 
     def fold_double(name: str, block) -> None:
@@ -120,6 +154,12 @@ def fold_for_inference(model: UNet,
             fold_double(f"up{i}_conv", up.conv)
         fold_double("bottleneck", model.bottleneck)
         convs["out"] = plain(model.out)
+        if model.s2d_skip:
+            convs["s2d_skip_conv"] = plain(model.s2d_skip_conv)
+            convs["s2d_refine"] = plain(model.s2d_refine)
+    attn = copy.deepcopy(model.bottleneck_attn) if model.attn_bottleneck else None
     return FoldedUNet(convs, model.features, dtype,
                       mask_bound=getattr(model, "mask_bound", None),
-                      mask_residual=bool(getattr(model, "residual", False))).eval()
+                      mask_residual=bool(getattr(model, "residual", False)),
+                      s2d_stem=model.s2d_stem, s2d_skip=model.s2d_skip,
+                      out_channels=model.out_channels, attn=attn).eval()

@@ -13,11 +13,11 @@ complex-mask steps of ``train.mask`` on raw waveform batches.
 The optimizer takes JAX's schedules (constant with a linear warm-up, or
 warm-up plus cosine decay) and gradient accumulation (``optax.MultiSteps``);
 ``fit`` adds an EMA of the weights, ``remat``, ``width_mult`` (the
-compact student family of ``models.unet.scaled_widths``) and a resume
+compact student family of ``models.unet.scaled_widths``), the U-Net
+variants (``attn_bottleneck``, ``s2d_stem``, ``s2d_skip``) and a resume
 state written every ``ckpt_every`` epochs (``train.checkpoints``).
 
-Not ported yet: the device mesh and FSDP (ROADMAP A.11); the s2d stem and
-the attention bottleneck (A.10b).
+Not ported yet: the device mesh and FSDP (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -192,25 +192,31 @@ def _generator(seed: SeedLike) -> torch.Generator:
 @torch.no_grad()
 def init_flax_like(model: nn.Module, seed: SeedLike = 0) -> nn.Module:
     """Flax's default initialisers from a seeded generator: LeCun-normal
-    (truncated at two standard deviations, fan-in of kh*kw*Cin) for conv
-    and transposed-conv kernels, zero biases, BatchNorm scale 1, bias 0,
-    statistics 0 and 1; the 1x1 head's kernel zero for a model built with
-    ``zero_out_init``. Not Flax's bits: the same distribution."""
+    (truncated at two standard deviations, fan-in of kh*kw*Cin, or the
+    input features of a dense layer) for conv, transposed-conv and the
+    attention's dense kernels, zero biases, BatchNorm and LayerNorm scale
+    1, bias 0, statistics 0 and 1; zero kernels for the attention's output
+    projection and, in a model built with ``zero_out_init``, its ``head``.
+    Not Flax's bits: the same distribution."""
     gen = _generator(seed)
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            cin = m.in_channels
-            fan_in = cin * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if isinstance(m, nn.Linear):
+                fan_in = m.in_features
+            else:
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
             # the stddev of a unit normal truncated to [-2, 2]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             w = torch.empty(m.weight.shape)
             nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
             m.weight.copy_(w * std)
+            if getattr(m, "zero_init", False):
+                m.weight.zero_()
             m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
     if getattr(model, "zero_out_init", False):
-        model.out.weight.zero_()
+        model.head.weight.zero_()
     return model
 
 
@@ -284,6 +290,9 @@ class FitConfig:
     ckpt_every: int = 1  # write the resume state every N epochs (and after the last)
     ema_decay: Optional[float] = None  # e.g. 0.999: track, validate and export an EMA
     width_mult: float = 1.0  # channel widths of models.unet.scaled_widths; 1.0: 31M params
+    attn_bottleneck: bool = False  # models.unet.BottleneckAttention after the bottleneck
+    s2d_stem: bool = False  # space-to-depth stem + sub-pixel head: a half-resolution pyramid
+    s2d_skip: int = 0  # with s2d_stem: width of the full-resolution refinement path
     device: Optional[str] = None  # None: the card
     extra_config: dict = field(default_factory=dict)
 
@@ -329,9 +338,9 @@ def fit(config: FitConfig,
     batches, numpy arrays or tensors: (B, 1, F, T) magnitudes for the
     default steps, what ``steps`` takes otherwise. ``state_factory``
     supplies the model and optimizer (how a ``UNet(pallas_deconv=True)``
-    reaches training); by default a ``UNet`` at the configured width, in the
-    configured precision and ``remat``, initialised from ``config.seed``, with the
-    configured schedule and accumulation. ``steps`` is a ``(train_step,
+    reaches training); by default a ``UNet`` at the configured width and
+    variant, in the configured precision and ``remat``, initialised from
+    ``config.seed``, with the configured schedule and accumulation. ``steps`` is a ``(train_step,
     eval_step)`` pair (``train.mask.make_mask_steps``); by default the
     magnitude U-Net's.
 
@@ -360,7 +369,9 @@ def fit(config: FitConfig,
         state = state_factory()
     else:
         dtype = torch.bfloat16 if config.precision == "bf16" else torch.float32
-        model = UNet(dtype=dtype, remat=config.remat, **width_kwargs(config.width_mult))
+        model = UNet(dtype=dtype, remat=config.remat,
+                     attn_bottleneck=config.attn_bottleneck, s2d_stem=config.s2d_stem,
+                     s2d_skip=config.s2d_skip, **width_kwargs(config.width_mult))
         state = create_train_state(config.seed, model,
                                    learning_rate=config.learning_rate,
                                    device=config.device, schedule=config.lr_schedule,

@@ -18,7 +18,10 @@ With a frozen teacher (knowledge distillation for a compact student,
 masked spectra over their real and imaginary parts, and
 ``distill_feat_weight`` times the attention-transfer distance at
 ``FEATURE_TAPS`` (the bottleneck ``DoubleConv``'s output, read through a
-forward hook that lives for one call). The teacher runs in eval mode under
+forward hook that lives for one call; with ``attn_bottleneck`` that is
+before the attention block, as JAX taps the module named ``bottleneck``).
+The two maps must have one size: an s2d student against a plain teacher
+is refused, not resized. The teacher runs in eval mode under
 ``no_grad`` on the student's features, so a distilled step still takes
 both STFTs in one K1 launch.
 
@@ -134,6 +137,12 @@ def _mask_losses(model: nn.Module, noisy_audio: torch.Tensor, clean_audio: torch
             gap = ((s_hat.real - t_hat.real).abs() + (s_hat.imag - t_hat.imag).abs()).mean()
             total = total + distill_weight * gap
         if distill_feat_weight:
+            for s, t in zip(s_feats, t_feats):
+                if s.shape[-2:] != t.shape[-2:]:
+                    raise ValueError(
+                        f"the student's bottleneck is {tuple(s.shape[-2:])} and the teacher's "
+                        f"{tuple(t.shape[-2:])}: the feature term needs one size (an s2d "
+                        "model's bottleneck is half a plain one's)")
             feat = sum((_attention_map(s) - _attention_map(t)).square().sum(dim=(-2, -1)).mean()
                        for s, t in zip(s_feats, t_feats)) / max(len(s_feats), 1)
             total = total + distill_feat_weight * feat

@@ -18,8 +18,9 @@ from the root of a checkout. Phases, each fatal on failure:
    on a spectrum with large imaginary DC and Nyquist parts, and K2's time
    a call at the bench shape for each number of frames a block may compute;
    K3 at the four upsamplings of a batch-16 training step, of a
-   batch-256 bench batch and of the width-0.25 student's batch-16 mask
-   step, in bf16 and fp32, forward and backward; K4
+   batch-256 bench batch, of the width-0.25 student's batch-16 mask
+   step and of the s2d pyramid's batch-16 mask and crop steps, in bf16
+   and fp32, forward and backward; K4
    (overlap-add, a standalone op that no path calls) at the bench shape, a
    ragged one at hop 100 and batch 10 at hop 512, in fp32 and bf16. Each
    library's variant counters say which entry ran: K1's and K2's FFT entries
@@ -157,11 +158,33 @@ from the root of a checkout. Phases, each fatal on failure:
    at batch 256 (folded in both modes, live-BN with K3) and the training
    leg of ``eval.bench`` at batch 256 and 16, each with its device idle
    share;
+6g. the rest of the model menu, over phase 6d's wavs: in fp32 at the
+   whole-clip shape (257, 126), 2 clips, cuDNN's TF32 off, the seeded
+   full-width 31,048,641-parameter ``UNet(s2d_stem, s2d_skip=16)`` and the
+   32,106,242-parameter residual ``ComplexMaskUNet`` (bound 8) with all
+   three switches (a nonzero attention projection), live-BN and folded,
+   card against CPU within 1e-4; the full-width ``Int8UNet`` card against
+   CPU on one input (the first conv's int32 accumulator bit-equal, the
+   input's rounding flips counted, the forward's relative L2 and its gap to
+   the fp32 folded forward printed, the forward within 1e-5 and every
+   layer bit-equal on the CPU's own inputs); ``cli.train --model
+   complex_mask --s2d_stem --s2d_skip 16 --attn_bottleneck`` in bf16 in
+   a subprocess (its ``[launches]`` line: K1 2 a train step and 1 a
+   validation step, K2 1 a step, K3 and K4 0 as in JAX's CLI; the export
+   and JAX's sidecar keys); ``fit`` of the same bf16 model with
+   ``pallas_deconv`` on the mixed mixer (K1 and K2 as above, K3 4 a
+   forward through wgmma alone, K4 0); the export served by ``cli.serve``
+   (5 ``/denoise`` answers against direct calls, a 3 s stream as long out
+   as in); the variant legs of ``eval.bench`` at batch 256 with their
+   device breakdowns: s2d and s2d_skip 16 folded in noisy-phase mode, int8
+   with its peak memory, the three switches folded in complex-mask mode,
+   and the s2d training leg;
 7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded,
    with ``pallas_deconv`` (K1, K2 and K3 counted; K1 and K2 through their
    FFT entries and K3 through TMA + wgmma only) and in ``complex_mask`` mode
-   (K1 and K2 counted, through their FFT entries only), and the student's
-   frames/s beside each headline.
+   (K1 and K2 counted, through their FFT entries only), the student's
+   frames/s beside each headline and the model menu's beside the noisy-phase
+   one.
 
 Before the last line come one JSON object listing every kernel with its
 launches on its path, error and times, then the card's name and power
@@ -210,6 +233,15 @@ DECONV_BENCH = ((256, 1024, 16, 7, 512), (256, 512, 32, 15, 256),
 # ... and of the width-0.25 student's mask step (batch 16 of 2 s clips, 257 x 126)
 DECONV_STUDENT = ((16, 256, 16, 7, 128), (16, 128, 32, 15, 64),
                   (16, 64, 64, 31, 32), (16, 32, 128, 63, 16))
+# ... and of the s2d pyramid at batch 16: the mask step's (129 x 63 after the
+# stem) and the crop step's (128 x 32 after it, M down to 16 x 8 x 2 = 256)
+DECONV_S2D_MASK = ((16, 1024, 8, 3, 512), (16, 512, 16, 7, 256),
+                   (16, 256, 32, 15, 128), (16, 128, 64, 31, 64))
+DECONV_S2D_CROP = ((16, 1024, 8, 2, 512), (16, 512, 16, 4, 256),
+                   (16, 256, 32, 8, 128), (16, 128, 64, 16, 64))
+DECONV_SETS = (("train", DECONV_TRAIN), ("bench", DECONV_BENCH),
+               ("student", DECONV_STUDENT), ("s2d_mask", DECONV_S2D_MASK),
+               ("s2d_crop", DECONV_S2D_CROP))
 TRAIN_TOL = 1e-4  # fp32 training step, card vs CPU: loss, grad norm, BN stats
 
 
@@ -1220,8 +1252,8 @@ def deconv_bound_ms(shapes, itemsize: int) -> tuple[float, str]:
 
 
 def phase_deconv(torch, rng):
-    """Phase 2, K3: the kernel against its plain version at the training-step
-    and bench shapes, bf16 and fp32, forward and backward; times in bf16.
+    """Phase 2, K3: the kernel against its plain version at the shapes of
+    ``DECONV_SETS``, bf16 and fp32, forward and backward; times in bf16.
     Returns the kernels-line row, timed over one training step's four
     upsamplings (launches filled in by the training phase)."""
     import torch.nn.functional as F
@@ -1234,10 +1266,9 @@ def phase_deconv(torch, rng):
     )
 
     dev = torch.device("cuda")
-    totals = {"train": {}, "bench": {}, "student": {}}
+    totals = {label: {} for label, _ in DECONV_SETS}
     train_err = 0.0
-    for label, shapes in (("train", DECONV_TRAIN), ("bench", DECONV_BENCH),
-                          ("student", DECONV_STUDENT)):
+    for label, shapes in DECONV_SETS:
         for b, cin, h, w, cout in shapes:
             x32 = torch.from_numpy(rng.standard_normal((b, h, w, cin), dtype="float32")).to(dev)
             x32 = x32.permute(0, 3, 1, 2)  # logical NCHW, channels_last memory
@@ -1291,8 +1322,7 @@ def phase_deconv(torch, rng):
                   f"{show(times)} bound_ms={bound:.4f} ({bound_by})", flush=True)
             del x32, xb
             torch.cuda.empty_cache()
-    for label, shapes in (("train", DECONV_TRAIN), ("bench", DECONV_BENCH),
-                          ("student", DECONV_STUDENT)):
+    for label, shapes in DECONV_SETS:
         bound, bound_by = deconv_bound_ms(shapes, 2)
         totals[label].update(bound_ms=bound, bound_by=bound_by)
         print(f"[kernels] deconv_kernel {label}, four upsamplings: "
@@ -1303,7 +1333,8 @@ def phase_deconv(torch, rng):
             "source": "audiodenoiser_torch/csrc/deconv_kernel.cu",
             "replaces": "audiodenoiser_tpu/ops/pallas/deconv_kernel.py:117",
             "max_abs_err": train_err, **totals["train"],
-            "student_shapes": totals["student"]}
+            "student_shapes": totals["student"],
+            "s2d_shapes": {"mask_step": totals["s2d_mask"], "crop_step": totals["s2d_crop"]}}
 
 
 def ola_bound_ms(batch: int, n_frames: int, n_fft: int, hop: int) -> tuple[float, str]:
@@ -3245,11 +3276,12 @@ def student_fit(torch, rows, tmp, teacher_path, card):
     return launches, seen
 
 
-def student_serve(torch, rng, rows, export):
-    """Phase 6f (e): the int8 student export served by ``cli.serve --model
-    complex_mask --noise_type mixed`` (width from its sidecar, folded to
-    bf16): 5 ``/denoise`` requests, each against a direct call on the batch
-    the service formed, and one ``/stream`` session as long out as in."""
+def _serve_mask_export(torch, rng, rows, export, tag, built_right):
+    """``cli.serve --model complex_mask --noise_type mixed`` over the export
+    in ``export`` (its sidecar rebuilds the model, folded to bf16): 5
+    ``/denoise`` requests, each against a direct call on the batch the
+    service formed, and one ``/stream`` session as long out as in; returns
+    K1's and K2's launches. ``built_right(model)`` checks what it built."""
     import numpy as np
 
     from audiodenoiser_torch.data.wav_io import read_wav
@@ -3260,10 +3292,8 @@ def student_serve(torch, rng, rows, export):
                                    "--max_seconds", "10"])
     try:
         runner = service.runner
-        widths = runner.model.features
-        check(widths == (16, 32, 64, 128) and runner.model.mask_bound == 8.0
-              and runner.model.mask_residual and runner.device.type == "cuda",
-              "cli.serve built the wrong student")
+        check(built_right(runner.model) and runner.device.type == "cuda",
+              f"[{tag}] cli.serve built the wrong model")
         clips = [_signal(rng, int(round(s * SR))) for s in (0.5, 1.3, 2.0, 2.7, 3.1)]
         signal = _signal(rng, 3 * SR)
         reset_launch_counts()
@@ -3273,22 +3303,31 @@ def student_serve(torch, rng, rows, export):
         out = _feed(url, info["session"], signal, (1000, 4000, 7000, 12000))
         serve_s = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in (stft_kernel, istft_kernel)}
-        print(f"[6f serve] the int8 student folded to bf16 (widths {widths} from its sidecar): "
+        print(f"[{tag}] folded to bf16 (widths {runner.model.features} from its sidecar): "
               f"5 requests and a 3 s stream in {serve_s:.3f} s, stream {len(out)} of "
               f"{len(signal)} samples, launches {launches}", flush=True)
         check(len(out) == len(signal) and bool(np.isfinite(out).all()),
-              "the student's stream did not return as many samples as it was fed")
-        _stream_kernels(rows, "the student's requests and stream")
+              f"[{tag}] the stream did not return as many samples as it was fed")
+        _stream_kernels(rows, f"[{tag}] requests and stream")
         for clip, answer in zip(clips, answers):
             sent = read_wav(io.BytesIO(_wav(clip)))[0]
             padded = np.zeros((1, service._bucket_len(len(sent))), np.float32)
             padded[0, : len(sent)] = sent
             direct = runner.denoise_audio(torch.from_numpy(padded))[0, : len(sent)]
-            check_answer(f"student {len(clip) / SR:.1f} s", sent, answer, direct)
+            check_answer(f"{tag} {len(clip) / SR:.1f} s", sent, answer, direct)
     finally:
         server.shutdown()
         server.server_close()
     return launches
+
+
+def student_serve(torch, rng, rows, export):
+    """Phase 6f (e): the int8 student export served by ``cli.serve --model
+    complex_mask --noise_type mixed`` (width from its sidecar, folded to
+    bf16): 5 ``/denoise`` requests, each against a direct call on the batch
+    the service formed, and one ``/stream`` session as long out as in."""
+    return _serve_mask_export(torch, rng, rows, export, "6f serve", lambda m: (
+        m.features == (16, 32, 64, 128) and m.mask_bound == 8.0 and m.mask_residual))
 
 
 def student_bench(torch, card):
@@ -3347,6 +3386,290 @@ def phase_student(torch, rng, rows, card, wavs):
             rows[name]["launches_student"] = n
         rows["deconv_kernel"]["student_variant_launches"] = seen["deconv_kernel"]
         return student_bench(torch, card)
+    finally:
+        if started is not None and started[1].poll() is None:  # a check failed first
+            started[1].kill()
+            started[1].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+PARAMS_S2D_SKIP = 31_048_641  # UNet(s2d_stem, s2d_skip=16), JAX's eval_shape count
+PARAMS_MENU_MASK = 32_106_242  # ComplexMaskUNet(s2d_stem, s2d_skip=16, attn_bottleneck)
+MENU = {"s2d_stem": True, "s2d_skip": 16, "attn_bottleneck": True}
+MENU_STEPS = 4  # the variant cli.train's and fit's steps (and 1 validation step)
+
+
+def menu_cli_start(tmp, wavs):
+    """Phase 6g (c), started: ``cli.train --model complex_mask --s2d_stem
+    --s2d_skip 16 --attn_bottleneck`` in bf16 on phase 6d's wavs, in a
+    subprocess."""
+    export = os.path.join(tmp, "menu_saved")
+    return export, _start_cli("cli.train menu", [
+        "audiodenoiser_torch.cli.train", "--base_dataset_path", wavs, "--pipeline", "on_device",
+        "--model", "complex_mask", "--noise_type", "mixed", "--s2d_stem", "--s2d_skip", "16",
+        "--attn_bottleneck", "--epochs", "1",
+        "--steps_per_epoch", str(MENU_STEPS), "--output_path", os.path.join(tmp, "menu_runs"),
+        "--export_dir", export], tmp)
+
+
+def menu_cli_check(torch, started, export):
+    """Phase 6g (c): the run's ``[launches]`` line (K1 2 a train step and
+    1 a validation step, K2 1 a step, through their FFT entries; K3 and K4
+    0, the upsamplings being cuDNN's as in JAX's CLI), its export of
+    32,106,242 parameters and its sidecar's keys."""
+    from audiodenoiser_torch.eval.runner import load_model_from_path
+    from audiodenoiser_torch.models import count_params
+
+    out, wall = _finish_cli(started)
+    lines = [ln for ln in out.splitlines() if ln.startswith("[launches] ")]
+    check(len(lines) == 1, "the variant cli.train printed no [launches] line")
+    counts = json.loads(lines[0][len("[launches] "):])
+    forwards = MENU_STEPS + 1
+    got = (counts["stft_kernel"]["launches"], counts["istft_kernel"]["launches"],
+           counts["deconv_kernel"]["launches"], counts["overlap_add_kernel"]["launches"])
+    want = (2 * MENU_STEPS + 1, forwards, 0, 0)
+    path = os.path.join(export, "mask_denoiser_mixed.ckpt")
+    with open(os.path.splitext(path)[0] + ".json") as f:
+        meta = json.load(f)
+    model = load_model_from_path(path, dtype=torch.float32, device="cpu", fold=False)
+    n = count_params(model)
+    print(f"[6g cli.train] exit 0 in {wall:.1f} s with the process's start; launches {counts}, "
+          f"expected K1/K2/K3/K4 {want}; {n} parameters, sidecar {meta}", flush=True)
+    check(got == want, f"the variant cli.train's K1/K2/K3/K4 launches {got} != {want}")
+    check(counts["stft_kernel"]["fft"] == got[0] and counts["istft_kernel"]["fft"] == got[1],
+          "the variant cli.train ran a kernel through another variant")
+    check(n == PARAMS_MENU_MASK, f"the variant export has {n} parameters")
+    check(meta == {**MASK_SIDECAR, **MENU}, f"the variant cli.train's sidecar {meta}")
+    check(model.s2d_stem and model.s2d_skip == 16 and model.attn_bottleneck,
+          "the sidecar did not rebuild the variant")
+    return {"stft_kernel": got[0], "istft_kernel": got[1], "deconv_kernel": got[2]}
+
+
+def menu_fit(torch, rows, tmp):
+    """Phase 6g (c): ``fit`` of the bf16 residual ``ComplexMaskUNet`` with
+    all three switches and ``pallas_deconv`` on the mixed mixer at batch 16,
+    K3 at the s2d pyramid's mask-step shapes: K1 2 a train step and 1 a
+    validation step, K2 1 a step, K3 4 a forward, each through its one
+    variant, K4 0."""
+    from audiodenoiser_torch.models import ComplexMaskUNet
+    from audiodenoiser_torch.ops.cuda import (
+        deconv_kernel,
+        istft_kernel,
+        reset_launch_counts,
+        stft_kernel,
+    )
+    from audiodenoiser_torch.train.loop import FitConfig, fit
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
+
+    mixer, val_mixer = _mask_mixer(torch, 64, 7, "cuda"), _mask_mixer(torch, 8, 9, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = FitConfig(run_name="menu", output_path=os.path.join(tmp, "menu_fit"), epochs=1,
+                    batch_size=16, precision="bf16", log_every=0)
+    factory = lambda: create_mask_train_state(0, ComplexMaskUNet(
+        dtype=torch.bfloat16, pallas_deconv=True, mask_bound=8.0, residual=True,
+        zero_out_init=True, **MENU))
+    reset_launch_counts()
+    res = fit(cfg, lambda e: (mixer.sample_audio(gen, 16) for _ in range(MENU_STEPS)),
+              lambda: (val_mixer.sample_audio(gen, 16) for _ in range(1)),
+              state_factory=factory, steps=make_mask_steps(0.5, 30.0))
+    counts = (stft_kernel.launches, istft_kernel.launches, deconv_kernel.launches)
+    forwards = MENU_STEPS + 1
+    want = (2 * MENU_STEPS + 1, forwards, 4 * forwards)
+    print(f"[6g fit] {MENU_STEPS} steps + 1 validation at batch 16 with K3; history "
+          f"{res['history']}; launches K1={counts[0]} K2={counts[1]} K3={counts[2]}, "
+          f"expected {want}", flush=True)
+    check(all(math.isfinite(v) for v in res["history"][0].values()), "the variant fit")
+    check(counts == want, "the variant fit's K1/K2/K3 launches")
+    require_variants("the variant fit", {"stft_kernel": "fft", "istft_kernel": "fft",
+                                         "deconv_kernel": "wgmma"})
+    count_off_path(rows, "the variant fit")
+    return dict(zip(("stft_kernel", "istft_kernel", "deconv_kernel"), counts))
+
+
+def _menu_models(torch, seed):
+    """Full-width seeded trees and the two fp32 models of phase 6g (a): the
+    magnitude ``UNet(s2d_stem, s2d_skip=16)`` and the residual
+    ``ComplexMaskUNet`` (bound 8) with all three switches, its attention's
+    output projection nonzero."""
+    from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
+        UNet,
+        count_params,
+        load_flax_variables,
+        random_flax_variables,
+    )
+
+    skip = {"s2d_stem": True, "s2d_skip": 16}
+    unet = load_flax_variables(UNet(**skip), random_flax_variables(seed, **skip))
+    mask = load_flax_variables(
+        ComplexMaskUNet(mask_bound=8.0, residual=True, **MENU),
+        random_flax_variables(seed + 1, in_channels=3, out_channels=2, **MENU))
+    check(count_params(unet) == PARAMS_S2D_SKIP and count_params(mask) == PARAMS_MENU_MASK,
+          "the menu's parameter counts")
+    check(float(mask.bottleneck_attn.out.weight.detach().abs().sum()) > 0,
+          "the attention's output projection is zero")
+    return {"unet s2d+skip16": (unet, 1), "mask s2d+skip16+attn": (mask, 3)}
+
+
+def menu_fp32(torch, rng):
+    """Phase 6g (a): at the whole-clip shape (257, 126), 2 clips, fp32 with
+    cuDNN's TF32 off: each model live-BN and folded on the card against
+    the CPU, within 1e-4 relative L2."""
+    import copy
+
+    import numpy as np
+
+    from audiodenoiser_torch.models import fold_for_inference
+
+    errs = {}
+    for name, (model, cin) in _menu_models(torch, 21).items():
+        x = torch.from_numpy(rng.standard_normal((2, cin, 257, 126)).astype("float32"))
+        for form in ("live", "folded"):
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                m = copy.deepcopy(model).eval()
+                m = fold_for_inference(m, torch.float32) if form == "folded" else m
+                m = m.to(dev)
+                with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                    outs[dev] = m(x.to(dev)).cpu().numpy()
+            errs[f"{name} {form}"] = _rel(outs["cuda"], outs["cpu"])
+            check(outs["cuda"].shape == (2, 1 if cin == 1 else 2, 257, 126)
+                  and bool(np.isfinite(outs["cuda"]).all()),
+                  f"[6g fp32] {name} {form}: shape or finiteness")
+    print(f"[6g fp32] card vs CPU at (257, 126), rel L2: {json.dumps(errs)}", flush=True)
+    check(all(e <= SLICE_TOL for e in errs.values()), "[6g fp32] a variant, card vs CPU")
+    return errs
+
+
+def menu_int8(torch, rng):
+    """Phase 6g (b): the full-width ``Int8UNet`` prepared on the card and on
+    the CPU (the int8 kernels equal, the scales and biases compared); the
+    CPU's preparation on both devices, run on the same input (2 clips of
+    |N(0, 1)| magnitudes at (257, 126)): the
+    first conv's int32 accumulator bit-equal, the whole forward's relative
+    L2 and its gap to the fp32 folded forward; then each layer on the
+    CPU's own input for that layer, on both devices: the quantized inputs'
+    elements that differ (rounding flips in ``x / s``) and whether the
+    layer's output is bit-equal, so a gap is placed where it starts."""
+    import copy
+
+    import numpy as np
+
+    from audiodenoiser_torch.models import (
+        UNet,
+        fold_for_inference,
+        load_flax_variables,
+        prepare_int8,
+        random_flax_variables,
+    )
+    from audiodenoiser_torch.models.int8 import quant_act
+
+    model = load_flax_variables(UNet(), random_flax_variables(22)).eval()
+    q_cpu = prepare_int8(model)
+    prepared = prepare_int8(model.cuda())  # the card's own preparation, compared
+    q_dev = copy.deepcopy(q_cpu).cuda()  # the CPU's, so the forwards share every weight
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        x = torch.from_numpy(np.abs(rng.standard_normal((2, 1, 257, 126))).astype(np.float32))
+        f32 = fold_for_inference(model, torch.float32)(x.cuda()).cpu().numpy()
+    model.cpu()
+    same = {name: (torch.equal(layer.weight.cpu(), q_cpu.layers[name].weight),
+                   float((layer.scale.cpu() - q_cpu.layers[name].scale).abs().max()),
+                   float((layer.bias.cpu() - q_cpu.layers[name].bias).abs().max()))
+            for name, layer in prepared.layers.items()}
+    del prepared
+    check(all(w for w, _, _ in same.values()), "[6g int8] the card's int8 kernels")
+    first = x.permute(0, 2, 3, 1).contiguous()
+    acc_cpu = q_cpu.layers["down0_conv0"].accumulate(first)[0]
+    acc_dev = q_dev.layers["down0_conv0"].accumulate(first.cuda())[0].cpu()
+    inputs = {}
+    hooks = [layer.register_forward_pre_hook(
+        lambda mod, args, name=name: inputs.__setitem__(name, args[0]))
+        for name, layer in q_cpu.layers.items()]
+    out_cpu = q_cpu(x).numpy()
+    for h in hooks:
+        h.remove()
+    out_dev = q_dev(x.cuda()).cpu().numpy()
+    parted = {}
+    for name, h in inputs.items():
+        flips = int((quant_act(h)[0] != quant_act(h.cuda())[0].cpu()).sum())
+        equal = torch.equal(q_cpu.layers[name](h), q_dev.layers[name](h.cuda()).cpu())
+        if flips or not equal:
+            parted[name] = {"input_flips": flips, "output_equal": equal}
+    rel = _rel(out_dev, out_cpu)
+    gap = _rel(out_dev, f32)
+    print(f"[6g int8] full width: prepared on card and CPU, kernels equal, scales and biases "
+          f"apart by at most {max(v[1] for v in same.values()):.3e} / "
+          f"{max(v[2] for v in same.values()):.3e}; first conv's int32 accumulator equal "
+          f"{torch.equal(acc_dev, acc_cpu)} ({acc_cpu.numel()} elements); whole forward card vs "
+          f"CPU rel L2 {rel:.3e}; layers that part on the CPU's own inputs {json.dumps(parted)}; "
+          f"int8 vs fp32 folded on the card rel L2 {gap:.3e}", flush=True)
+    check(torch.equal(acc_dev, acc_cpu), "[6g int8] the first conv's accumulator")
+    check(rel <= 1e-5 and not parted, "[6g int8] the forward, card vs CPU")
+    check(bool(np.isfinite(out_dev).all()) and out_dev.shape == x.shape,
+          "[6g int8] the card's forward")
+    return {"int8_card_vs_cpu": rel, "int8_vs_fp32": gap, "parted": parted}
+
+
+def menu_bench(torch, card):
+    """Phase 6g (d): the variant legs at batch 256, each with its device
+    breakdown by kernel: s2d and s2d_skip 16 folded in noisy-phase mode,
+    int8 (with its peak memory), all three switches folded in complex-mask
+    mode, and the s2d training leg."""
+    from audiodenoiser_torch.eval.bench import run_bench, run_train_bench
+    from audiodenoiser_torch.ops.cuda import reset_launch_counts
+
+    out = {}
+    for label, kw in (("s2d", {"s2d": True}), ("s2d_skip16", {"s2d": True, "s2d_skip": 16}),
+                      ("int8", {"mode": "int8"}),
+                      ("mask_menu", {"mode": "complex_mask", "s2d": True, "s2d_skip": 16,
+                                     "attn": True})):
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        r = run_bench(batch_size=256, clip_seconds=2.0, iters=10, profile_iters=3, **kw)
+        require_variants(f"the {label} bench", {"stft_kernel": "fft", "istft_kernel": "fft"})
+        prof = r.pop("profile")
+        out[label] = {"frames_per_sec": r["value"], "batch_ms": r["batch_ms"],
+                      "peak_memory_gib": r["peak_memory_gib"],
+                      "device_busy_ms": prof["device_busy_ms"],
+                      "idle_share": prof.get("idle_share", "not measured")}
+        print(f"[6g bench] {label}: {json.dumps(r)}; profile "
+              f"{json.dumps({k: v for k, v in prof.items() if k != 'top'})}", flush=True)
+        for row in prof.get("top", [])[:6]:
+            print(f"[6g bench] {label} profile: {row['ms']:.4f} ms {row['share']:.3f} "
+                  f"{row['kernel']}", flush=True)
+        check(r["value"] > 0, f"the {label} bench measured nothing")
+    torch.cuda.empty_cache()
+    r = run_train_bench(256, profile_iters=3, s2d=True)
+    top = r.pop("s2d_train_profile_top", [])
+    out["s2d_train"] = r
+    print(f"[6g train leg] s2d at batch 256: {json.dumps(r)}; {card}", flush=True)
+    for row in top[:6]:
+        print(f"[6g train leg] profile: {row['ms']:.4f} ms {row['share']:.3f} {row['kernel']}",
+              flush=True)
+    check(math.isfinite(r["s2d_train_last_loss"]) and r["s2d_train_samples_per_sec"] > 0,
+          "the s2d training leg")
+    return out
+
+
+def phase_menu(torch, rng, rows, card, wavs):
+    """Phase 6g: the rest of the model menu (the s2d stem, its refinement
+    path, the attention bottleneck, int8 compute)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6g_")
+    started = None
+    try:
+        export, started = menu_cli_start(tmp, wavs)
+        fp32 = menu_fp32(torch, rng)
+        int8 = menu_int8(torch, rng)
+        launches = menu_cli_check(torch, started, export)
+        for name, n in menu_fit(torch, rows, tmp).items():
+            launches[name] += n
+        served = _serve_mask_export(torch, rng, rows, export, "6g serve", lambda m: (
+            m.s2d_stem and m.s2d_skip == 16 and m.attn is not None and m.mask_bound == 8.0))
+        for name, n in launches.items():
+            n += served.get(name, 0)
+            rows[name]["launches"] += n
+            rows[name]["launches_menu"] = n
+        return {"fp32": fp32, "int8": int8, "bench": menu_bench(torch, card)}
     finally:
         if started is not None and started[1].poll() is None:  # a check failed first
             started[1].kill()
@@ -3416,6 +3739,9 @@ def main() -> None:
         t0 = time.perf_counter()
         student = phase_student(torch, rng, rows, card, os.path.join(shared, "6d", "wavs"))
         print(f"[6f] phase 6f in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        menu = phase_menu(torch, rng, rows, card, os.path.join(shared, "6d", "wavs"))
+        print(f"[6g] phase 6g in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
     reset_launch_counts()
@@ -3451,6 +3777,17 @@ def main() -> None:
           f"({student['complex_mask']['frames_per_sec'] / bench_mask['value']:.3f}x); training "
           f"leg {student['train_b256']['train_samples_per_sec']:.1f} samples/s at batch 256, "
           f"{student['train_b16']['train_samples_per_sec']:.1f} at batch 16; {card}", flush=True)
+    legs = menu["bench"]
+    print(f"[bench] the model menu beside the full-width headline: s2d "
+          f"{legs['s2d']['frames_per_sec']:.1f} ({legs['s2d']['frames_per_sec'] / bench['value']:.3f}x"
+          f"), s2d_skip16 {legs['s2d_skip16']['frames_per_sec']:.1f} "
+          f"({legs['s2d_skip16']['frames_per_sec'] / bench['value']:.3f}x), int8 "
+          f"{legs['int8']['frames_per_sec']:.1f} ({legs['int8']['frames_per_sec'] / bench['value']:.3f}x"
+          f", peak {legs['int8']['peak_memory_gib']:.2f} GiB) vs {bench['value']:.1f} frames/s; "
+          f"the three switches in complex-mask mode {legs['mask_menu']['frames_per_sec']:.1f} vs "
+          f"{bench_mask['value']:.1f}; s2d training leg "
+          f"{legs['s2d_train']['s2d_train_samples_per_sec']:.1f} samples/s vs "
+          f"{student['train_b256']['train_samples_per_sec']:.1f}; {card}", flush=True)
 
     check(all("launches" in r for r in rows.values()), "a kernel's launches were not read")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

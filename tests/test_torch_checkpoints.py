@@ -34,8 +34,8 @@ TREES = {"unet": dict(in_channels=1, out_channels=1),
          "mask": dict(in_channels=3, out_channels=2)}
 
 
-def _tree(kind, seed=0, **widths):
-    return random_flax_variables(seed, **(widths or NARROW), **TREES[kind])
+def _tree(kind, seed=0, **kw):
+    return random_flax_variables(seed, **{**NARROW, **kw}, **TREES[kind])
 
 
 def _leaves(tree, prefix=""):
@@ -144,16 +144,29 @@ class TestLoadModel:
         rel = np.linalg.norm(ours.numpy() - ref) / np.linalg.norm(ref)
         assert rel < 1e-5, rel
 
-    @pytest.mark.parametrize("meta", [{"s2d_stem": True}, {"s2d_skip": 8},
+    @pytest.mark.parametrize("meta", [{"s2d_stem": True}, {"s2d_stem": True, "s2d_skip": 8},
                                       {"attn_bottleneck": True}])
-    def test_unported_variants_name_their_item(self, tmp_path, meta):
-        v = _tree("unet")
+    def test_variant_sidecars_load_the_variant(self, tmp_path, meta):
+        """A sidecar naming a U-Net variant rebuilds it: the port's load of
+        a JAX export serves JAX's forward of the same file within 1e-5."""
+        v = _tree("unet", **meta)
         path = tmp_path / "unet_denoiser_white.ckpt"
         port_ckpt.export_model(str(path), v["params"], v["batch_stats"])
+        assert scaled_widths(0.125) == (NARROW["features"], NARROW["bottleneck"])
         with open(tmp_path / "unet_denoiser_white.json", "w") as f:
-            json.dump(meta, f)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            load_model_for_noise("white", str(tmp_path), device="cpu")
+            json.dump({**meta, "width_mult": 0.125}, f)
+        folded = load_model_for_noise("white", str(tmp_path), dtype=torch.float32,
+                                      device="cpu")
+        assert folded.features == NARROW["features"] and folded.s2d_stem == meta.get("s2d_stem", False)
+        assert folded.s2d_skip == meta.get("s2d_skip", 0)
+        assert (folded.attn is not None) == meta.get("attn_bottleneck", False)
+        jm, jv = jax_load_model_for_noise("white", str(tmp_path), dtype=jnp.float32)
+        x = np.abs(np.random.default_rng(5).standard_normal((2, 65, 40, 1))).astype(np.float32)
+        ref = np.asarray(jm.apply(jv, jnp.asarray(x), train=False))
+        with torch.no_grad():
+            ours = folded(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        rel = np.linalg.norm(ours.numpy() - ref) / np.linalg.norm(ref)
+        assert rel < 1e-5, rel
 
     def test_ckpt_wins_over_pth(self, tmp_path):
         """Both files present with different weights: the port serves the

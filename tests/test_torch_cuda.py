@@ -195,6 +195,14 @@ DECONV_SHAPES = [
     (16, 128, 32, 15, 64),     # mask step, batch 16 of 2 s clips
     (16, 64, 64, 31, 32),
     (16, 32, 128, 63, 16),
+    (16, 1024, 8, 3, 512),     # the s2d pyramid's four upsamplings in a mask
+    (16, 512, 16, 7, 256),     # step, batch 16 of 2 s clips (129 x 63 after
+    (16, 256, 32, 15, 128),    # the stem)
+    (16, 128, 64, 31, 64),
+    (16, 1024, 8, 2, 512),     # ... and in a crop step, batch 16 of 256 x 64
+    (16, 512, 16, 4, 256),     # crops (128 x 32 after the stem; M down to 256)
+    (16, 256, 32, 8, 128),
+    (16, 128, 64, 16, 64),
 ]
 
 
@@ -938,3 +946,94 @@ def test_routed_denoise_waveform_matches_direct_expert_calls(dev):
             group[: len(idx)] = wavs[idx]
             direct = mix.runners[e].denoise_audio(group)[: len(idx)]
             assert _max_rel(out[idx], direct) < 1e-6
+
+
+MENU_NARROW = dict(features=(16, 32, 64, 128), bottleneck=256)
+
+
+@pytest.mark.parametrize("family", ["unet", "mask"])
+def test_variants_on_card_match_cpu(dev, family):
+    """The s2d stem, its refinement path and the attention bottleneck
+    together, fp32 with TF32 off, live BN and folded, card against CPU at
+    an odd whole-clip shape (the pad, the crop and 8 x 3 tokens)."""
+    import copy
+
+    from audiodenoiser_torch.models import (
+        ComplexMaskUNet,
+        UNet,
+        fold_for_inference,
+        load_flax_variables,
+        random_flax_variables,
+    )
+
+    menu = dict(s2d_stem=True, s2d_skip=16, attn_bottleneck=True)
+    cin, cout = (1, 1) if family == "unet" else (3, 2)
+    model = (UNet(**MENU_NARROW, **menu) if family == "unet" else
+             ComplexMaskUNet(**MENU_NARROW, **menu, mask_bound=8.0, residual=True))
+    load_flax_variables(model, random_flax_variables(3, **MENU_NARROW, in_channels=cin,
+                                                     out_channels=cout, **menu))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, cin, 257, 126))
+                         .astype(np.float32))
+    for fold in (False, True):
+        outs = []
+        for d in ("cpu", dev):
+            m = copy.deepcopy(model).eval()
+            m = (fold_for_inference(m, torch.float32) if fold else m).to(d)
+            with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                outs.append(m(x.to(d)).cpu())
+        rel = ((outs[1] - outs[0]).norm() / outs[0].norm()).item()
+        assert outs[1].shape == (2, cout, 257, 126) and rel < 1e-5, (fold, rel)
+
+
+def test_int8_on_card_matches_cpu(dev):
+    """``Int8UNet`` on the card against the CPU: every layer's int32
+    products through ``torch._int_mm`` (the stem's K padded to 16, the
+    head's N to 8) bit-equal on the same input, the forward within 1e-5."""
+    from audiodenoiser_torch.models import (
+        UNet,
+        load_flax_variables,
+        prepare_int8,
+        random_flax_variables,
+    )
+    from audiodenoiser_torch.models.int8 import _int_mm
+
+    model = load_flax_variables(UNet(**MENU_NARROW), random_flax_variables(5, **MENU_NARROW))
+    q_cpu, q_dev = prepare_int8(model.eval()), prepare_int8(model.eval()).to(dev)
+    x = torch.from_numpy(np.abs(np.random.default_rng(6).standard_normal((2, 1, 257, 63)))
+                         .astype(np.float32))
+    nhwc = x.permute(0, 2, 3, 1).contiguous()
+    for name in ("down0_conv0", "down0_conv1", "up0_deconv", "out"):
+        layer = q_cpu.layers[name]
+        h = torch.rand(2, 33, 17, layer.cin) if name != "down0_conv0" else nhwc
+        a = layer.accumulate(h)[0]
+        b = q_dev.layers[name].accumulate(h.to(dev))[0].cpu()
+        assert torch.equal(a, b), name
+    out_cpu, out_dev = q_cpu(x), q_dev(x.to(dev)).cpu()
+    assert ((out_dev - out_cpu).norm() / out_cpu.norm()).item() < 1e-5
+    ri = torch.randint(-127, 128, (9, 16), dtype=torch.int8)
+    wi = torch.randint(-127, 128, (8, 16), dtype=torch.int8)
+    assert torch.equal(_int_mm(ri.to(dev), wi.to(dev)).cpu(), ri.int() @ wi.int().t())
+
+
+def test_k3_at_the_s2d_pyramid(dev):
+    """The s2d stem's training shapes (batch 16, crop 256 x 64: the deepest
+    upsampling at 8 x 2, M = 256) still take K3's wgmma variant in bf16,
+    four launches a forward, within bf16 rounding of cuDNN's upsamplings."""
+    from audiodenoiser_torch.models import UNet, load_flax_variables, random_flax_variables
+    from audiodenoiser_torch.ops.cuda import deconv_kernel, reset_launch_counts, variant_launches
+
+    v = random_flax_variables(7, s2d_stem=True, attn_bottleneck=True)
+    x = torch.rand(16, 1, 256, 64, device=dev)
+    outs = []
+    for kernel in (True, False):
+        model = UNet(dtype=torch.bfloat16, s2d_stem=True, attn_bottleneck=True,
+                     pallas_deconv=kernel)
+        model = load_flax_variables(model, v).to(dev).train()
+        reset_launch_counts()
+        outs.append(model(x).float())
+        torch.cuda.synchronize()
+        if kernel:
+            assert deconv_kernel.launches == 4
+            assert variant_launches(deconv_kernel)["wgmma"] == 4
+    rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
+    assert rel < 2e-2, rel

@@ -26,9 +26,9 @@ from audiodenoiser_tpu.utils import assert_tree_finite as jax_assert_tree_finite
 ROOT = Path(__file__).resolve().parents[1]
 CONSTANTS = ("SAMPLE_RATE", "N_FFT", "HOP_LENGTH", "CHUNK_SECONDS", "CHUNK_SAMPLES", "SNR_DB",
              "NOISE_TYPES", "TARGET_SIZE")
-# the JAX package's names the port does not have yet: the int8 model (ROADMAP A.10c)
-# and JAX's fold of a (model, variables) pair, whose counterpart is fold_for_inference
-NOT_PORTED = {"models": {"Int8UNet", "prepare_int8", "fold_runner_inputs"}}
+# the JAX package's name the port has no counterpart of by that name: JAX's fold
+# of a (model, variables) pair, whose counterpart is fold_for_inference
+NOT_PORTED = {"models": {"fold_runner_inputs"}}
 
 
 class TestAssertTreeFinite:
@@ -131,7 +131,8 @@ class TestBenchEntryPoint:
                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
         assert res.returncode == 0, res.stderr
         for flag in ("--width_mult", "--no_student", "--fold", "--no-fold", "--no_train",
-                     "--train_batch_size", "--pallas_deconv", "--mode"):
+                     "--train_batch_size", "--pallas_deconv", "--mode", "--no_s2d",
+                     "--no_int8", "int8"):
             assert flag in res.stdout, flag
 
     @pytest.mark.parametrize("argv,width,train,student", [
@@ -143,18 +144,23 @@ class TestBenchEntryPoint:
         """``main``'s wiring, with each leg recorded instead of run: the
         headline at the run's width and fold, the training leg at its
         batch, the student at width 0.25 in the run's mode and half the
-        iterations (at least 5), beside a full-width headline only."""
+        iterations (at least 5), beside a full-width headline only; there
+        too the s2d legs (s2d, s2d_skip 16) in the run's mode and fold, the
+        s2d training leg at the training batch, and the int8 leg."""
         from audiodenoiser_torch.eval import bench
 
         calls = []
 
         def fake_bench(batch, clip, iters, **kw):
             calls.append(("bench", iters, kw))
-            return {"value": 1.0 if kw["width_mult"] == 1.0 else 4.0}
+            return {"value": {0.25: 4.0}.get(kw.get("width_mult"), 1.0)
+                    + 2.0 * kw.get("s2d", False) + kw.get("s2d_skip", 0)
+                    + 3.0 * (kw.get("mode") == "int8")}
 
         monkeypatch.setattr(bench, "run_bench", fake_bench)
         monkeypatch.setattr(bench, "run_train_bench",
-                            lambda b, **kw: calls.append(("train", b)) or {"train_step_ms": 1})
+                            lambda b, **kw: calls.append(("train", b, kw.get("s2d", False)))
+                            or {"train_step_ms": 1})
         monkeypatch.setattr(bench, "stream_benches",
                             lambda *a, width_mult: calls.append(("stream", width_mult)) or {})
         bench.main(["--no_stream", "--no_pool", *argv])
@@ -164,15 +170,32 @@ class TestBenchEntryPoint:
         assert head[2]["fold"] == ("--no-fold" not in argv)
         mode = "complex_mask" if "complex_mask" in argv else "noisy_phase"
         assert head[2]["mode"] == mode
-        assert (("train", train) in calls) == (train is not None)
+        assert (("train", train, False) in calls) == (train is not None)
         assert ("stream", width) in calls
-        students = [c for c in calls[1:] if c[0] == "bench"]
+        legs = [c for c in calls[1:] if c[0] == "bench"]
+        students = [c for c in legs if c[2].get("width_mult") == 0.25]
         if student:
             assert students == [("bench", 10, {"pipelined": True, "mode": mode,
                                                "width_mult": 0.25})]
             assert out["student_width_mult"] == 0.25 and out["student_frames_per_sec"] == 4.0
         else:
             assert not students and "student_frames_per_sec" not in out
+        variants = [c for c in legs if c not in students]
+        s2d_train = ("train", train, True)
+        if width == 1.0:
+            fold = "--no-fold" not in argv
+            assert variants == [
+                ("bench", 10, {"pipelined": True, "mode": mode, "fold": fold, "s2d": True,
+                               "s2d_skip": 0}),
+                ("bench", 10, {"pipelined": True, "mode": mode, "fold": fold, "s2d": True,
+                               "s2d_skip": 16}),
+                ("bench", 10, {"pipelined": True, "mode": "int8"})]
+            assert (out["s2d_frames_per_sec"], out["s2d_skip16_frames_per_sec"],
+                    out["int8_frames_per_sec"]) == (3.0, 19.0, 4.0)
+            assert (s2d_train in calls) == (train is not None)
+        else:
+            assert not variants and s2d_train not in calls
+            assert not {"s2d_frames_per_sec", "int8_frames_per_sec"} & set(out)
 
     def test_train_leg_on_cpu(self, monkeypatch):
         """The training leg at two levels on the CPU: JAX's keys, a

@@ -403,7 +403,8 @@ class TestFitAndCLI:
                     *flags])
         assert out["steps"] == 2 and out["best_path"].endswith("best_model.ckpt")
         assert built == [{"dtype": torch.float32, "mask_bound": meta["mask_bound"],
-                          "residual": meta["residual"], "zero_out_init": meta["residual"]}]
+                          "residual": meta["residual"], "zero_out_init": meta["residual"],
+                          "attn_bottleneck": False, "s2d_stem": False, "s2d_skip": 0}]
         for sidecar in (os.path.splitext(out["best_path"])[0] + ".json",
                         saved / f"mask_denoiser_{noise_type}.json"):
             with open(sidecar) as f:

@@ -465,8 +465,8 @@ class TestTrainCLI:
         assert os.path.exists(tmp_path / "saved" / "unet_denoiser_white.ckpt")
         assert out["steps"] == 2
 
-    @pytest.mark.parametrize("flag", [["--fsdp"], ["--s2d_stem"],
-                                      ["--attn_bottleneck"], ["--pp_stages", "2"]])
+    @pytest.mark.parametrize("flag", [["--fsdp"], ["--mesh", "on"],
+                                      ["--model_parallel", "2"], ["--pp_stages", "2"]])
     def test_unported_flags_name_their_roadmap_item(self, tmp_path, flag):
         from audiodenoiser_torch.cli.train import main
 

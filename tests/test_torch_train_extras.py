@@ -282,7 +282,7 @@ class TestFitExtras:
         """Three micro-steps an epoch under grad_accum 2, so an update spans
         the epochs: the summed gradients, the micro-step, AdamW, the
         schedule's count, the EMA and the BN statistics all carry over."""
-        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False: UNet(
+        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False, **kw: UNet(
             **TINY, dtype=dtype, remat=remat))
         whole = self._fit(tmp_path, "whole", 2)
         self._fit(tmp_path, "split", 1)
@@ -312,7 +312,7 @@ class TestFitExtras:
     def test_resume_keeps_the_sidecar_floor(self, tmp_path, monkeypatch):
         """A resume state older than the best export (``ckpt_every``) must
         not let a worse model overwrite it; a fresh run ignores the floor."""
-        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False: UNet(
+        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False, **kw: UNet(
             **TINY, dtype=dtype, remat=remat))
         res = self._fit(tmp_path, "floor", 1)
         meta = os.path.splitext(res["best_path"])[0] + ".val.json"
@@ -326,7 +326,7 @@ class TestFitExtras:
         assert fresh["exported_best"] and fresh["best_val"] > -1e9
 
     def test_ckpt_every_writes_after_the_last_epoch(self, tmp_path, monkeypatch):
-        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False: UNet(
+        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False, **kw: UNet(
             **TINY, dtype=dtype, remat=remat))
         self._fit(tmp_path, "every", 3, ckpt_every=2)
         state = port_ckpt.restore_train_state(os.path.join(tmp_path, "every", "checkpoints",
@@ -338,7 +338,7 @@ class TestFitExtras:
         serving loader reads."""
         from audiodenoiser_torch.eval.runner import load_model_for_noise
 
-        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False: UNet(
+        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False, **kw: UNet(
             **TINY, dtype=dtype, remat=remat))
         res = self._fit(tmp_path, "ckpt", 1)
         assert res["best_path"].endswith("best_model.ckpt")
@@ -409,7 +409,7 @@ class TestTrainCli:
         from audiodenoiser_torch.data import pipeline
         from audiodenoiser_torch.eval.runner import load_model_for_noise
 
-        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False: UNet(
+        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False, **kw: UNet(
             **TINY, dtype=dtype, remat=remat))
         seen = []
         real_init = pipeline.OnDeviceMixer.__init__
@@ -448,7 +448,7 @@ class TestTrainCli:
         epochs after the saved one."""
         from audiodenoiser_torch.cli.train import main
 
-        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False: UNet(
+        monkeypatch.setattr(port_loop, "UNet", lambda dtype, remat=False, **kw: UNet(
             **TINY, dtype=dtype, remat=remat))
         data = tmp_path / "white"
         data.mkdir()
