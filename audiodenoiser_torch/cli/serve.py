@@ -35,18 +35,23 @@ on the card and each predicted group runs through its specialist (folded
 unless ``--no-fold``, on the same precision path). Streams opened with no
 mode or ``?mode=auto`` are routed sessions (``RoutedStreamingSession``)
 that re-route mid-stream.
+
+``--mesh`` and ``--model_parallel`` serve on a ('data', 'model') device
+mesh (``parallel.make_mesh``): each batch's rows over ``data``, the wide
+convs over ``model``. Under ``torchrun`` (one rank per card) rank 0 runs
+the HTTP service and every other rank follows its meshed calls
+(``parallel.follow``): whole-clip requests, stream sessions, the
+``--auto_route`` experts and ``/admin/reload``.
+
+  torchrun --nproc_per_node 2 -m audiodenoiser_torch.cli.serve --mesh on ...
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import threading
 
-# options of the JAX CLI whose machinery is not ported yet
-UNPORTED_FLAGS = {
-    "mesh": "ROADMAP A.11 (parallelism)",
-    "model_parallel": "ROADMAP A.11 (parallelism)",
-}
 # the modes each model serves, its own first
 MODEL_MODES = {"unet": ("noisy_phase", "griffin_lim", "reference_gl"),
                "complex_mask": ("complex_mask",)}
@@ -109,13 +114,15 @@ def parse_args(argv=None):
         "energy is below -bypass_db are returned verbatim. Off unless set; "
         "<=0 disables.",
     )
+    p.add_argument("--mesh", choices=["auto", "on", "off"], default="auto",
+                   help="auto: serve over a ('data','model') device mesh iff the process "
+                   "group has more than one rank; on: force (one rank without a "
+                   "launcher); off: no mesh")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="channel-TP degree on the device mesh; the data axis takes the "
+                   "remaining ranks")
     p.add_argument("--device", default=None, help="default: the GPU")
-    for name, item in UNPORTED_FLAGS.items():
-        p.add_argument(f"--{name}", default=argparse.SUPPRESS, help=f"not ported yet: {item}")
     args = p.parse_args(argv)
-    for name, item in UNPORTED_FLAGS.items():
-        if hasattr(args, name):
-            raise SystemExit(f"--{name} is not ported yet: {item}")
     if args.stream_pool is not None:
         if args.stream_pool != "auto":
             try:
@@ -137,12 +144,28 @@ def parse_args(argv=None):
     return args
 
 
-def build_generation(args) -> dict:
+def build_mesh(args):
+    """The ('data', 'model') mesh of ``--mesh``/``--model_parallel``, or None."""
+    from audiodenoiser_torch.parallel import distributed
+
+    use = {"auto": None, "on": True, "off": False}[args.mesh]
+    if use is None:
+        use = distributed.world_size() > 1 or args.model_parallel > 1
+    if not use:
+        return None
+    from audiodenoiser_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(model_parallel=max(1, args.model_parallel), device=args.device)
+    print(f"Device mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    return mesh
+
+
+def build_generation(args, mesh=None) -> dict:
     """Load the checkpoints and build everything one serving generation
     needs: the runner, with ``--auto_route`` the mixture (router and
     specialists) and one runner per expert, and the stream engine (a WOLA
-    or low-latency streamer, or a pool). At start and on each
-    ``/admin/reload``."""
+    or low-latency streamer, or a pool), each runner on ``mesh`` when
+    given. At start and on each ``/admin/reload``, on every rank."""
     import torch
 
     from audiodenoiser_torch.eval import streaming
@@ -153,7 +176,7 @@ def build_generation(args) -> dict:
     path = PRECISION_PATHS[args.precision_path]
     model = load_model_for_noise(args.noise_type, args.saved_models_dir, dtype=dtype,
                                  device=args.device, stem=stem, fold=args.fold)
-    runner = DenoiserRunner(model, device=args.device, precision=path)
+    runner = DenoiserRunner(model, device=args.device, precision=path, mesh=mesh)
     chunk = int(args.bucket_seconds * args.sample_rate)
     chunk -= chunk % 2  # WOLA needs an even chunk
     gen = {"runner": runner, "streamer": None, "pooled": None, "mixture": None,
@@ -162,7 +185,7 @@ def build_generation(args) -> dict:
         from audiodenoiser_torch.eval.ensemble import load_mixture
 
         mixture = load_mixture(args.saved_models_dir, dtype=dtype, stem=stem, fold=args.fold,
-                               device=args.device, precision=path)
+                               device=args.device, precision=path, mesh=mesh)
         gen.update(mixture=mixture, router=(mixture.router, mixture.router_window),
                    expert_runners=dict(enumerate(mixture.runners)))
         print(f"Auto-routing over the {stem} specialists")
@@ -183,13 +206,18 @@ def build_generation(args) -> dict:
     return gen
 
 
-def build_server(args):
+def build_server(args, mesh=None):
     """The service and its (not started) HTTP server, with streaming and
-    ``/admin/reload``."""
+    ``/admin/reload``, its runners on ``mesh`` when given (rank 0 of a
+    meshed service: its other ranks run ``follow``)."""
+    from audiodenoiser_torch.parallel import follow
     from audiodenoiser_torch.serve import DenoiseService, make_http_server
 
     stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
-    gen = {"cur": build_generation(args)}
+    calls = follow.active()
+    gen = {"cur": build_generation(args, mesh)}
+    if calls is not None:
+        calls.start()
     gen["cur"]["gen"] = 0
     if not args.no_warmup:
         print("Warming up (building kernels, first-bucket batches)...")
@@ -228,7 +256,8 @@ def build_server(args):
         # the new generation is built and warmed up before the swap, so a
         # broken checkpoint directory never stops the serving one
         with reload_lock:
-            new = build_generation(args)
+            build = lambda: build_generation(args, mesh)  # noqa: E731
+            new = build() if calls is None else calls.reload(build)
             new["gen"] = service.reload(runner=new["runner"], router=new["router"],
                                         expert_runners=new["expert_runners"],
                                         warmup=not args.no_warmup)
@@ -242,9 +271,34 @@ def build_server(args):
     return service, server, f"{stem}_{args.noise_type}"
 
 
+def serve_follower(args, mesh) -> None:
+    """A rank past 0 of a meshed service: build what rank 0 builds and make
+    its meshed calls until it stops."""
+    from audiodenoiser_torch.parallel import follow as follow_lib
+
+    build_generation(args, mesh)
+    follow_lib.active().follow(lambda: build_generation(args, mesh))
+
+
 def main(argv=None):
     args = parse_args(argv)
-    service, server, name = build_server(args)
+    from audiodenoiser_torch.parallel import distributed
+    from audiodenoiser_torch.parallel import follow as follow_lib
+
+    # a follower waits for the next request as long as it takes
+    distributed.maybe_initialize(args.device, timeout=datetime.timedelta(days=30))
+    mesh = build_mesh(args)
+    calls = None
+    if distributed.world_size() > 1:
+        if mesh is None:  # --mesh off: rank 0 serves alone
+            if not distributed.is_primary():
+                return
+        else:
+            calls = follow_lib.install()
+            if not distributed.is_primary():
+                serve_follower(args, mesh)
+                return
+    service, server, name = build_server(args, mesh)
     host, port = server.server_address[:2]
     chunk = int(args.bucket_seconds * args.sample_rate) // 2 * 2
     stream = (f"low-latency {args.stream_latency_ms:g} ms" if args.stream_latency_ms is not None
@@ -259,6 +313,8 @@ def main(argv=None):
         server.shutdown()
     finally:
         server.server_close()
+        if calls is not None:
+            calls.stop()
 
 
 if __name__ == "__main__":

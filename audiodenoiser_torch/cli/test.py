@@ -15,10 +15,15 @@ reference's artifact names. ``--auto_route`` evaluates the four
 specialists behind the noise router (``eval.ensemble``): the magnitude
 family over the ``.npy`` set, the mask family over the wavs, each noise
 type's routing accuracy in ``{nt}_routed_metrics.txt``. The flags are the
-JAX CLI's, plus ``--device`` (default: the GPU); the device mesh and the
-expert-parallel dispatch (``--ep`` on four or more cards) are not ported
-yet and exit naming their ROADMAP item. On the GPU, each noise type's
-K1/K2 launches are printed as one ``[launches]`` JSON line.
+JAX CLI's, plus ``--device`` (default: the GPU). ``--mesh`` and
+``--model_parallel`` run the evaluation on a ('data', 'model') device
+mesh (``parallel.make_mesh``; under ``torchrun`` one rank per card, rank 0
+writing): each batch's rows over ``data``, the wide convs over ``model``.
+The expert-parallel dispatch (``--ep`` on four or more cards) is not
+ported yet and exits naming its ROADMAP item. On the GPU, each noise
+type's K1/K2 launches are printed as one ``[launches]`` JSON line.
+
+  torchrun --nproc_per_node 2 -m audiodenoiser_torch.cli.test --mesh on ...
 """
 
 from __future__ import annotations
@@ -27,7 +32,6 @@ import argparse
 import json
 import os
 
-MESH_ITEM = "ROADMAP A.11 (parallelism)"
 EP_ITEM = "ROADMAP A.11 (expert-parallel routed evaluation)"
 
 
@@ -68,9 +72,12 @@ def parse_args(argv=None):
         "--noise_types entry, instead of one specialized model per type.",
     )
     p.add_argument("--mesh", choices=["auto", "on", "off"], default="auto",
-                   help="one device: 'on' is not ported yet")
+                   help="auto: shard eval batches over a ('data','model') device mesh "
+                   "iff the process group has more than one rank; on: force (one rank "
+                   "without a launcher); off: no mesh. Same semantics as cli.train.")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="1 only: channel parallelism is not ported yet")
+                   help="channel-TP degree on the device mesh; the data axis takes the "
+                   "remaining ranks (world size / model_parallel).")
     p.add_argument(
         "--n_seeds", type=int, default=1,
         help="waveform-domain evals only: repeat the eval with seeds "
@@ -99,20 +106,36 @@ def parse_args(argv=None):
     if args.auto_route and (args.mesh == "on" or args.model_parallel > 1):
         raise SystemExit("--auto_route builds its own expert-parallel mesh and does not "
                          "honor --mesh on/--model_parallel; drop those flags")
-    if args.mesh == "on" or args.model_parallel > 1:
-        raise SystemExit(f"--mesh on and --model_parallel > 1 are not ported yet: {MESH_ITEM}")
     return args
 
 
+def _build_mesh(args, device):
+    """The ('data', 'model') mesh of ``--mesh``/``--model_parallel``, or None."""
+    from audiodenoiser_torch.parallel import distributed
+
+    use = {"auto": None, "on": True, "off": False}[args.mesh]
+    if use is None:
+        use = distributed.world_size() > 1 or args.model_parallel > 1
+    if not use:
+        return None
+    from audiodenoiser_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(model_parallel=max(1, args.model_parallel), device=device)
+    print(f"Device mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    return mesh
+
+
 def _write_multiseed(path: str, noise_type: str, per_seed: list) -> dict:
-    """Mean and std of every metric over the seeds, written as the JAX CLI
-    writes them; returns ``{key: mean, key_std: std}``."""
+    """Mean and std of every metric over the seeds, written (by rank 0) as
+    the JAX CLI writes them; returns ``{key: mean, key_std: std}``."""
     import numpy as np
+
+    from audiodenoiser_torch.parallel.distributed import is_primary
 
     keys = sorted(set.intersection(*(set(m) for m in per_seed)))
     agg = {k: (float(np.mean([m[k] for m in per_seed])), float(np.std([m[k] for m in per_seed])))
            for k in keys}
-    with open(path, "w") as f:
+    with open(path if is_primary() else os.devnull, "w") as f:
         f.write(f"Multi-seed ({len(per_seed)} corruption draws) waveform metrics for "
                 f"'{noise_type}' (mean +- std):\n")
         for k in keys:
@@ -186,11 +209,20 @@ def main(argv=None):
         test_single_noise_type,
     )
     from audiodenoiser_torch.ops.cuda import reset_launch_counts
+    from audiodenoiser_torch.parallel.distributed import (
+        is_primary,
+        local_device,
+        maybe_initialize,
+    )
 
-    device = resolve_device(args.device)
+    maybe_initialize(args.device)  # a no-op without a launcher
+    device = resolve_device(local_device(args.device))
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     if args.auto_route:
         return _auto_route(args, device, dtype)
+    mesh = _build_mesh(args, device)
+    if mesh is None and not is_primary():  # --mesh off under a launcher: rank 0 alone
+        return {}
     print("Starting specialized test for each noise type...")
     os.makedirs(args.output_dir, exist_ok=True)
     results = {}
@@ -205,7 +237,7 @@ def main(argv=None):
             return results
     # one runner per distinct model
     runner = None if loaded is None else DenoiserRunner(
-        loaded, args.n_fft, args.hop_length, device=device)
+        loaded, args.n_fft, args.hop_length, device=device, mesh=mesh)
     reset_launch_counts()
     for noise_type in args.noise_types:
         try:
@@ -219,11 +251,12 @@ def main(argv=None):
                 model, noise_type, test_data_dir=args.test_data_dir,
                 output_dir=args.output_dir, sample_rate=args.sample_rate, n_fft=args.n_fft,
                 hop_length=args.hop_length, num_audio_examples=args.num_audio_examples,
-                gl_mode=args.gl_mode, seed=args.seed, device=device)
+                gl_mode=args.gl_mode, seed=args.seed, device=device, mesh=mesh)
             _report_launches(noise_type, device)
             continue
         if loaded is None:
-            runner = DenoiserRunner(model, args.n_fft, args.hop_length, device=device)
+            runner = DenoiserRunner(model, args.n_fft, args.hop_length, device=device,
+                                    mesh=mesh)
         per_seed = []
         for k in range(max(1, args.n_seeds)):
             m = test_noise_type_waveform(

@@ -44,9 +44,18 @@ with int8 kernels. The U-Net variants of either family are JAX's:
 ``--s2d_skip K`` (with it, the full-resolution refinement path) and
 ``--attn_bottleneck`` (self-attention after the bottleneck). On the GPU
 the run ends with one ``[launches]`` JSON line, each kernel's launches by
-variant.
-Flags of the JAX CLI that are not ported yet (parallelism) are accepted by
-name and stop the run with the ROADMAP item that ports them.
+variant. ``--mesh``, ``--model_parallel`` and ``--fsdp`` train on a
+('data', 'model') device mesh (``parallel.make_mesh``): the batch over
+``data``, the wide convs over ``model``, with ``--fsdp`` their kernels and
+AdamW moments over ``data`` too. Launch one rank per card:
+
+  torchrun --nproc_per_node 4 -m audiodenoiser_torch.cli.train \
+      --base_dataset_path data --noise_type white --mesh on --model_parallel 2
+
+(rank 0 writes the logs and exports); ``--mesh on`` in one process runs a
+world-size-1 mesh. The pipeline flags of the JAX CLI (``--pp_stages``,
+``--pp_microbatches``) are accepted by name and stop the run with the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -60,13 +69,9 @@ import time
 # flags of the JAX CLI that the port does not run yet, with the ROADMAP
 # item that ports each
 UNPORTED = {
-    "model_parallel": "ROADMAP A.11 (parallelism)",
-    "mesh": "ROADMAP A.11 (parallelism)",
-    "fsdp": "ROADMAP A.11 (parallelism)",
-    "pp_stages": "ROADMAP A.11 (parallelism)",
-    "pp_microbatches": "ROADMAP A.11 (parallelism)",
+    "pp_stages": "ROADMAP A.11 (pipeline parallelism)",
+    "pp_microbatches": "ROADMAP A.11 (pipeline parallelism)",
 }
-_UNPORTED_SWITCHES = {"fsdp"}
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
 
 
@@ -163,12 +168,19 @@ def parse_args(argv=None):
                    help="with --s2d_stem: width of a full-resolution refinement path (one "
                    "BN-free Conv3x3 -> ReLU on the input, a final Conv3x3); 0 disables; "
                    "recorded in the sidecar")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="channel-TP degree on the device mesh; the data axis takes the "
+                   "remaining ranks (world size / model_parallel)")
+    p.add_argument("--mesh", choices=["auto", "on", "off"], default="auto",
+                   help="auto: shard over a ('data','model') mesh iff the process group "
+                   "has more than one rank; on/off force it (on in one process: a "
+                   "world-size-1 mesh)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP layout: also shard the wide conv kernels and their AdamW "
+                   "moments over the data axis (FSDP2)")
     p.add_argument("--device", type=str, default=None, help="default: the GPU")
     for name in UNPORTED:
-        if name in _UNPORTED_SWITCHES:
-            p.add_argument(f"--{name}", action="store_true", default=argparse.SUPPRESS)
-        else:
-            p.add_argument(f"--{name}", default=argparse.SUPPRESS)
+        p.add_argument(f"--{name}", default=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -316,10 +328,12 @@ def main(argv=None):
         return results
 
     from audiodenoiser_torch.device import resolve_device
+    from audiodenoiser_torch.parallel.distributed import local_device, maybe_initialize
     from audiodenoiser_torch.train.loop import FitConfig, fit
     from audiodenoiser_torch.utils.profiling import maybe_trace
 
-    device = resolve_device(args.device)
+    maybe_initialize(args.device)  # a no-op without a launcher
+    device = resolve_device(local_device(args.device))
     if args.model == "router":
         return _train_router(args, device)
     cfg = FitConfig(run_name=args.run_name, output_path=args.output_path,
@@ -330,8 +344,10 @@ def main(argv=None):
                     grad_accum=args.grad_accum, remat=args.remat,
                     ckpt_every=args.ckpt_every, ema_decay=args.ema_decay,
                     width_mult=args.width_mult, attn_bottleneck=args.attn_bottleneck,
-                    s2d_stem=args.s2d_stem, s2d_skip=args.s2d_skip, device=str(device),
-                    extra_config=vars(args))
+                    s2d_stem=args.s2d_stem, s2d_skip=args.s2d_skip,
+                    model_parallel=args.model_parallel,
+                    use_mesh={"auto": None, "on": True, "off": False}[args.mesh],
+                    fsdp=args.fsdp, device=str(device), extra_config=vars(args))
     if args.pipeline == "npy":
         train_batches, val_batches, steps_per_epoch = _npy_batches(args)
     else:
@@ -358,7 +374,10 @@ def main(argv=None):
         counts = {k.__name__: {"launches": k.launches, **variant_launches(k)}
                   for k in KERNELS}
         print(f"[launches] {json.dumps(counts)}", flush=True)
+    from audiodenoiser_torch.parallel.distributed import is_primary
 
+    if not is_primary():  # rank 0 writes the sidecars and the export
+        return result
     run_meta = os.path.splitext(result["best_path"])[0] + ".json"
     if meta is not None and result["exported_best"]:
         # beside the run's checkpoint too, written only when this run

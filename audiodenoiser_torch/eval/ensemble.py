@@ -74,12 +74,14 @@ class MixtureOfDenoisers:
       family: ``"magnitude"`` or ``"mask"``.
       router_window: the router's training crop (its ``.json`` sidecar).
       precision: the STFT/iSTFT path (``"kernel"``: K1 and K2 on the card).
+      mesh: lays each expert out on this device mesh (``DenoiserRunner``'s
+        ``mesh``); the router stays whole on every rank.
     """
 
     def __init__(self, experts: Mapping[str, nn.Module], router: NoiseClassifier,
                  family: str = "magnitude", n_fft: int = 512, hop_length: int = 128,
                  router_window: Sequence[int] = ROUTER_WINDOW, device: DeviceLike = None,
-                 precision: str = "kernel"):
+                 precision: str = "kernel", mesh=None):
         missing = [nt for nt in NOISE_CLASSES if nt not in experts]
         if missing:
             raise ValueError(f"missing experts for {missing}")
@@ -95,7 +97,8 @@ class MixtureOfDenoisers:
         self.expert_models = [experts[nt].to(self.device).eval() for nt in NOISE_CLASSES]
         # one fused waveform path per expert, each through its own module
         self.runners = [DenoiserRunner(m, n_fft, hop_length, device=self.device,
-                                       precision=precision) for m in self.expert_models]
+                                       precision=precision, mesh=mesh)
+                        for m in self.expert_models]
 
     @torch.inference_mode()
     def logits(self, specs: torch.Tensor, windowed: bool = True) -> torch.Tensor:
@@ -194,13 +197,14 @@ def load_mixture(saved_models_dir: str = "./saved_models",
                  router_name: str = "noise_router.ckpt", stem: str = "unet_denoiser",
                  n_fft: int = 512, hop_length: int = 128, fold: bool = True,
                  device: DeviceLike = None, precision: str = "kernel",
-                 router_dtype: torch.dtype = torch.bfloat16) -> MixtureOfDenoisers:
+                 router_dtype: torch.dtype = torch.bfloat16, mesh=None) -> MixtureOfDenoisers:
     """A ``MixtureOfDenoisers`` from a saved_models directory: the four
     specialists ``{stem}_{nt}.ckpt`` (``load_model_for_noise``, folded
     unless ``fold=False``; ``stem='mask_denoiser'`` routes the mask family)
     and the router ``noise_router.ckpt`` with its sidecar's window. The
     router computes in bf16, as the JAX package's, unless
-    ``router_dtype`` says otherwise."""
+    ``router_dtype`` says otherwise; ``mesh`` lays the experts out on a
+    device mesh."""
     from audiodenoiser_torch.eval.runner import load_model_for_noise
 
     device = resolve_device(device)
@@ -211,7 +215,7 @@ def load_mixture(saved_models_dir: str = "./saved_models",
     family = "mask" if stem == "mask_denoiser" else "magnitude"
     return MixtureOfDenoisers(experts, router, family=family, n_fft=n_fft,
                               hop_length=hop_length, router_window=window, device=device,
-                              precision=precision)
+                              precision=precision, mesh=mesh)
 
 
 def _write_metrics(path: str, header: str, lines: list) -> None:

@@ -12,6 +12,14 @@ the centre-padded STFT through the K1 kernel, then, by mode:
 - ``complex_mask`` (a ``ComplexMaskUNet``): ``[mag, cos, sin]`` features,
   the model's bounded complex mask times the noisy spectrogram, one iSTFT.
 
+On a ('data', 'model') mesh (``mesh=``, ``parallel.make_mesh``) the model
+is laid out by ``parallel.shard_variables`` (the wide convs channel-
+parallel over ``model``), a batch is zero-padded to a multiple of the data
+axis, each data rank runs its block of rows through K1 -> model -> K2,
+and the rows are all-gathered and trimmed; an unbatched clip runs whole on
+every rank, as JAX's meshed runner does. In a meshed service
+(``parallel.follow``) the leader's calls are replayed on every rank.
+
 The iSTFT goes through the K2 kernel. On a CUDA device the kernels launch;
 on the CPU their plain versions run. ``precision="fft"`` takes the
 ``torch.fft`` versions instead and ``"matmul"`` the real-DFT-basis STFT
@@ -155,10 +163,12 @@ class DenoiserRunner:
     ``mask_bound``) maps (N, 3, F, T) features to an (N, 2, F, T) mask and
     serves ``complex_mask``. ``precision`` is the STFT and iSTFT path of
     ``dsp.stft``: ``"kernel"`` (K1 and K2), ``"fft"`` or ``"matmul"``.
+    ``mesh`` lays the model out on a device mesh, in place (module
+    docstring); the runner's results are the unmeshed runner's.
     """
 
     def __init__(self, model: nn.Module, n_fft: int = 512, hop_length: int = 128,
-                 device: DeviceLike = None, precision: str = "kernel"):
+                 device: DeviceLike = None, precision: str = "kernel", mesh=None):
         if precision not in stft_lib.PRECISIONS:
             raise ValueError(f"precision must be one of {stft_lib.PRECISIONS}, "
                              f"got {precision!r}")
@@ -169,16 +179,47 @@ class DenoiserRunner:
         self.hop = hop_length
         masked = getattr(model, "mask_bound", None) is not None
         self.mode = "complex_mask" if masked else "noisy_phase"
+        self.mesh = mesh
+        self.calls = None
+        if mesh is not None:
+            from audiodenoiser_torch.parallel import follow
+            from audiodenoiser_torch.parallel.mesh import shard_variables
 
-    @torch.inference_mode()
+            shard_variables(self.model, mesh)
+            self.calls = follow.register(self)
+
+    def _rows(self, x: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """``x`` zero-padded to a multiple of the data axis, this data
+        rank's block of its rows, and the real row count."""
+        from audiodenoiser_torch.parallel.mesh import shard_batch
+
+        n = x.shape[0]
+        pad = (-n) % self.mesh.size(0)
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+        return shard_batch(x, self.mesh), n
+
+    def _gathered(self, y: torch.Tensor, n: int) -> torch.Tensor:
+        from audiodenoiser_torch.parallel.mesh import gather_rows
+
+        return gather_rows(y, self.mesh)[:n]
+
     def denoise_spectrogram(self, noisy_mag: torch.Tensor) -> torch.Tensor:
         """(N, F, T) magnitudes -> (N, F, T) denoised magnitudes."""
         if self.mode != "noisy_phase":
             raise ValueError("denoise_spectrogram needs a magnitude model")
         x = torch.as_tensor(noisy_mag, dtype=torch.float32).to(self.device)
-        return self.model(x[:, None])[:, 0].float()
+        if self.calls is not None:
+            return self.calls.lead(self, "_spectrogram", x)
+        return self._spectrogram(x)
 
     @torch.inference_mode()
+    def _spectrogram(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return self.model(x[:, None])[:, 0].float()
+        rows, n = self._rows(x)
+        return self._gathered(self.model(rows[:, None])[:, 0].float(), n)
+
     def denoise_audio(self, audio, mode: Optional[str] = None, center: bool = True,
                       bypass_db: Optional[float] = None, gl_iters: int = 50,
                       generator: Optional[torch.Generator] = None,
@@ -202,12 +243,37 @@ class DenoiserRunner:
                 f"mode {mode!r} needs a {'complex-mask' if mode == 'complex_mask' else 'magnitude'}"
                 f" model; this runner's model serves {self.mode!r}")
         audio = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
+        if self.mesh is not None and mode in GL_MODES and theta is None:
+            # the unmeshed draw for the whole batch, made here (a follower
+            # cannot) and cut into the ranks' rows with the clips
+            n = audio.shape[-1] + ((-audio.shape[-1]) % self.hop if center else 0)
+            shape = (audio.numel() // audio.shape[-1], self.n_fft // 2 + 1, n // self.hop + 1)
+            theta = initial_phase(shape, generator or torch.Generator().manual_seed(0),
+                                  self.device)
+        if self.calls is not None:
+            return self.calls.lead(self, "_audio", audio, mode, center, bypass_db,
+                                   gl_iters, None, theta)
+        return self._audio(audio, mode, center, bypass_db, gl_iters, generator, theta)
+
+    @torch.inference_mode()
+    def _audio(self, audio: torch.Tensor, mode: str, center: bool,
+               bypass_db: Optional[float], gl_iters: int,
+               generator: Optional[torch.Generator],
+               theta: Optional[torch.Tensor]) -> torch.Tensor:
         orig = audio
         n = audio.shape[-1]
         rem = (-n) % self.hop
         if rem and center:
             audio = F.pad(audio, (0, rem))
-        out = self._reconstruct(audio, center, mode, gl_iters, generator, theta)
+        if self.mesh is None or audio.dim() < 2:
+            out = self._reconstruct(audio, center, mode, gl_iters, generator, theta)
+        else:
+            lead = audio.shape[:-1]
+            rows, b = self._rows(audio.reshape(-1, audio.shape[-1]))
+            if theta is not None:
+                theta = self._rows(theta.reshape(-1, *theta.shape[-2:]).to(self.device))[0]
+            out = self._reconstruct(rows, center, mode, gl_iters, generator, theta)
+            out = self._gathered(out, b).reshape(*lead, -1)
         if rem and center:
             out = out[..., :n]
         if bypass_db is not None:
@@ -287,6 +353,7 @@ def test_single_noise_type(
     compute_si_sdr: bool = True,
     eval_batch_size: int = 64,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Optional[dict]:
     """Per-noise-type evaluation of a magnitude model on the test set's
     ``clean_{nt}.npy`` / ``noisy_{nt}.npy`` (and, when present,
@@ -295,8 +362,12 @@ def test_single_noise_type(
     ``gl_mode``, both from one initial phase drawn with ``seed``),
     ``{nt}_metrics.txt`` and ``{nt}_spectrogram_{i}.png``; returns the
     metrics: the combined loss and its parts, and the SI-SDR and PESQ
-    extensions."""
+    extensions. With ``mesh`` the model's batches run meshed and only rank 0
+    writes."""
     from audiodenoiser_torch.data.wav_io import write_wav
+    from audiodenoiser_torch.parallel.distributed import is_primary
+
+    write = mesh is None or is_primary()
 
     print(f"\n=== Testing model on noise type: {noise_type} ===")
     clean_path = os.path.join(test_data_dir, f"clean_{noise_type}.npy")
@@ -311,7 +382,7 @@ def test_single_noise_type(
     print(f"Found {n} test samples for noise type '{noise_type}'")
     os.makedirs(output_dir, exist_ok=True)
 
-    runner = DenoiserRunner(model, n_fft, hop_length, device=device)
+    runner = DenoiserRunner(model, n_fft, hop_length, device=device, mesh=mesh)
     dev = runner.device
     gl = dict(n_fft=n_fft, hop_length=hop_length, n_iter=50,
               mode=GL_MODES[gl_mode], precision="kernel")
@@ -322,7 +393,7 @@ def test_single_noise_type(
     if k > 0:
         noisy_audio = griffin_lim(torch.from_numpy(noisy[:k]).to(dev), theta=theta,
                                   **gl).cpu().numpy()
-        for i in range(k):
+        for i in range(k if write else 0):
             write_wav(os.path.join(output_dir, f"{noise_type}_noisy_{i}.wav"),
                       noisy_audio[i], sample_rate)
 
@@ -396,6 +467,8 @@ def test_single_noise_type(
         except ValueError as e:
             print(f"PESQ skipped: {e}")
 
+    if not write:
+        return metrics
     with open(os.path.join(output_dir, f"{noise_type}_metrics.txt"), "w") as f:
         f.write(f"Perceptual metrics for noise type '{noise_type}':\n")
         f.write(f"Total Loss: {metrics['total']:.6f}\n")
@@ -449,9 +522,9 @@ def test_noise_type_waveform(
     runner's fused path in ``mode`` (K1, model, K2), and score the combined
     spectral loss, SI-SDR (mean, clamped at 30 dB, median), STOI and PESQ.
     Writes ``{nt}_metrics.txt`` and example wavs unless ``write_artifacts``
-    is off. ``bypass_db`` (None or <= 0 disables) applies
-    :func:`identity_bypass`. ``runner`` is reused when given, else one is
-    built for ``model`` on ``device``."""
+    is off (and on any rank but 0 of a meshed runner). ``bypass_db`` (None
+    or <= 0 disables) applies :func:`identity_bypass`. ``runner`` is reused
+    when given, else one is built for ``model`` on ``device``."""
     from audiodenoiser_torch.data.builders import _corrupt_and_featurize
     from audiodenoiser_torch.data.pipeline import NoiseBank
     from audiodenoiser_torch.data.wav_io import load_wav_list, read_wav, write_wav
@@ -523,8 +596,10 @@ def test_noise_type_waveform(
     except ValueError as e:  # every clip shorter than the 64 ms minimum
         print(f"PESQ skipped: {e}")
 
-    if not write_artifacts:  # multi-seed repeats: metrics only
-        return metrics
+    from audiodenoiser_torch.parallel.distributed import is_primary
+
+    if not write_artifacts or (runner.mesh is not None and not is_primary()):
+        return metrics  # multi-seed repeats, a follower rank: metrics only
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, f"{noise_type}_metrics.txt"), "w") as f:
         f.write(f"Waveform-domain metrics ({mode}) for noise type '{noise_type}':\n")

@@ -223,7 +223,9 @@ class RoutedStreamingSession:
 
     def _streamer_for(self, label: int) -> StreamingDenoiser:
         """One ``StreamingDenoiser`` per (label, chunk, rate, precision,
-        mode), cached on the mixture for every later stream."""
+        mode), cached on the mixture for every later stream, over the
+        mixture's own runner of that expert when its precision is the
+        session's (a meshed expert runs only through it)."""
         from audiodenoiser_torch.eval.runner import DenoiserRunner
 
         cache = getattr(self.mixture, "_stream_cache", None)
@@ -232,9 +234,11 @@ class RoutedStreamingSession:
         mode = "complex_mask" if self.mixture.family == "mask" else "noisy_phase"
         key = (label, self.chunk, self.sample_rate, self.precision, mode)
         if key not in cache:
-            runner = DenoiserRunner(self.mixture.expert_models[label], self.mixture.n_fft,
-                                    self.mixture.hop, device=self.mixture.device,
-                                    precision=self.precision)
+            runner = getattr(self.mixture, "runners", [None] * (label + 1))[label]
+            if runner is None or runner.precision != self.precision:
+                runner = DenoiserRunner(self.mixture.expert_models[label], self.mixture.n_fft,
+                                        self.mixture.hop, device=self.mixture.device,
+                                        precision=self.precision)
             cache[key] = StreamingDenoiser(runner, self.chunk, self.sample_rate)
         return cache[key]
 

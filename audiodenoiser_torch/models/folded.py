@@ -33,10 +33,15 @@ from torch import nn
 
 from audiodenoiser_torch.models.complex_mask import mask_head
 from audiodenoiser_torch.models.unet import UNet, depth_to_space, pad_to_match, space_to_depth
+from audiodenoiser_torch.parallel.layers import gather_channels
 
 
 class _Conv(nn.Module):
-    """One folded convolution: kernel in the compute dtype, bias float32."""
+    """One folded convolution: kernel in the compute dtype, bias float32.
+    With ``tp`` (``parallel.mesh``) it holds an output-channel slice and
+    gathers the slices after its ReLU."""
+
+    tp = None
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor,
                  transpose: bool = False):
@@ -48,9 +53,11 @@ class _Conv(nn.Module):
     def forward(self, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
         b = self.bias.to(x.dtype)
         if self.transpose:
-            return F.conv_transpose2d(x, self.weight, b, stride=2)
-        y = F.conv2d(x, self.weight, b, padding=self.weight.shape[-1] // 2)
-        return F.relu(y) if relu else y
+            y = F.conv_transpose2d(x, self.weight, b, stride=2)
+        else:
+            y = F.conv2d(x, self.weight, b, padding=self.weight.shape[-1] // 2)
+            y = F.relu(y) if relu else y
+        return gather_channels(y, self.tp)
 
 
 def _fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d):

@@ -52,12 +52,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from audiodenoiser_torch.ops.cuda.deconv import conv_transpose_2x2
+from audiodenoiser_torch.parallel.layers import copy_to_model, gather_channels, synced_batch_norm
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in its input's dtype (Flax ``nn.Conv(dtype)``)."""
+    """``nn.Conv2d`` computing in its input's dtype (Flax ``nn.Conv(dtype)``).
+    ``tp`` (set by ``parallel.mesh``) makes it column-parallel: it holds an
+    output-channel slice and its input's cotangent is all-reduced over the
+    model group."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_model(x, self.tp)
         return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
@@ -71,15 +78,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``E[x^2] - E[x]^2``: the two differ by rounding). Eval mode is torch's.
     Output is float32 (at least). ``recomputing`` is set while remat runs the
     forward a second time in the backward: the statistics are not folded
-    again then.
+    again then. With ``data_group`` (set by ``parallel.mesh``) train mode
+    takes the statistics of the data group's global batch
+    (``parallel.layers.synced_batch_norm``).
     """
 
     recomputing = False
+    data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return super().forward(x)
+        if self.data_group is not None:
+            y, mean, var = synced_batch_norm(x, self.weight, self.bias, self.eps,
+                                             self.data_group)
+            if not self.recomputing:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1.0 - m).add_(m * mean)
+                    self.running_var.mul_(1.0 - m).add_(m * var)
+                    self.num_batches_tracked.add_(1)
+            return y
         if self.recomputing:
             return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
@@ -110,8 +130,8 @@ class DoubleConv(nn.Module):
     def _block(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
         seq = self.double_conv
-        x = seq[2](seq[1](seq[0](x))).to(dtype)
-        return seq[5](seq[4](seq[3](x))).to(dtype)
+        x = gather_channels(seq[2](seq[1](seq[0](x))), seq[0].tp).to(dtype)
+        return gather_channels(seq[5](seq[4](seq[3](x))), seq[3].tp).to(dtype)
 
     @contextlib.contextmanager
     def _recompute(self):
@@ -147,16 +167,23 @@ class Down(nn.Module):
 class ConvTranspose2x2(nn.ConvTranspose2d):
     """``ConvTranspose2d(k=2, s=2)`` in its input's dtype; with ``kernel``
     set it runs through the K3 CUDA kernel (``ops.cuda.deconv``) with the
-    same parameters, else through ``F.conv_transpose2d``."""
+    same parameters, else through ``F.conv_transpose2d``. ``tp`` as
+    ``Conv2d``'s; ``repack`` (set under fsdp, whose gathered weight may
+    change without a version bump) makes K3 pack its weight every call."""
+
+    tp = None
+    repack = False
 
     def __init__(self, in_ch: int, out_ch: int, kernel: bool = False):
         super().__init__(in_ch, out_ch, 2, stride=2)
         self.kernel = kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_model(x, self.tp)
         if self.kernel:
+            weight = self.weight.view_as(self.weight) if self.repack else self.weight
             return conv_transpose_2x2(x.contiguous(memory_format=torch.channels_last),
-                                      self.weight, self.bias)
+                                      weight, self.bias)
         return F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                                   stride=2)
 
@@ -170,7 +197,8 @@ class Up(nn.Module):
         self.conv = DoubleConv(2 * out_ch, out_ch, remat)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.conv(torch.cat([skip, pad_to_match(self.up(x), skip)], dim=1))
+        up = gather_channels(self.up(x), self.up.tp)
+        return self.conv(torch.cat([skip, pad_to_match(up, skip)], dim=1))
 
 
 def pad_to_match(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

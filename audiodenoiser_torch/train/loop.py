@@ -17,13 +17,20 @@ compact student family of ``models.unet.scaled_widths``), the U-Net
 variants (``attn_bottleneck``, ``s2d_stem``, ``s2d_skip``) and a resume
 state written every ``ckpt_every`` epochs (``train.checkpoints``).
 
-Not ported yet: the device mesh and FSDP (ROADMAP A.11).
+On a ('data', 'model') device mesh (``parallel.mesh``; ``model_parallel``,
+``use_mesh``, ``fsdp``) each data rank trains on its block of the global
+batch, the wide layers are channel-parallel over ``model``, BatchNorm
+takes the global batch's statistics and, with ``fsdp``, the wide kernels
+and their AdamW moments are sharded over ``data`` too. One step gives the
+unmeshed step's result. Rank 0 writes the logs, the exports and the resume
+state, from gathered full tensors.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import os
 import time
@@ -38,6 +45,7 @@ from audiodenoiser_torch.device import DeviceLike, device_name, resolve_device
 from audiodenoiser_torch.losses import CombinedLossOutput, combined_perceptual_loss
 from audiodenoiser_torch.models.convert import flax_from_state_dict, state_dict_from_flax
 from audiodenoiser_torch.models.unet import UNet, width_kwargs
+from audiodenoiser_torch.parallel import distributed
 from audiodenoiser_torch.train import checkpoints as ckpt_lib
 from audiodenoiser_torch.train.logging_utils import ScalarWriter, setup_logger
 
@@ -61,13 +69,19 @@ class ClippedAdamW:
     ``_foreach_mul_``), clips the mean and updates. The parameters and the
     AdamW moments stay bit-equal over the k-1 other micro-steps, and the
     schedule counts updates, not micro-steps, as ``optax.MultiSteps`` does.
+
+    On a mesh (``layout``, a ``parallel.mesh.Layout``, with the parameters'
+    ``names``) every micro-step first averages the replicated gradients
+    over the data group, and the clip takes the norm of the whole
+    gradient across the ranks (``Layout.global_norm``).
     """
 
     def __init__(self, params, learning_rate: float, weight_decay: float = 0.01,
                  clip_norm: float = 1.0, schedule: Optional[Callable[[int], float]] = None,
-                 grad_accum: int = 1):
+                 grad_accum: int = 1, layout=None, names: Optional[list] = None):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be at least 1, got {grad_accum}")
+        self.layout, self.names = layout, names
         self.params = [p for p in params if p.requires_grad]
         self.clip_norm = clip_norm
         self.schedule = schedule
@@ -85,14 +99,21 @@ class ClippedAdamW:
     def step(self) -> Optional[torch.Tensor]:
         """One micro-step; on an update, clip and update and return the
         global norm of the mean gradient (before the clip), else None."""
+        if self.layout is not None:
+            self.layout.sync_grads(self.params)
         self.micro_step += 1
         if self.micro_step < self.grad_accum:
             return None
         self.micro_step = 0
-        grads = [p.grad for p in self.params if p.grad is not None]
+        held = [i for i, p in enumerate(self.params) if p.grad is not None]
+        grads = [_local(self.params[i].grad) for i in held]
         if self.grad_accum > 1:
             torch._foreach_mul_(grads, 1.0 / self.grad_accum)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.layout is not None:
+            norm = self.layout.global_norm([self.params[i] for i in held], grads,
+                                           [self.names[i] for i in held])
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # no host sync: the scale is 1 unless the norm exceeds the clip
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                             self.clip_norm / norm)
@@ -119,6 +140,11 @@ class ClippedAdamW:
         self.zero_grad()
         for p, g in zip(self.params, state["grads"]):
             p.grad = None if g is None else g.to(p.device, p.dtype)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The local shard of an FSDP2 ``DTensor`` (a view of its storage), else ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def _linear(init: float, end: float, steps: int, count: int) -> float:
@@ -177,6 +203,7 @@ class TrainState:
     optimizer: ClippedAdamW
     step: int = 0
     grad_norm: Optional[torch.Tensor] = None  # of the last update, before the clip
+    layout: Any = None  # parallel.mesh.Layout on a mesh
 
     @property
     def device(self) -> torch.device:
@@ -293,30 +320,59 @@ class FitConfig:
     attn_bottleneck: bool = False  # models.unet.BottleneckAttention after the bottleneck
     s2d_stem: bool = False  # space-to-depth stem + sub-pixel head: a half-resolution pyramid
     s2d_skip: int = 0  # with s2d_stem: width of the full-resolution refinement path
+    model_parallel: int = 1  # the mesh's model axis (channel tensor parallelism)
+    use_mesh: Optional[bool] = None  # None: a mesh when the process group has ranks > 1
+    fsdp: bool = False  # shard the wide kernels and their AdamW moments over data too
     device: Optional[str] = None  # None: the card
     extra_config: dict = field(default_factory=dict)
 
 
-def _epoch_mean(losses: list) -> float:
+def _epoch_mean(losses: list, layout=None) -> float:
+    """The mean total loss; on a mesh over the data ranks' equal blocks,
+    the global batch's mean."""
     if not losses:
         return float("nan")
-    return float(torch.stack([l.total.float() for l in losses]).mean())
+    mean = torch.stack([l.total.float() for l in losses]).mean()
+    if layout is not None:
+        torch.distributed.all_reduce(mean, group=layout.data_group)
+        mean = mean / layout.dp
+    return float(mean)
 
 
-def _export_best(path: str, model: nn.Module, params: Optional[dict] = None) -> None:
-    """``model`` as the JAX package's ``.ckpt``, its parameters replaced by
-    ``params`` (name -> tensor) when given; BatchNorm statistics are the
-    model's own."""
+def _state_dict(model: nn.Module, layout=None, params: Optional[dict] = None) -> dict:
+    """``model.state_dict()`` with ``params`` (name -> tensor) in place of
+    its parameters; on a mesh with full tensors (every rank calls it)."""
+    if layout is not None:
+        return layout.full_state_dict(model, params)
     sd = model.state_dict()
-    if params is not None:
-        sd = {**sd, **params}
-    tree = flax_from_state_dict(sd)
-    ckpt_lib.export_model(path, tree["params"], tree["batch_stats"])
+    return {**sd, **params} if params is not None else sd
+
+
+def _export_best(path: str, model: nn.Module, params: Optional[dict] = None,
+                 layout=None) -> None:
+    """``model`` as the JAX package's ``.ckpt``, its parameters replaced by
+    ``params`` when given; BatchNorm statistics are the model's own. On a
+    mesh every rank gathers and rank 0 writes."""
+    tree = flax_from_state_dict(_state_dict(model, layout, params))
+    if distributed.is_primary():
+        ckpt_lib.export_model(path, tree["params"], tree["batch_stats"])
+
+
+class _NoWriter:
+    """The scalar log of a rank that writes none."""
+
+    def add_scalar(self, *args) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 @contextlib.contextmanager
 def _swapped(params: list, values: list):
-    """``params`` hold ``values`` inside the block, their own after it."""
+    """``params`` hold ``values`` inside the block, their own after it (the
+    local shards of FSDP2 parameters)."""
+    params, values = [_local(p) for p in params], [_local(v) for v in values]
     with torch.no_grad():
         live = [p.detach().clone() for p in params]
         torch._foreach_copy_(params, values)
@@ -353,17 +409,19 @@ def fit(config: FitConfig,
     optimizer, EMA, epoch, best losses, global step) is written every
     ``ckpt_every`` epochs and after the last; ``resume`` restores it and
     runs the epochs after it, the history holding only those.
+
+    ``use_mesh`` (None: when the process group has more than one rank, or
+    ``model_parallel`` > 1) lays the state out on ``parallel.make_mesh``
+    (``model_parallel``, ``fsdp``) after any restore, as JAX re-shards a
+    restored state: the resume state holds full tensors, so any layout
+    resumes any other. ``place`` wrap-pads a ragged batch to a multiple of
+    the data axis by repeating its leading rows, as JAX's does, and keeps
+    this rank's block; the epoch losses are the global batch's.
     """
     run_name = config.run_name or f"UNET_Run_{int(time.time())}"
     run_dir = os.path.join(config.output_path, run_name)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
-    logger = setup_logger(os.path.join(run_dir, "training.log"))
-    logger.info(f"--- Starting U-NET Run: {run_name} ---")
-    cfg_dump = {**config.__dict__}
-    cfg_dump.pop("extra_config", None)
-    cfg_dump.update(config.extra_config)
-    logger.info(f"Full configuration: \n{json.dumps(cfg_dump, indent=2, default=str)}")
 
     if state_factory is not None:
         state = state_factory()
@@ -379,22 +437,51 @@ def fit(config: FitConfig,
                                    total_steps=config.total_steps,
                                    grad_accum=config.grad_accum)
     device = state.device
+    use_mesh = config.use_mesh
+    if use_mesh is None:
+        use_mesh = distributed.world_size() > 1 or config.model_parallel > 1
+    mesh = None
+    if use_mesh:
+        from audiodenoiser_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(model_parallel=max(1, config.model_parallel), device=device)
+    primary = distributed.is_primary()
+    if primary:
+        logger = setup_logger(os.path.join(run_dir, "training.log"))
+    else:
+        logger = logging.getLogger("unet_training_logger.follower")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+    logger.info(f"--- Starting U-NET Run: {run_name} ---")
+    cfg_dump = {**config.__dict__}
+    cfg_dump.pop("extra_config", None)
+    cfg_dump.update(config.extra_config)
+    logger.info(f"Full configuration: \n{json.dumps(cfg_dump, indent=2, default=str)}")
     logger.info(f"Using device: {device_name(device)}")
+    if mesh is not None:
+        logger.info(f"Device mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     n_params = sum(p.numel() for p in state.model.parameters())
     logger.info(f"U-NET Model initialized. Trainable parameters: {n_params:,}")
 
     def place(x):
-        return torch.as_tensor(x).to(device, dtype=torch.float32, non_blocking=True)
+        x = torch.as_tensor(x).to(device, dtype=torch.float32, non_blocking=True)
+        if mesh is None:
+            return x
+        from audiodenoiser_torch.parallel.mesh import shard_batch
+
+        dp = mesh.size(0)
+        target = -(-x.shape[0] // dp) * dp
+        if target != x.shape[0]:
+            x = x[torch.arange(target, device=x.device) % x.shape[0]]
+        return shard_batch(x, mesh)
 
     step_fn, eval_fn = steps if steps is not None else (train_step, eval_step)
-    names, params = zip(*state.model.named_parameters())
-    params = list(params)
     best_path = os.path.join(ckpt_dir, "best_model.ckpt")
     best_ema_path = os.path.join(ckpt_dir, "best_model_ema.ckpt")
     resume_path = os.path.join(ckpt_dir, "train_state.pt")
     start_epoch, global_step = 0, 0
     best_val = best_ema_val = float("inf")
-    ema = None
+    ema = restored_ema = None
     if config.resume and os.path.exists(resume_path):
         restored = ckpt_lib.restore_train_state(resume_path, device)
         state.model.load_state_dict(restored["model"])
@@ -404,7 +491,7 @@ def fit(config: FitConfig,
         best_val = float(restored["best_val"])
         global_step = int(restored["global_step"])
         if config.ema_decay and "ema" in restored:
-            ema = [restored["ema"][n].to(device, torch.float32) for n in names]
+            restored_ema = restored["ema"]
             best_ema_val = float(restored["best_ema_val"])
         # the resume state can be older than an export (ckpt_every): the
         # sidecars keep the exported losses authoritative; only after a
@@ -412,11 +499,23 @@ def fit(config: FitConfig,
         best_val = ckpt_lib.best_val_floor(best_path, best_val)
         best_ema_val = ckpt_lib.best_val_floor(best_ema_path, best_ema_val)
         logger.info(f"Resumed from epoch {start_epoch} (best val {best_val:.6f})")
-    if config.ema_decay and ema is None:
+    layout = None
+    if mesh is not None:
+        from audiodenoiser_torch.parallel.mesh import shard_train_state
+
+        state = shard_train_state(state, mesh, fsdp=config.fsdp)
+        layout = state.layout
+    names, params = zip(*state.model.named_parameters())
+    params = list(params)
+    if restored_ema is not None:
+        full = [restored_ema[n].to(device, torch.float32) for n in names]
+        ema = full if layout is None else [layout.shard_like(n, t, p)
+                                           for n, t, p in zip(names, full, params)]
+    elif config.ema_decay:
         ema = [p.detach().float().clone() for p in params]
     ema_weight = 1.0 - config.ema_decay if config.ema_decay else 0.0
 
-    writer = ScalarWriter(os.path.join(run_dir, "tensorboard_logs"))
+    writer = ScalarWriter(os.path.join(run_dir, "tensorboard_logs")) if primary else _NoWriter()
     exported_best = exported_best_ema = False
     history = []
     logger.info("--- Starting Training Loop ---")
@@ -442,12 +541,12 @@ def fit(config: FitConfig,
                 writer.add_scalar("Loss/train_batch", running, global_step)
                 logger.info(f"  step {global_step} (epoch {epoch + 1}) | "
                             f"loss {running:.6f} | {sps:.1f} steps/s")
-        train_loss = _epoch_mean(train_losses)
+        train_loss = _epoch_mean(train_losses, layout)
         writer.add_scalar("Loss/train", train_loss, epoch)
 
         val_losses = [eval_fn(state, place(noisy), place(clean))
                       for noisy, clean in val_batches()]
-        val_loss = _epoch_mean(val_losses)
+        val_loss = _epoch_mean(val_losses, layout)
         if not val_losses:
             logger.warning("Validation split is empty; using train loss for selection.")
             val_loss = train_loss
@@ -457,7 +556,7 @@ def fit(config: FitConfig,
             with _swapped(params, ema):
                 ema_losses = [eval_fn(state, place(noisy), place(clean))
                               for noisy, clean in val_batches()]
-            ema_val = _epoch_mean(ema_losses) if ema_losses else val_loss
+            ema_val = _epoch_mean(ema_losses, layout) if ema_losses else val_loss
             writer.add_scalar("Loss/validation_ema", ema_val, epoch)
         dt = time.perf_counter() - t0
         logger.info(f"Epoch {epoch + 1}/{config.epochs} -> Train Loss: {train_loss:.6f} | "
@@ -471,27 +570,39 @@ def fit(config: FitConfig,
 
         if val_loss < best_val:
             best_val = val_loss
-            _export_best(best_path, state.model)
-            ckpt_lib.record_best_val(best_path, best_val, epoch)
+            _export_best(best_path, state.model, layout=layout)
+            if primary:
+                ckpt_lib.record_best_val(best_path, best_val, epoch)
             exported_best = True
             logger.info(f"New best model saved to {best_path} (Val Loss: {best_val:.6f})")
         if ema_val is not None and ema_val < best_ema_val:
             best_ema_val = ema_val
-            _export_best(best_ema_path, state.model, dict(zip(names, ema)))
-            ckpt_lib.record_best_val(best_ema_path, best_ema_val, epoch)
+            _export_best(best_ema_path, state.model, dict(zip(names, ema)), layout)
+            if primary:
+                ckpt_lib.record_best_val(best_ema_path, best_ema_val, epoch)
             exported_best_ema = True
             logger.info(f"New best EMA model saved to {best_ema_path} "
                         f"(EMA Val Loss: {best_ema_val:.6f})")
         if (epoch + 1) % max(1, config.ckpt_every) == 0 or epoch == config.epochs - 1:
-            payload = {"model": state.model.state_dict(),
-                       "optimizer": state.optimizer.state_dict(), "step": state.step,
+            if layout is None:
+                opt_state = state.optimizer.state_dict()
+            else:
+                from audiodenoiser_torch.parallel.mesh import full_optimizer_state
+
+                opt_state = full_optimizer_state(state)
+            payload = {"model": _state_dict(state.model, layout),
+                       "optimizer": opt_state, "step": state.step,
                        "epoch": epoch, "best_val": best_val, "global_step": global_step}
             if ema is not None:
-                payload["ema"] = dict(zip(names, ema))
+                payload["ema"] = dict(zip(names, ema)) if layout is None else {
+                    n: layout.full(n, e) for n, e in zip(names, ema)}
                 payload["best_ema_val"] = best_ema_val
-            ckpt_lib.save_train_state(resume_path, payload)
+            if primary:
+                ckpt_lib.save_train_state(resume_path, payload)
 
     writer.close()
+    if layout is not None:  # every rank leaves once rank 0's files are written
+        torch.distributed.barrier()
     logger.info("--- Training Finished ---")
     logger.info(f"Final best model saved at: {best_path}")
     result = {

@@ -179,12 +179,29 @@ from the root of a checkout. Phases, each fatal on failure:
    device breakdowns: s2d and s2d_skip 16 folded in noisy-phase mode, int8
    with its peak memory, the three switches folded in complex-mask mode,
    and the s2d training leg;
+6h. the ('data', 'model') mesh on the one card (world size 1, NCCL),
+   over phase 6d's wavs: ``cli.train`` of the magnitude U-Net with
+   ``--mesh off``, ``--mesh on`` and ``--mesh on --fsdp`` (4 bf16 steps
+   and 1 validation at batch 16: the mesh in the log, K1 5 launches
+   through its FFT entry, K3 and K4 0, finite losses), and ``--mesh on
+   --model_parallel 2``, which must stop with JAX's "not divisible by
+   model_parallel=2" and a nonzero exit; one full-width fp32 step through
+   ``fit`` with ``use_mesh=True`` against the unmeshed step, both families,
+   cuDNN deterministic (every tensor within 1e-6 relative L2, the conv
+   biases that feed a train-mode BatchNorm printed apart); a meshed
+   bf16 ``fit`` of ``UNet(pallas_deconv=True)`` (K3 4 a forward, wgmma
+   only); two ranks sharing the card over gloo (dp 2: one fp32 step's loss
+   and global norm within 1e-5 of one rank's, the same on both ranks); the
+   folded bf16 runner at 256 clips of 2 s on the mesh against the unmeshed
+   runner (within 1e-6; K1 and K2 once a call) and both runners' frames/s;
+   bf16 steps at batch 16 unmeshed, meshed and with fsdp, timed in turns
+   (ms a step, peak memory);
 7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded,
    with ``pallas_deconv`` (K1, K2 and K3 counted; K1 and K2 through their
    FFT entries and K3 through TMA + wgmma only) and in ``complex_mask`` mode
    (K1 and K2 counted, through their FFT entries only), the student's
-   frames/s beside each headline and the model menu's beside the noisy-phase
-   one.
+   frames/s beside each headline, the model menu's and the meshed runner's
+   beside the noisy-phase one.
 
 Before the last line come one JSON object listing every kernel with its
 launches on its path, error and times, then the card's name and power
@@ -3677,6 +3694,361 @@ def phase_menu(torch, rng, rows, card, wavs):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+MESH_STEPS = 4  # phase 6h's cli.train runs: 4 bf16 steps and 1 validation at batch 16
+MESH_TOL = 1e-6  # relative L2 a tensor, a meshed step or runner call against the unmeshed
+GLOO_TOL = 1e-5  # relative, two gloo ranks' fp32 step against one rank's: loss, grad norm
+MESH_CLI = (("off", ["--mesh", "off"]), ("on", ["--mesh", "on"]),
+            ("fsdp", ["--mesh", "on", "--fsdp"]))
+
+
+def mesh_cli_start(tmp, wavs):
+    """Phase 6h (a, e), started together: ``cli.train`` of the magnitude
+    U-Net without a mesh, with ``--mesh on`` (a world-size-1 NCCL group) and
+    with ``--mesh on --fsdp``, and ``--mesh on --model_parallel 2``, which
+    one card cannot hold."""
+    base = ["audiodenoiser_torch.cli.train", "--base_dataset_path", wavs, "--pipeline",
+            "on_device", "--noise_type", "white", "--epochs", "1", "--steps_per_epoch",
+            str(MESH_STEPS), "--batch_size", "16"]
+    runs = {label: _start_cli(f"cli.train mesh {label}", base + [
+        "--output_path", os.path.join(tmp, f"mesh_{label}"), *extra], tmp)
+        for label, extra in MESH_CLI}
+    runs["mp2"] = _start_cli("cli.train mesh mp2", base + [
+        "--output_path", os.path.join(tmp, "mesh_mp2"), "--mesh", "on", "--model_parallel",
+        "2"], tmp)
+    return runs
+
+
+def mesh_cli_check(runs):
+    """Phase 6h (a, e): each run's exit, mesh, losses and ``[launches]``
+    line (K1 a train and a validation step's mixer, K3 0: cli.train's
+    upsamplings are cuDNN's, as JAX's); the model_parallel 2 run stops with
+    JAX's error and a nonzero exit code."""
+    launches = {"stft_kernel": 0}
+    for label, _ in MESH_CLI:
+        out, wall = _finish_cli(runs[label])
+        lines = [ln for ln in out.splitlines() if ln.startswith("[launches] ")]
+        check(len(lines) == 1, f"cli.train mesh {label} printed no [launches] line")
+        counts = json.loads(lines[0][len("[launches] "):])
+        got = (counts["stft_kernel"]["launches"], counts["deconv_kernel"]["launches"],
+               counts["overlap_add_kernel"]["launches"])
+        losses = re.findall(r"Train Loss: ([0-9.]+) \| Validation Loss: ([0-9.]+)", out)
+        meshed = "Device mesh: {'data': 1, 'model': 1}" in out
+        print(f"[6h cli.train] {label}: exit 0 in {wall:.1f} s; mesh {meshed}; losses "
+              f"{losses}; launches K1/K3/K4 {got}", flush=True)
+        check(meshed == (label != "off"), f"cli.train mesh {label} mesh {meshed}")
+        check(got == (MESH_STEPS + 1, 0, 0) and counts["stft_kernel"]["fft"] == got[0],
+              f"cli.train mesh {label}'s launches {got}")
+        check(len(losses) == 1 and all(math.isfinite(float(v)) for v in losses[0]),
+              f"cli.train mesh {label}'s losses")
+        launches["stft_kernel"] += got[0]
+    label, proc, log, t0, watcher, ended = runs["mp2"]
+    watcher.join(timeout=600)
+    log.seek(0)
+    out = log.read()
+    said = "1 devices not divisible by model_parallel=2" in out
+    print(f"[6h cli.train] mp2: exit {proc.returncode}; JAX's error {said}", flush=True)
+    check(bool(ended) and proc.returncode != 0 and said,
+          "cli.train --mesh on --model_parallel 2 on one card did not stop with JAX's error")
+    return launches
+
+
+def _mesh_fit_state(torch, family, mesh_on, tmp, variables, batch):
+    """One full-width fp32 step through ``fit`` (cuDNN deterministic), with
+    or without a world-size-1 mesh: the state dict after it, full tensors."""
+    from audiodenoiser_torch.models import ComplexMaskUNet, UNet
+    from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
+
+    if family == "mask":
+        factory = lambda: create_mask_train_state(0, ComplexMaskUNet(
+            mask_bound=8.0, residual=True, pallas_deconv=True), variables=variables)
+        steps = make_mask_steps(0.5, 30.0)
+    else:
+        factory = lambda: create_train_state(0, UNet(pallas_deconv=True), variables=variables)
+        steps = None
+    cfg = FitConfig(run_name=f"{family}_{mesh_on}", output_path=os.path.join(tmp, "fp32"),
+                    epochs=1, batch_size=4, precision="f32", log_every=0, use_mesh=mesh_on)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        res = fit(cfg, lambda e: iter([batch]), lambda: iter([batch]), state_factory=factory,
+                  steps=steps)
+    state = res["state"]
+    sd = state.layout.full_state_dict(state.model) if mesh_on else state.model.state_dict()
+    return res["history"][0], {k: v.detach().float().cpu() for k, v in sd.items()}
+
+
+def mesh_step_fp32(torch, tmp):
+    """Phase 6h (b): one full-width fp32 step through ``fit`` with
+    ``use_mesh=True`` (world size 1) against the unmeshed step, for both
+    families, every tensor within MESH_TOL."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import random_flax_variables
+    from audiodenoiser_torch.train.bench import synth_chunks
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    batches = {"unet": OnDeviceMixer(synth_chunks(8, seed=21), "white").sample(gen, 4),
+               "mask": _mask_mixer(torch, 8, 22, "cuda").sample_audio(gen, 4)}
+    out = {}
+    for family, kw in (("unet", {}), ("mask", dict(in_channels=3, out_channels=2))):
+        variables = random_flax_variables(23, **kw)
+        (h0, plain), (h1, meshed) = (_mesh_fit_state(torch, family, on, tmp, variables,
+                                                     batches[family]) for on in (False, True))
+        errs = {k: _rel_l2(meshed[k], plain[k]) for k in plain if plain[k].is_floating_point()}
+        # the conv biases that feed a train-mode BatchNorm step on rounding
+        # noise, which cuDNN sums in an order of its own: printed apart
+        held = [k for k in errs if not k.endswith(BN_FED)]
+        worst = max(held, key=errs.get)
+        bn_fed = max(errs[k] for k in errs if k.endswith(BN_FED))
+        out[family] = {"tensors": len(held), "worst": worst, "worst_rel_l2": errs[worst],
+                       "bn_fed_biases_rel_l2": bn_fed, "loss": (h0["train"], h1["train"])}
+        print(f"[6h fp32] {family}: meshed vs unmeshed step, {len(held)} tensors, worst "
+              f"{worst} {errs[worst]:.3e}, the BN-fed conv biases {bn_fed:.3e}; losses "
+              f"{h0['train']} / {h1['train']}", flush=True)
+        check(meshed.keys() == plain.keys() and errs[worst] <= MESH_TOL,
+              f"the meshed fp32 {family} step left the unmeshed one")
+    return out
+
+
+def mesh_fit_k3(torch, rows, tmp):
+    """Phase 6h (b): a meshed bf16 ``fit`` of ``UNet(pallas_deconv=True)``
+    (2 steps and 1 validation at batch 16, world size 1): K3 4 a forward,
+    through wgmma alone, K4 0."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.ops.cuda import deconv_kernel, reset_launch_counts
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit
+
+    batches = _mixer_batches(torch, OnDeviceMixer(synth_chunks(32, seed=24), "white"), 16, 3, 25)
+    cfg = FitConfig(run_name="k3", output_path=os.path.join(tmp, "k3"), epochs=1,
+                    batch_size=16, precision="bf16", log_every=0, use_mesh=True)
+    reset_launch_counts()
+    res = fit(cfg, lambda e: iter(batches[:2]), lambda: iter(batches[2:]),
+              state_factory=lambda: create_train_state(0, UNet(dtype=torch.bfloat16,
+                                                               pallas_deconv=True)))
+    n = deconv_kernel.launches
+    print(f"[6h fit K3] meshed bf16 fit, 2 steps + 1 validation: K3 {n}, history "
+          f"{res['history']}", flush=True)
+    check(n == 4 * 3 and all(math.isfinite(v) for v in res["history"][0].values()),
+          "the meshed fit with pallas_deconv")
+    require_variants("the meshed fit", {"deconv_kernel": "wgmma"})
+    count_off_path(rows, "the meshed fit")
+    return {"deconv_kernel": n}
+
+
+def _gloo_ranks(tmp):
+    """Phase 6h (d), started: two ranks sharing the card over gloo."""
+    port = _free_port()
+    procs = []
+    for rank in (0, 1):
+        env = {**os.environ, "PYTHONPATH": HERE, "RANK": str(rank), "WORLD_SIZE": "2",
+               "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        log = open(os.path.join(tmp, f"gloo_{rank}.log"), "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.mesh_gloo_rank()"],
+            cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT, text=True), log))
+    return procs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_gloo_rank() -> None:
+    """One of phase 6h (d)'s two ranks on one card (gloo carries CUDA
+    tensors; NCCL refuses two ranks on one device): one fp32 step of the
+    full-width U-Net on a (2, 1) mesh against one rank's step on the whole
+    batch (rank 0 takes both), printed as one JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from audiodenoiser_torch.models import UNet, random_flax_variables
+    from audiodenoiser_torch.parallel.distributed import maybe_initialize
+    from audiodenoiser_torch.parallel.mesh import make_mesh, shard_batch, shard_train_state
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    check(maybe_initialize("cuda", backend="gloo"), "no launcher environment")
+    mesh = make_mesh(model_parallel=1, device="cuda")
+    variables = random_flax_variables(26)
+    rng = np.random.default_rng(27)
+    noisy = torch.from_numpy(np.abs(rng.standard_normal((4, 1, 256, 64))).astype(np.float32))
+    clean = (0.8 * noisy + 0.1 * torch.rand(noisy.shape, generator=torch.Generator()
+                                            .manual_seed(28))).cuda()
+    noisy = noisy.cuda()
+    state = shard_train_state(create_train_state(0, UNet(), variables=variables), mesh)
+    state, losses = train_step(state, shard_batch(noisy, mesh), shard_batch(clean, mesh))
+    total = losses.total.detach().clone()
+    dist.all_reduce(total, group=mesh.get_group("data"))
+    out = {"rank": dist.get_rank(), "loss": float(total) / 2,
+           "grad_norm": float(state.grad_norm)}
+    if dist.get_rank() == 0:
+        ref, ref_losses = train_step(create_train_state(0, UNet(), variables=variables),
+                                     noisy, clean)
+        out.update(ref_loss=float(ref_losses.total), ref_grad_norm=float(ref.grad_norm))
+    print("[gloo] " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def mesh_gloo_check(procs):
+    """Phase 6h (d): both ranks exit 0; the two-rank loss and global norm
+    within GLOO_TOL of one rank's, the same on both ranks."""
+    reports = []
+    for rank, (proc, log) in enumerate(procs):
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        out = log.read()
+        for line in out.strip().splitlines()[-3:]:
+            print(f"[6h gloo rank {rank}] {line}", flush=True)
+        check(proc.returncode == 0, f"gloo rank {rank} exited {proc.returncode}")
+        reports.append(json.loads(next(ln for ln in out.splitlines()
+                                       if ln.startswith("[gloo] "))[len("[gloo] "):]))
+    a, b = reports
+    loss_gap = abs(a["loss"] - a["ref_loss"]) / abs(a["ref_loss"])
+    norm_gap = abs(a["grad_norm"] - a["ref_grad_norm"]) / a["ref_grad_norm"]
+    print(f"[6h gloo] dp 2 on one card: loss {a['loss']} vs one rank {a['ref_loss']} "
+          f"({loss_gap:.2e}), global norm {a['grad_norm']} vs {a['ref_grad_norm']} "
+          f"({norm_gap:.2e})", flush=True)
+    check(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"],
+          "the two gloo ranks disagree")
+    check(loss_gap <= GLOO_TOL and norm_gap <= GLOO_TOL,
+          "the two-rank step left the one-rank step")
+    return {"loss_gap": loss_gap, "norm_gap": norm_gap}
+
+
+def mesh_train_bench(torch, card):
+    """Phase 6h (a): bf16 steps of the full-width U-Net at batch 16 on the
+    white mixer, unmeshed, on a world-size-1 mesh and with fsdp, timed in
+    turns (each 10 steps after 3, in the order unmeshed, mesh, fsdp, fsdp,
+    mesh, unmeshed): ms a step, and peak memory above what was allocated
+    before its window."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.parallel.mesh import make_mesh, shard_train_state
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    batches = _mixer_batches(torch, OnDeviceMixer(synth_chunks(32, seed=29), "white"), 16, 13, 30)
+    mesh = make_mesh(device="cuda")
+    states = {}
+    for label in ("unmeshed", "mesh", "fsdp"):
+        state = create_train_state(0, UNet(dtype=torch.bfloat16))
+        if label != "unmeshed":
+            state = shard_train_state(state, mesh, fsdp=label == "fsdp")
+        for noisy, clean in batches[:3]:
+            state, _ = train_step(state, noisy, clean)
+        states[label] = state
+    out = {label: {"step_ms": [], "peak_gib": []} for label in states}
+    for label in ("unmeshed", "mesh", "fsdp", "fsdp", "mesh", "unmeshed"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for noisy, clean in batches[3:]:
+            states[label], losses = train_step(states[label], noisy, clean)
+        torch.cuda.synchronize()
+        out[label]["step_ms"].append((time.perf_counter() - t0) * 1e3 / (len(batches) - 3))
+        out[label]["peak_gib"].append((torch.cuda.max_memory_allocated() - base) / 2**30)
+        out[label]["loss"] = float(losses.total)
+    for r in out.values():
+        r["mean_step_ms"] = sum(r["step_ms"]) / len(r["step_ms"])
+    print(f"[6h train bench] bf16 batch 16, ms a step and peak GiB in turns: "
+          f"{json.dumps(out)}; {card}", flush=True)
+    check(all(math.isfinite(r["loss"]) for r in out.values()), "the meshed training bench")
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def _frames_per_sec(torch, runner, audio, iters=20):
+    for _ in range(3):
+        runner.denoise_audio(audio)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [runner.denoise_audio(audio) for _ in range(iters)]
+    torch.cuda.synchronize()
+    del outs
+    frames = audio.shape[0] * (1 + audio.shape[1] // HOP) * iters
+    return frames / (time.perf_counter() - t0)
+
+
+def mesh_runner(torch, rows, card):
+    """Phase 6h (c): the folded bf16 runner at the bench shape (256 clips
+    of 2 s) on a world-size-1 mesh against the unmeshed runner over the same
+    weights and batch (within MESH_TOL; K1 and K2 once a call, FFT
+    entries), then both runners' frames/s."""
+    import numpy as np
+
+    from audiodenoiser_torch.eval.bench import build_runner
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+    from audiodenoiser_torch.parallel.mesh import make_mesh
+
+    plain = build_runner(0, device="cuda")
+    meshed = DenoiserRunner(build_runner(0, device="cuda").model, device="cuda",
+                            mesh=make_mesh(device="cuda"))
+    rng = np.random.default_rng(0)
+    audio = torch.from_numpy(np.clip(rng.standard_normal((256, 2 * SR)) * 0.2, -1, 1)
+                             .astype(np.float32)).cuda()
+    want = plain.denoise_audio(audio)
+    reset_launch_counts()
+    got = meshed.denoise_audio(audio)
+    torch.cuda.synchronize()
+    counts = {"stft_kernel": stft_kernel.launches, "istft_kernel": istft_kernel.launches}
+    err = _rel_l2(got, want)
+    require_variants("the meshed runner", {"stft_kernel": "fft", "istft_kernel": "fft"})
+    count_off_path(rows, "the meshed runner")
+    fps = {"unmeshed": _frames_per_sec(torch, plain, audio),
+           "mesh": _frames_per_sec(torch, meshed, audio)}
+    print(f"[6h runner] meshed vs unmeshed at 256 x 2 s: rel L2 {err:.3e}, launches {counts}; "
+          f"frames/s {json.dumps(fps)} ({fps['mesh'] / fps['unmeshed']:.4f}x); {card}",
+          flush=True)
+    check(err <= MESH_TOL and counts == {"stft_kernel": 1, "istft_kernel": 1},
+          "the meshed runner left the unmeshed one")
+    return counts, fps
+
+
+def phase_mesh(torch, rows, card, wavs):
+    """Phase 6h: the ('data', 'model') mesh on the one card."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6h_")
+    runs, gloo = {}, []
+    try:
+        runs = mesh_cli_start(tmp, wavs)
+        gloo = _gloo_ranks(tmp)
+        fp32 = mesh_step_fp32(torch, tmp)
+        launches = mesh_fit_k3(torch, rows, tmp)
+        launches.update(mesh_cli_check(runs))
+        out = {"fp32": fp32, "gloo": mesh_gloo_check(gloo)}
+        counts, out["runner_fps"] = mesh_runner(torch, rows, card)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        out["train_bench"] = mesh_train_bench(torch, card)
+        for name, n in launches.items():
+            rows[name]["launches"] += n
+            rows[name]["launches_mesh"] = n
+        return out
+    finally:
+        for started in runs.values():  # a check failed first
+            if started[1].poll() is None:
+                started[1].kill()
+                started[1].wait()
+        for proc, _ in gloo:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -3742,6 +4114,9 @@ def main() -> None:
         t0 = time.perf_counter()
         menu = phase_menu(torch, rng, rows, card, os.path.join(shared, "6d", "wavs"))
         print(f"[6g] phase 6g in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        mesh = phase_mesh(torch, rows, card, os.path.join(shared, "6d", "wavs"))
+        print(f"[6h] phase 6h in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
     reset_launch_counts()
@@ -3789,6 +4164,12 @@ def main() -> None:
           f"{legs['s2d_train']['s2d_train_samples_per_sec']:.1f} samples/s vs "
           f"{student['train_b256']['train_samples_per_sec']:.1f}; {card}", flush=True)
 
+    print(f"[bench] the world-size-1 mesh beside the headline: meshed runner "
+          f"{mesh['runner_fps']['mesh']:.1f} vs unmeshed {mesh['runner_fps']['unmeshed']:.1f} "
+          f"frames/s in phase 6h ({mesh['runner_fps']['mesh'] / bench['value']:.4f}x the "
+          f"headline {bench['value']:.1f}); bf16 steps at batch 16: "
+          + ", ".join(f"{k} {v['mean_step_ms']:.2f} ms {max(v['peak_gib']):.2f} GiB"
+                      for k, v in mesh["train_bench"].items()) + f"; {card}", flush=True)
     check(all("launches" in r for r in rows.values()), "a kernel's launches were not read")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

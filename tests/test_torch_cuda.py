@@ -1037,3 +1037,65 @@ def test_k3_at_the_s2d_pyramid(dev):
             assert variant_launches(deconv_kernel)["wgmma"] == 4
     rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
     assert rel < 2e-2, rel
+
+
+def _meshed_fit(dev, tmp_path, mesh_on):
+    """One fp32 step of a narrow U-Net with K3 through ``fit``, with or
+    without a world-size-1 mesh (NCCL), cuDNN deterministic."""
+    from audiodenoiser_torch.models import UNet, random_flax_variables
+    from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit
+
+    widths = dict(features=(16, 32, 64, 128), bottleneck=256)
+    rng = np.random.default_rng(31)
+    noisy = torch.from_numpy(np.abs(rng.standard_normal((4, 1, 64, 32))).astype(np.float32))
+    batch = (noisy, 0.8 * noisy)
+    cfg = FitConfig(run_name=f"mesh_{mesh_on}", output_path=str(tmp_path), epochs=1,
+                    batch_size=4, precision="f32", log_every=0, use_mesh=mesh_on)
+    factory = lambda: create_train_state(0, UNet(**widths, pallas_deconv=True),
+                                         variables=random_flax_variables(32, **widths))
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        res = fit(cfg, lambda e: iter([batch]), lambda: iter([batch]), state_factory=factory)
+    state = res["state"]
+    sd = state.layout.full_state_dict(state.model) if mesh_on else state.model.state_dict()
+    return res["history"], {k: v.detach().cpu() for k, v in sd.items()}, state
+
+
+def test_meshed_fit_step_on_card_matches_unmeshed(dev, tmp_path):
+    """A world-size-1 mesh (NCCL) runs the unmeshed program: one fp32 step
+    through ``fit`` gives the same losses and every tensor within 1e-6
+    relative L2, through K3. The conv biases that feed a train-mode
+    BatchNorm step on rounding noise whose sum cuDNN orders its own way
+    between runs (ROADMAP): they move by at most 4 x lr."""
+    plain_hist, plain, _ = _meshed_fit(dev, tmp_path, False)
+    mesh_hist, meshed, state = _meshed_fit(dev, tmp_path, True)
+    assert state.layout is not None and torch.distributed.get_backend() == "nccl"
+    assert mesh_hist[0]["train"] == pytest.approx(plain_hist[0]["train"], rel=1e-6)
+    assert meshed.keys() == plain.keys()
+    for k, v in plain.items():
+        if not v.is_floating_point():
+            continue
+        if k.endswith(("double_conv.0.bias", "double_conv.3.bias")):
+            assert float((meshed[k] - v).abs().max()) <= 4 * 1e-4, k
+            continue
+        rel = float((meshed[k] - v).norm() / (v.norm() + 1e-12))
+        assert rel <= 1e-6, (k, rel)
+
+
+def test_meshed_runner_on_card_matches_unmeshed(dev):
+    """The folded bf16 runner on a world-size-1 mesh answers a batch of 5
+    clips (and an unbatched one) as the unmeshed runner does, within 1e-6."""
+    from audiodenoiser_torch.eval.bench import build_runner
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.parallel import make_mesh
+
+    plain = build_runner(0, device="cuda", width_mult=0.25)
+    meshed = DenoiserRunner(build_runner(0, device="cuda", width_mult=0.25).model,
+                            device="cuda", mesh=make_mesh(device="cuda"))
+    rng = np.random.default_rng(33)
+    audio = torch.from_numpy(np.clip(0.2 * rng.standard_normal((5, 16000)), -1, 1)
+                             .astype(np.float32)).to(dev)
+    for x in (audio, audio[0]):
+        want, got = plain.denoise_audio(x), meshed.denoise_audio(x)
+        assert got.shape == want.shape == x.shape
+        assert float((got - want).norm() / want.norm()) <= 1e-6

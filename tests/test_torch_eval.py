@@ -377,12 +377,36 @@ class TestTestCLI:
                                             (["--auto_route", "--ep", "dense"], "A.11"),
                                             (["--mesh", "on"], "A.11"),
                                             (["--model_parallel", "2"], "A.11")])
-    def test_unported_flags_name_their_item(self, flags, item, monkeypatch, tmp_path):
+    def test_unported_flags_name_their_item(self, flags, item, monkeypatch, tmp_path,
+                                            request):
         """On four cards ``--auto_route`` would take the expert-parallel
         dispatch (``--ep auto`` or ``dense``), which is not ported: it exits
-        before it loads anything. The device mesh is refused as ever."""
+        before it loads anything. The device mesh is ported (ROADMAP A.11,
+        its first half): ``--mesh on`` in one process runs a world-size-1
+        mesh whose scores are the unmeshed run's, and ``--model_parallel 2``
+        there stops with JAX's error."""
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        if flags == ["--model_parallel", "2"]:
+            with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
+                port_test_cli.main(flags + ["--saved_models_dir", str(tmp_path),
+                                            "--output_dir", str(tmp_path / "o"),
+                                            "--device", "cpu"])
+            return
+        if flags == ["--mesh", "on"]:
+            clean, noise = request.getfixturevalue("wav_dirs")
+            saved = tmp_path / "saved"
+            _export(str(saved / "mask_denoiser_mixed.ckpt"), _flax_mask()[0],
+                    {"width_mult": 0.125, "mask_bound": 2.0, "residual": True})
+            run = ["--model", "complex_mask", "--universal", "--noise_types", "white",
+                   "--saved_models_dir", str(saved), "--clean_dir", clean, "--noise_dir",
+                   noise, "--num_audio_examples", "1", "--precision", "f32", "--device", "cpu"]
+            plain = port_test_cli.main(run + ["--output_dir", str(tmp_path / "plain")])
+            meshed = port_test_cli.main(run + ["--output_dir", str(tmp_path / "mesh"), *flags])
+            assert meshed == plain and set(meshed) == {"white"}
+            assert ((tmp_path / "mesh" / "white_metrics.txt").read_text()
+                    == (tmp_path / "plain" / "white_metrics.txt").read_text())
+            return
         with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
             port_test_cli.main(flags + ["--saved_models_dir", str(tmp_path),
                                         "--output_dir", str(tmp_path / "o")])

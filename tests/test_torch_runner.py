@@ -270,7 +270,9 @@ class TestImportRules:
         "cli.import_checkpoint", "train.torch_export", "train.torch_import",
         "utils.profiling", "models.router", "train.router", "eval.ensemble",
         "utils.debug", "cli.bench", "models.int8", "__init__", "dsp.__init__", "data.__init__",
-        "eval.__init__", "train.__init__", "losses.__init__", "utils.__init__"])
+        "eval.__init__", "train.__init__", "losses.__init__", "utils.__init__",
+        "parallel.mesh", "parallel.distributed", "parallel.hybrid", "parallel.__init__",
+        "parallel.layers", "parallel.follow"])
     def test_rules_cover_the_training_path_modules(self, module):
         """The training path's, the routed deployment's, the int8 model's and
         the package surface's modules are among the sources both checks read."""

@@ -456,9 +456,58 @@ class TestServeCLI:
     @pytest.mark.parametrize("flag,item", [(["--auto_route", "--mesh", "on"], "A.11"),
                                            (["--mesh", "on"], "A.11"),
                                            (["--model_parallel", "2"], "A.11")])
-    def test_unported_flags_name_their_item(self, mask_dir, flag, item):
-        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-            _cli(mask_dir, *flag)
+    def test_unported_flags_name_their_item(self, mask_dir, flag, item, request):
+        """The device mesh is ported (ROADMAP A.11, its first half). In one
+        process ``--mesh on`` serves over a world-size-1 mesh: a request
+        and a stream answer as the unmeshed service's; with ``--auto_route``
+        the specialists' runners are meshed and the routed denoise is the
+        unmeshed one's; ``--model_parallel 2`` stops with JAX's error."""
+        from audiodenoiser_torch.data.wav_io import read_wav, write_wav
+
+        if flag == ["--model_parallel", "2"]:
+            with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
+                serve_cli.build_mesh(_cli(mask_dir, "--device", "cpu", *flag))
+            return
+        if "--auto_route" in flag:
+            routed = request.getfixturevalue("routed_dir")
+            argv = ["--auto_route", "--saved_models_dir", str(routed), "--port", "0",
+                    "--bucket_seconds", "0.25", "--device", "cpu", "--precision", "f32"]
+            mixes = []
+            for extra in ([], flag[1:]):
+                args = serve_cli.parse_args(argv + extra)
+                _, server, _ = serve_cli.build_server(args, serve_cli.build_mesh(args))
+                mixes.append(server.current_generation()["mixture"])
+                server.server_close()
+            assert mixes[0].runners[0].mesh is None
+            assert dict(zip(mixes[1].runners[0].mesh.mesh_dim_names,
+                            mixes[1].runners[0].mesh.shape)) == {"data": 1, "model": 1}
+            x = torch.from_numpy(np.stack([_audio(2000, seed=s) for s in (1, 2, 3)]))
+            torch.testing.assert_close(mixes[1].denoise_waveform(x),
+                                       mixes[0].denoise_waveform(x), rtol=0, atol=0)
+            return
+        answers = []
+        for extra in ([], flag):
+            args = _cli(mask_dir, "--device", "cpu", "--precision", "f32", *extra)
+            _, server, _ = serve_cli.build_server(args, serve_cli.build_mesh(args))
+            assert (server.current_generation()["runner"].mesh is None) == (not extra)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            try:
+                buf = io.BytesIO()
+                write_wav(buf, _audio(1500, seed=5), 8000)
+                got = read_wav(io.BytesIO(_post(f"{url}/denoise", buf.getvalue())))[0]
+                info = json.loads(_post(f"{url}/stream/start"))
+                x = _audio(3000, seed=6)
+                out = _post(f"{url}/stream/{info['session']}", x.astype("<f4").tobytes())
+                out += _post(f"{url}/stream/{info['session']}/flush")
+                answers.append((got, np.frombuffer(out, "<f4")))
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=10)
+        for a, b in zip(*answers):
+            np.testing.assert_array_equal(a, b)
 
     @pytest.mark.parametrize("flag,latency", [(["--stream_pool", "4"], 2000),
                                               (["--stream_latency_ms", "224"], 1792)])

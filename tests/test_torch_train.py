@@ -465,8 +465,9 @@ class TestTrainCLI:
         assert os.path.exists(tmp_path / "saved" / "unet_denoiser_white.ckpt")
         assert out["steps"] == 2
 
-    @pytest.mark.parametrize("flag", [["--fsdp"], ["--mesh", "on"],
-                                      ["--model_parallel", "2"], ["--pp_stages", "2"]])
+    @pytest.mark.parametrize("flag", [["--pp_microbatches", "8"], ["--pp_stages", "4"],
+                                      ["--pp_stages", "2", "--mesh", "on"],
+                                      ["--pp_stages", "2"]])
     def test_unported_flags_name_their_roadmap_item(self, tmp_path, flag):
         from audiodenoiser_torch.cli.train import main
 
