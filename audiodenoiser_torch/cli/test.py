@@ -19,11 +19,15 @@ JAX CLI's, plus ``--device`` (default: the GPU). ``--mesh`` and
 ``--model_parallel`` run the evaluation on a ('data', 'model') device
 mesh (``parallel.make_mesh``; under ``torchrun`` one rank per card, rank 0
 writing): each batch's rows over ``data``, the wide convs over ``model``.
-The expert-parallel dispatch (``--ep`` on four or more cards) is not
-ported yet and exits naming its ROADMAP item. On the GPU, each noise
-type's K1/K2 launches are printed as one ``[launches]`` JSON line.
+With four or more ranks, ``--auto_route`` of the magnitude family takes
+the expert-parallel dispatch (``eval.ensemble``): ``--ep auto`` the
+all-to-all one over the first four ranks, ``--ep dense`` (a multiple of
+four ranks) the dense one; ``--ep off``, or fewer ranks, the
+host-bucketed dispatch. On the GPU, each noise type's K1/K2 launches are
+printed as one ``[launches]`` JSON line.
 
   torchrun --nproc_per_node 2 -m audiodenoiser_torch.cli.test --mesh on ...
+  torchrun --nproc_per_node 4 -m audiodenoiser_torch.cli.test --auto_route --ep auto ...
 """
 
 from __future__ import annotations
@@ -31,8 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-
-EP_ITEM = "ROADMAP A.11 (expert-parallel routed evaluation)"
 
 
 def parse_args(argv=None):
@@ -98,8 +100,10 @@ def parse_args(argv=None):
     )
     p.add_argument(
         "--ep", choices=["auto", "dense", "off"], default="auto",
-        help="--auto_route expert dispatch on four or more cards (not ported "
-        "yet); off, or fewer cards, is the host-bucketed dispatch.",
+        help="--auto_route expert dispatch when the process group has four or more "
+        "ranks: auto = capacity-based all_to_all routed compute (each clip forwarded "
+        "once, overflow passes on the device); dense = every expert computes, "
+        "masked sum; off = host-bucketed.",
     )
     p.add_argument("--device", default=None, help="default: the GPU")
     args = p.parse_args(argv)
@@ -163,11 +167,32 @@ def _report_launches(noise_type: str, device) -> None:
     reset_launch_counts()
 
 
+def _ep_mesh(args, device):
+    """JAX's choice of expert dispatch, by the process group's world size
+    (the counterpart of ``jax.device_count()``): with four or more ranks
+    ``--ep auto`` the all-to-all mesh, ``--ep dense`` the dense mesh when
+    four divide the ranks; else None, the host-bucketed dispatch."""
+    from audiodenoiser_torch.eval.ensemble import make_a2a_mesh, make_ep_mesh
+    from audiodenoiser_torch.parallel.distributed import world_size
+
+    n = world_size()
+    if args.model != "unet" or args.ep == "off" or n < 4:
+        return None
+    if args.ep == "dense":
+        if n % 4:
+            return None
+        mesh = make_ep_mesh(device=device)
+    else:  # auto: routed all-to-all compute is the default
+        mesh = make_a2a_mesh(device=device)
+    print(f"Expert-parallel mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"({'dense' if args.ep == 'dense' else 'a2a'})")
+    return mesh
+
+
 def _auto_route(args, device, dtype):
     """``--auto_route``: the routed mixture over the ``.npy`` set (magnitude
-    family) or the wavs (mask family), with host-bucketed dispatch."""
-    import torch
-
+    family, with the dispatch of ``_ep_mesh``) or the wavs (mask family,
+    host-bucketed)."""
     from audiodenoiser_torch.eval.ensemble import (
         evaluate_routed,
         evaluate_routed_waveform,
@@ -175,11 +200,6 @@ def _auto_route(args, device, dtype):
     )
     from audiodenoiser_torch.ops.cuda import reset_launch_counts
 
-    many = device.type == "cuda" and torch.cuda.device_count() >= 4
-    if (args.model == "unet" and args.ep != "off" and many
-            and not (args.ep == "dense" and torch.cuda.device_count() % 4)):
-        raise SystemExit(f"--ep {args.ep} on {torch.cuda.device_count()} cards is not "
-                         f"ported yet: {EP_ITEM}; --ep off runs the host-bucketed dispatch")
     stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
     mixture = load_mixture(args.saved_models_dir, dtype=dtype, stem=stem, n_fft=args.n_fft,
                            hop_length=args.hop_length, device=device)
@@ -192,7 +212,8 @@ def _auto_route(args, device, dtype):
             bypass_db=args.bypass_db)
     else:
         results = evaluate_routed(mixture, args.test_data_dir, args.output_dir,
-                                  noise_types=args.noise_types)
+                                  noise_types=args.noise_types,
+                                  ep_mesh=_ep_mesh(args, device))
     _report_launches("auto_route", device)
     return results
 

@@ -53,9 +53,15 @@ AdamW moments over ``data`` too. Launch one rank per card:
       --base_dataset_path data --noise_type white --mesh on --model_parallel 2
 
 (rank 0 writes the logs and exports); ``--mesh on`` in one process runs a
-world-size-1 mesh. The pipeline flags of the JAX CLI (``--pp_stages``,
-``--pp_microbatches``) are accepted by name and stop the run with the
-ROADMAP item that ports them.
+world-size-1 mesh. ``--pp_stages S`` trains the magnitude U-Net with the
+1F1B pipeline (``parallel.pipeline_train``): the block sequence cut into S
+stages, on the process's first S cards (S must divide the visible cards;
+with ``--device cpu`` every stage is the CPU), each batch in
+``--pp_microbatches`` microbatches, every rank of the process group a data
+replica running its own pipeline, validation through the pipelined
+forward, the best model exported in the standard ``.ckpt`` format and the
+resume state in ``checkpoints/pp_train_state.pt``. It runs JAX's
+constant-rate AdamW path and refuses what JAX's refuses.
 """
 
 from __future__ import annotations
@@ -66,12 +72,6 @@ import os
 import shutil
 import time
 
-# flags of the JAX CLI that the port does not run yet, with the ROADMAP
-# item that ports each
-UNPORTED = {
-    "pp_stages": "ROADMAP A.11 (pipeline parallelism)",
-    "pp_microbatches": "ROADMAP A.11 (pipeline parallelism)",
-}
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
 
 
@@ -178,9 +178,15 @@ def parse_args(argv=None):
     p.add_argument("--fsdp", action="store_true",
                    help="FSDP layout: also shard the wide conv kernels and their AdamW "
                    "moments over the data axis (FSDP2)")
+    p.add_argument("--pp_stages", type=int, default=0,
+                   help="pipeline-parallel training: split the U-Net block sequence into N "
+                   "stages on the process's first N cards and train with the 1F1B schedule "
+                   "(parallel/pipeline_train.py); every rank is a data replica. Constant LR "
+                   "only; magnitude (unet) family")
+    p.add_argument("--pp_microbatches", type=int, default=4,
+                   help="microbatches a 1F1B step (batch_size must divide by "
+                   "pp_microbatches * data replicas)")
     p.add_argument("--device", type=str, default=None, help="default: the GPU")
-    for name in UNPORTED:
-        p.add_argument(f"--{name}", default=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -199,10 +205,7 @@ def _resolve_npy_dir(base: str, noise_type: str | None) -> str:
                             f"(noise_type={noise_type!r})")
 
 
-def _check_ported(args) -> None:
-    for name, item in UNPORTED.items():
-        if hasattr(args, name):
-            raise SystemExit(f"--{name} is not ported yet: {item}")
+def _check_flags(args) -> None:
     if args.s2d_skip and not args.s2d_stem:
         raise SystemExit("--s2d_skip requires --s2d_stem (it refines the "
                          "sub-pixel head)")
@@ -316,7 +319,7 @@ def _on_device_batches(args, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    _check_ported(args)
+    _check_flags(args)
     if args.noise_type == "all":  # the four specialists, one run each
         argv = list(argv) if argv is not None else __import__("sys").argv[1:]
         results = {}
@@ -352,11 +355,13 @@ def main(argv=None):
         train_batches, val_batches, steps_per_epoch = _npy_batches(args)
     else:
         train_batches, val_batches, steps_per_epoch = _on_device_batches(args, device)
-    if args.lr_schedule == "cosine":
+    fit_kwargs, meta = {}, None
+    if args.pp_stages:
+        _check_pp(args)
+    elif args.lr_schedule == "cosine":
         # the schedule counts updates and this counts steps, as the JAX CLI
         # does: with --grad_accum k a run covers 1/k of the decay
         cfg.total_steps = args.epochs * steps_per_epoch
-    fit_kwargs, meta = {}, None
     if args.model == "complex_mask":
         fit_kwargs, meta = _mask_family(args, device, cfg)
     elif (args.width_mult != 1.0 or args.attn_bottleneck or args.s2d_stem
@@ -369,7 +374,10 @@ def main(argv=None):
 
     reset_launch_counts()  # this run's launches alone (--noise_type all runs four)
     with maybe_trace(args.profile_dir):
-        result = fit(cfg, train_batches, val_batches, **fit_kwargs)
+        if args.pp_stages:
+            result = _train_pp(args, cfg, train_batches, val_batches, device)
+        else:
+            result = fit(cfg, train_batches, val_batches, **fit_kwargs)
     if device.type == "cuda":
         counts = {k.__name__: {"launches": k.launches, **variant_launches(k)}
                   for k in KERNELS}
@@ -528,6 +536,195 @@ def _mask_family(args, device, cfg):
                                      distill_weight=args.distill_weight,
                                      distill_feat_weight=args.distill_features)
     return {"state_factory": factory, "steps": steps}, meta
+
+
+def _check_pp(args) -> None:
+    """JAX's refusals of ``--pp_stages``, word for word."""
+    if args.model != "unet":
+        raise SystemExit("--pp_stages supports the unet family only")
+    if args.attn_bottleneck:
+        raise SystemExit("--pp_stages does not support "
+                         "--attn_bottleneck (the 1F1B stage splitter "
+                         "carries convolutional blocks only)")
+    if args.s2d_stem:
+        raise SystemExit("--pp_stages does not support --s2d_stem "
+                         "(the 1F1B stage splitter assumes the plain "
+                         "full-resolution stem/head)")
+    if args.lr_schedule != "constant" or args.ema_decay or args.fsdp:
+        raise SystemExit(
+            "--pp_stages supports the constant-LR AdamW path only "
+            "(drop --lr_schedule/--ema_decay/--fsdp)"
+        )
+
+
+def _pp_devices(n_stages: int, device) -> list:
+    """The stages' devices: ``device`` n times on the CPU; on the card the
+    process's first ``n_stages`` cards (a launcher's local rank r takes
+    cards r*n .. r*n + n - 1), which must divide the visible cards."""
+    import torch
+
+    if device.type != "cuda":
+        return [device] * n_stages
+    nd = torch.cuda.device_count()
+    if nd % n_stages:
+        raise SystemExit(f"--pp_stages {n_stages} does not divide {nd} devices")
+    start = int(os.environ.get("LOCAL_RANK", 0)) * n_stages
+    if start + n_stages > nd:
+        raise SystemExit(f"--pp_stages {n_stages} on local rank {start // n_stages} needs "
+                         f"cards {start}..{start + n_stages - 1}; {nd} are visible")
+    return [torch.device("cuda", start + i) for i in range(n_stages)]
+
+
+def _train_pp(args, cfg, train_batches, val_batches, device) -> dict:
+    """1F1B pipeline-parallel training (``--pp_stages``), JAX's ``_train_pp``:
+    each (B, C, F, T) batch in (n_micro, B / n_micro, ...) microbatches
+    (a ragged batch wrap-padded to the static shape: dropped in training
+    when full batches came before it, its real rows alone scored in
+    validation), ``PipelineTrainer.step``, validation through the pipelined
+    forward, the best model exported as ``checkpoints/best_model.ckpt`` and
+    the resume state (full weights, AdamW's moments by name, the step,
+    epoch and best loss) as ``checkpoints/pp_train_state.pt``. Every rank
+    of the process group is a data replica; rank 0 writes."""
+    import logging
+    from itertools import chain
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from audiodenoiser_torch.losses import combined_perceptual_loss
+    from audiodenoiser_torch.models.convert import flax_from_state_dict
+    from audiodenoiser_torch.models.unet import width_kwargs
+    from audiodenoiser_torch.parallel import distributed
+    from audiodenoiser_torch.parallel.pipeline_train import PipelineTrainer
+    from audiodenoiser_torch.train import checkpoints as ckpt_lib
+    from audiodenoiser_torch.train import loop as loop_mod
+    from audiodenoiser_torch.train.logging_utils import ScalarWriter, setup_logger
+
+    S, M = args.pp_stages, args.pp_microbatches
+    devices = _pp_devices(S, device)
+    dp = distributed.world_size()
+    if cfg.batch_size % (M * dp):
+        raise SystemExit(
+            f"batch_size {cfg.batch_size} must divide by "
+            f"pp_microbatches*data ({M}*{dp})"
+        )
+    mb = cfg.batch_size // (M * dp)
+    primary = distributed.is_primary()
+    run_dir = os.path.join(cfg.output_path, cfg.run_name)
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    if primary:
+        logger = setup_logger(os.path.join(run_dir, "training.log"))
+    else:
+        logger = logging.getLogger("unet_training_logger.follower")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+    logger.info(f"--- 1F1B pipeline-parallel run: mesh {dict(data=dp, stage=S)}, "
+                f"{M} microbatches x {mb} per replica ---")
+
+    # one batch for the sample shape; the model comes from loop.UNet, so
+    # the architecture is the monolithic path's
+    it0 = iter(train_batches(0))
+    first = next(it0)
+    c_dim, f_dim, t_dim = tuple(first[0].shape[1:])
+    dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+    model = loop_mod.init_flax_like(
+        loop_mod.UNet(dtype=dtype, remat=False, **width_kwargs(cfg.width_mult)), cfg.seed)
+    trainer = PipelineTrainer(
+        devices, micro_batch=mb, n_micro=M, input_shape=(c_dim, f_dim, t_dim),
+        features=model.features, bottleneck=model.bottleneck_width,
+        out_channels=model.out_channels, dtype=dtype, learning_rate=cfg.learning_rate,
+        data_group=dist.group.WORLD if dp > 1 else None, in_channels=c_dim)
+    state = trainer.init(model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"U-NET Model initialized. Trainable parameters: {n_params:,}")
+    del model
+
+    start_epoch, best_val, exported_best = 0, float("inf"), False
+    best_path = os.path.join(ckpt_dir, "best_model.ckpt")
+    resume_path = os.path.join(ckpt_dir, "pp_train_state.pt")
+    if cfg.resume and os.path.exists(resume_path):
+        restored = ckpt_lib.restore_train_state(resume_path, "cpu")
+        state = trainer.pack_state(restored["model"], restored["moments"], restored["step"])
+        start_epoch = int(restored["epoch"]) + 1
+        # --ckpt_every makes the resume state older than the best export,
+        # whose sidecar keeps best_val honest (see fit)
+        best_val = ckpt_lib.best_val_floor(best_path, float(restored["best_val"]))
+        logger.info(f"Resumed from epoch {start_epoch} (best val {best_val:.6f})")
+
+    eff = M * mb * dp
+
+    def prep(x):
+        """A batch in (M, mb * dp, ...) microbatches, wrap-padded to the
+        static shape, and its count of real rows."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        n = x.shape[0]
+        if n != eff:
+            x = x[torch.arange(eff, device=x.device) % n]
+        return x.reshape(M, mb * dp, *x.shape[1:]), n
+
+    writer = (ScalarWriter(os.path.join(run_dir, "tensorboard_logs")) if primary
+              else loop_mod._NoWriter())
+    history, global_step = [], 0
+    for epoch in range(start_epoch, cfg.epochs):
+        t0 = time.perf_counter()
+        batches_iter = chain([first], it0) if epoch == 0 else train_batches(epoch)
+        train_losses = []
+        for noisy, clean in batches_iter:
+            pn, n = prep(noisy)
+            pc, _ = prep(clean)
+            if n != eff and train_losses:
+                # wrap-padding would weigh repeated rows up to eff/n times:
+                # drop the ragged tail, as full batches came this epoch
+                logger.info(f"  dropping ragged final batch ({n} < {eff} rows)")
+                continue
+            state, loss = trainer.step(state, pn, pc)
+            train_losses.append(float(loss))
+            global_step += 1
+        train_loss = float(np.mean(train_losses)) if train_losses else float("nan")
+        writer.add_scalar("Loss/train", train_loss, epoch)
+        val_losses = []  # (the loss over a batch's real rows, their count)
+        with torch.no_grad():
+            for noisy, clean in val_batches():
+                pn, n = prep(noisy)
+                pc, _ = prep(clean)
+                out = trainer.forward(state, pn)
+                flat = out.reshape(-1, *out.shape[2:])[:n]
+                flat_c = pc.reshape(-1, *pc.shape[2:])[:n].to(flat.device)
+                val_losses.append((float(combined_perceptual_loss(flat, flat_c).total), n))
+        val_loss = (float(np.average([v for v, _ in val_losses],
+                                     weights=[n for _, n in val_losses]))
+                    if val_losses else train_loss)
+        writer.add_scalar("Loss/validation", val_loss, epoch)
+        dt = time.perf_counter() - t0
+        logger.info(f"Epoch {epoch + 1}/{cfg.epochs} -> Train Loss: {train_loss:.6f}"
+                    f" | Validation Loss: {val_loss:.6f} | {dt:.1f}s")
+        if not np.isfinite(train_loss):
+            logger.error("Non-finite training loss; aborting run.")
+            raise FloatingPointError(f"diverged at epoch {epoch}")
+        history.append({"epoch": epoch, "train": train_loss, "val": val_loss})
+        if val_loss < best_val:
+            best_val = val_loss
+            if primary:
+                tree = flax_from_state_dict(trainer.unpack_state(state))
+                ckpt_lib.export_model(best_path, tree["params"], tree["batch_stats"])
+                ckpt_lib.record_best_val(best_path, best_val, epoch)
+            exported_best = True
+            logger.info(f"New best model saved to {best_path} (Val Loss: {best_val:.6f})")
+        if (epoch + 1) % max(1, cfg.ckpt_every) == 0 or epoch == cfg.epochs - 1:
+            if primary:
+                ckpt_lib.save_train_state(resume_path, {
+                    "model": trainer.unpack_state(state),
+                    "moments": trainer.optimizer_state(state), "step": state.step,
+                    "epoch": epoch, "best_val": best_val})
+    writer.close()
+    if dp > 1:  # every rank leaves once rank 0's files are written
+        dist.barrier()
+    logger.info("--- Training Finished ---")
+    return {"best_val": best_val, "best_path": best_path, "run_dir": run_dir,
+            "history": history, "state": state, "exported_best": exported_best,
+            "steps": global_step, "trainer": trainer}
 
 
 if __name__ == "__main__":

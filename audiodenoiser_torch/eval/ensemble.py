@@ -12,9 +12,26 @@ of the same K1 STFT, scored in training-shaped windows
 (``windowed_logits``).
 
 Experts may differ in configuration (mask sidecars with other
-``mask_bound``/``residual``): each runs through its own module. The
-expert-parallel dispatch over a device mesh is not ported yet
-(ROADMAP A.11).
+``mask_bound``/``residual``): each runs through its own module.
+
+Expert parallelism (magnitude family), over the process group's ranks,
+each forwarding through one specialist (rank r through expert r mod 4):
+
+- ``denoise_ep`` on a ``('data', 'expert')`` mesh (``make_ep_mesh``):
+  every rank forwards its data block through its expert, keeps the rows
+  routed to it (a mask by label) and the expert ranks sum (the
+  counterpart of JAX's one-hot ``psum``). Dense: each clip is computed by
+  every expert.
+- ``denoise_ep_a2a`` on a 1-D ``('expert',)`` mesh (``make_a2a_mesh``):
+  each rank buckets its still-pending clips by expert, at most
+  ``capacity = ceil(b_loc * capacity_factor / E)`` a bucket, one
+  ``all_to_all_single`` ships every bucket to its expert's rank, the
+  expert forwards the ``E * capacity`` rows it received and a second one
+  ships them home. Clips past a bucket's capacity stay pending for another
+  pass of the same exchange; their data never leaves the device.
+
+Every rank passes the whole batch and gets the whole answer; a rank
+outside the mesh receives it from rank 0.
 """
 
 from __future__ import annotations
@@ -25,6 +42,7 @@ from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 import audiodenoiser_torch.dsp.stft as stft_lib
@@ -33,6 +51,77 @@ from audiodenoiser_torch.eval.runner import DenoiserRunner, identity_bypass
 from audiodenoiser_torch.models.router import NOISE_CLASSES, NoiseClassifier
 
 ROUTER_WINDOW = (256, 64)  # OnDeviceMixer's default training crop
+DATA_AXIS = "data"
+EXPERT_AXIS = "expert"
+_MESHES: dict = {}
+
+
+def _mesh_over(shape: tuple, names: tuple, device: DeviceLike):
+    """A ``DeviceMesh`` of ``shape`` over the process group's first ranks."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    from audiodenoiser_torch.parallel import distributed
+
+    kind = distributed.ensure_process_group(device)
+    key = (kind, shape, names)
+    if key not in _MESHES:
+        n = int(np.prod(shape))
+        _MESHES[key] = (init_device_mesh(kind, shape, mesh_dim_names=names)
+                        if n == dist.get_world_size()
+                        else DeviceMesh(kind, torch.arange(n).reshape(shape),
+                                        mesh_dim_names=names))
+    return _MESHES[key]
+
+
+def make_ep_mesh(n_devices: Optional[int] = None, n_experts: int = len(NOISE_CLASSES),
+                 device: DeviceLike = None):
+    """A ``('data', 'expert')`` mesh over the first ``n_devices`` ranks
+    (default all), the trailing axis the expert count: consecutive ranks
+    hold different experts, each expert row shards the batch. ``device``
+    picks the group's backend (None: the card)."""
+    from audiodenoiser_torch.parallel import distributed
+
+    distributed.ensure_process_group(device)
+    n = dist.get_world_size() if n_devices is None else n_devices
+    if n % n_experts != 0:
+        raise ValueError(f"{n} devices not divisible by {n_experts} experts")
+    return _mesh_over((n // n_experts, n_experts), (DATA_AXIS, EXPERT_AXIS), device)
+
+
+def make_a2a_mesh(n_experts: int = len(NOISE_CLASSES), device: DeviceLike = None):
+    """A 1-D ``('expert',)`` mesh over the first ``n_experts`` ranks, for
+    the all-to-all dispatch."""
+    from audiodenoiser_torch.parallel import distributed
+
+    distributed.ensure_process_group(device)
+    have = dist.get_world_size()
+    if have < n_experts:
+        raise ValueError(f"need {n_experts} devices, have {have}")
+    return _mesh_over((n_experts,), (EXPERT_AXIS,), device)
+
+
+def _share(out: Optional[torch.Tensor], mesh, shape: tuple, device) -> torch.Tensor:
+    """The answer on every rank of the group: ranks outside ``mesh``
+    receive rank 0's."""
+    if mesh.mesh.numel() == dist.get_world_size():
+        return out
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+    dist.broadcast(out, src=0)
+    return out
+
+
+def _padded(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``rows``."""
+    if rows == x.shape[0]:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0], *x.shape[1:]))])
+
+
+def _gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 def _next_pow2(n: int) -> int:
@@ -170,6 +259,110 @@ class MixtureOfDenoisers:
             out = identity_bypass(out, wavs, bypass_db)
         return out[0] if squeeze else out
 
+    def _ep_batch(self, specs, labels, rows: int):
+        """The batch and its labels on the device, zero rows (label 0)
+        appended up to ``rows``; the router runs on the padded batch when no
+        labels are given, as JAX's."""
+        specs = _padded(torch.as_tensor(specs, dtype=torch.float32).to(self.device), rows)
+        if labels is None:
+            return specs, self.classify(specs)
+        labels = torch.as_tensor(_labels(labels), dtype=torch.int64).to(self.device)
+        return specs, _padded(labels, rows)
+
+    def _check_ep(self, n_experts: int, who: str) -> None:
+        if self.family != "magnitude":
+            raise ValueError(f"{who} is magnitude-family only")
+        if n_experts != len(NOISE_CLASSES):
+            raise ValueError(f"mesh 'expert' axis is {n_experts}, need {len(NOISE_CLASSES)}")
+
+    @torch.inference_mode()
+    def denoise_ep(self, specs: torch.Tensor, mesh, labels=None) -> torch.Tensor:
+        """Expert-parallel dense dispatch over a ``('data', 'expert')`` mesh:
+        (B, 1, F, T) magnitudes -> the routed denoise, on every rank."""
+        self._check_ep(mesh.size(1), "denoise_ep")
+        dp = mesh.size(0)
+        b = specs.shape[0]
+        b_pad = -(-b // dp) * dp
+        out = None
+        if mesh.get_coordinate() is not None:
+            specs_p, labels_p = self._ep_batch(specs, labels, b_pad)
+            d, e = mesh.get_coordinate()
+            rows = slice(d * (b_pad // dp), (d + 1) * (b_pad // dp))
+            y = self.expert_models[e](specs_p[rows]).float()
+            y = y * (labels_p[rows] == e).to(y.dtype)[:, None, None, None]
+            dist.all_reduce(y, group=mesh.get_group(EXPERT_AXIS))
+            out = _gather_rows(y, mesh.get_group(DATA_AXIS), dp)[:b]
+        return _share(out, mesh, tuple(specs.shape), self.device)
+
+    def _a2a_pass(self, x, lab, pending, mesh, capacity: int):
+        """One capacity-bucketed all-to-all exchange: this rank's pending
+        clips to their experts' ranks and back. Returns the answers of the
+        clips that got a slot (0 elsewhere) and which those were."""
+        n_experts = mesh.size()
+        onehot = ((lab[:, None] == torch.arange(n_experts, device=lab.device)[None])
+                  & pending[:, None]).to(torch.int64)
+        # the position of each clip in its label's bucket (pending clips only)
+        rank = onehot.cumsum(0).gather(1, lab[:, None])[:, 0] - 1
+        valid = pending & (rank < capacity)
+        # a clip without a slot lands in a scratch slot past the buckets
+        slot = torch.where(valid, rank.clamp_min(0), torch.full_like(rank, capacity))
+        send = x.new_zeros((n_experts, capacity + 1, *x.shape[1:]))
+        send[lab, slot] = x
+        send = send[:, :capacity].contiguous()
+        recv = torch.empty_like(send)
+        group = mesh.get_group()
+        dist.all_to_all_single(recv, send, group=group)  # recv[j]: rank j's bucket for me
+        expert = self.expert_models[mesh.get_local_rank()]
+        y = expert(recv.reshape(n_experts * capacity, *x.shape[1:])).float()
+        y = y.reshape(n_experts, capacity, *y.shape[1:]).contiguous()
+        back = torch.empty_like(y)
+        dist.all_to_all_single(back, y, group=group)
+        out = back[lab, rank.clamp(0, capacity - 1)]
+        return torch.where(valid[:, None, None, None], out, torch.zeros_like(out)), valid
+
+    @torch.inference_mode()
+    def denoise_ep_a2a(self, specs: torch.Tensor, mesh, capacity_factor: float = 1.5,
+                       labels=None, stats: Optional[dict] = None) -> torch.Tensor:
+        """Capacity-based all-to-all expert dispatch over a 1-D
+        ``('expert',)`` mesh: each clip forwarded by one expert rank; every
+        pass forwards ``n_experts * capacity`` rows a rank, and clips past
+        a bucket's capacity wait for the next pass. ``stats`` receives
+        ``n_passes`` and ``capacity``."""
+        n_experts = mesh.size()
+        self._check_ep(n_experts, "denoise_ep_a2a")
+        b = specs.shape[0]
+        b_pad = -(-b // n_experts) * n_experts
+        b_loc = b_pad // n_experts
+        # ceil(b_loc * factor / E), as JAX's: no float-to-int undersizing
+        capacity = max(1, int(np.ceil(b_loc * capacity_factor / n_experts)))
+        out = None
+        if mesh.get_coordinate() is not None:
+            specs_p, labels_p = self._ep_batch(specs, labels, b_pad)
+            rows = slice(mesh.get_local_rank() * b_loc, (mesh.get_local_rank() + 1) * b_loc)
+            x, lab = specs_p[rows], labels_p[rows]
+            # padded rows start done, so they never take a slot
+            pending = (torch.arange(b_pad, device=x.device) < b)[rows]
+            total = torch.zeros_like(x)
+            n_passes = 0
+            # the worst case routes every local clip to one expert
+            max_passes = int(np.ceil(b_loc / capacity)) + 1
+            left = torch.tensor([int(pending.any())], device=x.device)
+            dist.all_reduce(left, op=dist.ReduceOp.MAX, group=mesh.get_group())
+            while bool(left) and n_passes < max_passes:
+                y, valid = self._a2a_pass(x, lab, pending, mesh, capacity)
+                total += y
+                pending &= ~valid
+                n_passes += 1
+                left = torch.tensor([int(pending.any())], device=x.device)
+                dist.all_reduce(left, op=dist.ReduceOp.MAX, group=mesh.get_group())
+            if stats is not None:
+                stats["n_passes"] = n_passes
+                stats["capacity"] = capacity
+            if bool(left):  # pragma: no cover - defensive
+                raise RuntimeError("a2a dispatch failed to converge")
+            out = _gather_rows(total, mesh.get_group(), n_experts)[:b]
+        return _share(out, mesh, tuple(specs.shape), self.device)
+
 
 def load_router(path: str, dtype: torch.dtype = torch.bfloat16) -> tuple[NoiseClassifier, tuple]:
     """A ``noise_router.ckpt`` export (Flax layout, read with the port's
@@ -219,7 +412,10 @@ def load_mixture(saved_models_dir: str = "./saved_models",
 
 
 def _write_metrics(path: str, header: str, lines: list) -> None:
-    with open(path, "w") as f:
+    """Write a metrics file (rank 0 alone under a launcher)."""
+    from audiodenoiser_torch.parallel.distributed import is_primary
+
+    with open(path if is_primary() else os.devnull, "w") as f:
         f.write(header + "\n")
         for line in lines:
             f.write(line + "\n")
@@ -322,12 +518,15 @@ def evaluate_routed_waveform(mixture: MixtureOfDenoisers, clean_dir: str, noise_
 
 @torch.inference_mode()
 def evaluate_routed(mixture: MixtureOfDenoisers, test_data_dir: str, output_dir: str,
-                    noise_types=NOISE_CLASSES) -> dict:
+                    noise_types=NOISE_CLASSES, ep_mesh=None) -> dict:
     """Auto-routed evaluation over the test set's ``noisy_{nt}.npy`` /
     ``clean_{nt}.npy`` magnitudes: the router predicts each clip's
     corruption (the noise type is the true label, so the routing accuracy
     comes for free), the predicted specialists denoise, and the combined
-    perceptual loss goes to ``{nt}_routed_metrics.txt``."""
+    perceptual loss goes to ``{nt}_routed_metrics.txt``. ``ep_mesh``
+    chooses the dispatch: a ``('data', 'expert')`` mesh the dense
+    ``denoise_ep``, an ``('expert',)`` mesh ``denoise_ep_a2a``, None the
+    host-bucketed ``denoise``."""
     from audiodenoiser_torch.losses.spectral import combined_perceptual_loss
 
     os.makedirs(output_dir, exist_ok=True)
@@ -343,7 +542,12 @@ def evaluate_routed(mixture: MixtureOfDenoisers, test_data_dir: str, output_dir:
         # one router pass: the accuracy describes the routing the denoise used
         pred = mixture.classify(specs).cpu().numpy()
         acc = float(np.mean(pred == NOISE_CLASSES.index(nt)))
-        denoised = mixture.denoise(specs, labels=pred)
+        if ep_mesh is not None and DATA_AXIS in ep_mesh.mesh_dim_names:
+            denoised = mixture.denoise_ep(specs, ep_mesh, labels=pred)
+        elif ep_mesh is not None:  # each clip forwarded once, by its expert's rank
+            denoised = mixture.denoise_ep_a2a(specs, ep_mesh, labels=pred)
+        else:
+            denoised = mixture.denoise(specs, labels=pred)
         total, s, m, l1 = combined_perceptual_loss(denoised, clean)
         metrics = {"total": float(total), "stft": float(s), "mel": float(m),
                    "l1": float(l1), "routing_accuracy": acc}

@@ -196,6 +196,26 @@ from the root of a checkout. Phases, each fatal on failure:
    runner (within 1e-6; K1 and K2 once a call) and both runners' frames/s;
    bf16 steps at batch 16 unmeshed, meshed and with fsdp, timed in turns
    (ms a step, peak memory);
+6i. the rest of parallelism on the one card, over phase 6d's wavs:
+   ``cli.train --pp_stages 1 --pp_microbatches 4`` (2 bf16 steps and 1
+   validation at batch 16: the pipeline in the log, K1 3 launches, K3 and
+   K4 0, its export served) and ``--pp_stages 2``, which must stop with
+   JAX's "does not divide 1 devices"; ``PipelinedDenoiser`` at 2 and 4
+   stages on ``cuda:0`` in fp32 against the monolithic U-Net (1e-5), then
+   bf16 at 256 x 2 s magnitudes at 1, 2 and 4 stages beside the monolithic
+   forward (frames/s, peak memory); gloo probes on CUDA tensors in
+   processes of their own (a point-to-point swap between two ranks, an
+   ``all_to_all_single`` over four); four ranks sharing the card over
+   gloo, each with one full-width expert: ``denoise_ep`` and
+   ``denoise_ep_a2a`` (capacity factors 1.0 and 4.0) on 64 clips of 2 s in
+   fp32 against the bucketed dispatch (1e-6; ``n_passes`` by JAX's rule),
+   and, where the point-to-point probe passes, a two-rank sharded clip;
+   a 60 s clip through ``denoise_waveform_sharded`` on a world-size-1
+   ('seq',) mesh (NCCL) against the padded oracle (1e-5; K1 and K2 once)
+   and timed beside the runner; the 1F1B trainer at 2 and 4 stages, one
+   full-width fp32 step against ``fit``'s step with ``grad_accum`` 4
+   (losses 1e-5, tensors 1e-4, the BN-fed conv biases 4 x lr), then bf16
+   steps at batch 16 beside the monolithic step;
 7. measure throughput with ``eval.bench.run_bench`` at batch 256, folded,
    with ``pallas_deconv`` (K1, K2 and K3 counted; K1 and K2 through their
    FFT entries and K3 through TMA + wgmma only) and in ``complex_mask`` mode
@@ -3017,9 +3037,13 @@ def routed_eval_check(tmp, started, card):
                   f"{run[0]}: {nt}'s metrics {numbers}")
             acc[nt] = numbers[0]
         launches = re.findall(r"^\[launches\] auto_route (.*)$", stdout, re.M)
+        # one process is fewer than four ranks: --ep auto takes the bucketed dispatch
+        ep = "Expert-parallel mesh" in stdout
         print(f"[routed] {run[0]}: exit 0 in {wall:.1f} s ({card}); routing accuracy "
-              f"{json.dumps(acc)}; launches {launches[0] if launches else None}", flush=True)
-        check(len(launches) == 1, f"{run[0]} printed no [launches] line")
+              f"{json.dumps(acc)}; launches {launches[0] if launches else None}; expert "
+              f"mesh {ep}", flush=True)
+        check(len(launches) == 1 and not ep, f"{run[0]}: [launches] lines {len(launches)}, "
+              f"expert mesh {ep}")
 
 
 def routed_bench(torch, saved, card):
@@ -4049,6 +4073,550 @@ def phase_mesh(torch, rows, card, wavs):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+PP_TOL = 1e-5  # relative L2, the pipelined fp32 forward against the monolithic U-Net
+PP_STEP_TOL = 1e-4  # relative L2 a tensor, a 1F1B fp32 step against per-microbatch accumulation
+PP_CLI_STEPS = 2  # phase 6i's cli.train --pp_stages runs: 2 bf16 steps and 1 validation
+SEQ_TOL = 1e-5  # relative L2, the sharded 60 s clip against the padded oracle's iSTFT
+EP_TOL = 1e-6  # relative L2, the expert-parallel dispatch against the bucketed one (fp32)
+LONG_CLIP_S = 60  # (c)'s clip at 8 kHz: 3,751 frames
+EP_CLIPS = 64  # (d)'s batch of 2 s clips
+EP_MEMORY_FRACTION = 0.15  # of the card's memory, each of (d)'s four ranks
+
+
+def pp_cli_start(tmp, wavs):
+    """Phase 6i (b), started first: ``cli.train --pp_stages 1`` (the one
+    card holds the one stage) for 2 steps and a validation, exported; and
+    ``--pp_stages 2``, which must stop with JAX's divisibility message."""
+    base = ["audiodenoiser_torch.cli.train", "--base_dataset_path", wavs, "--pipeline",
+            "on_device", "--noise_type", "white", "--epochs", "1", "--steps_per_epoch",
+            str(PP_CLI_STEPS), "--batch_size", "16", "--pp_microbatches", "4"]
+    return {"s1": _start_cli("cli.train pp 1", base + [
+                "--output_path", os.path.join(tmp, "pp1"), "--pp_stages", "1",
+                "--export_dir", os.path.join(tmp, "pp_saved")], tmp),
+            "s2": _start_cli("cli.train pp 2", base + [
+                "--output_path", os.path.join(tmp, "pp2"), "--pp_stages", "2"], tmp)}
+
+
+def pp_cli_check(torch, runs, tmp):
+    """Phase 6i (b): the one-stage run's exit, pipeline log line, losses and
+    ``[launches]`` (K1 a train and a validation step's mixer, K3 and K4 0),
+    its export served by ``load_model_for_noise``; the two-stage run's
+    nonzero exit with JAX's message."""
+    import numpy as np
+
+    from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
+
+    out, wall = _finish_cli(runs["s1"])
+    lines = [ln for ln in out.splitlines() if ln.startswith("[launches] ")]
+    check(len(lines) == 1, "cli.train --pp_stages 1 printed no [launches] line")
+    counts = json.loads(lines[0][len("[launches] "):])
+    got = (counts["stft_kernel"]["launches"], counts["deconv_kernel"]["launches"],
+           counts["overlap_add_kernel"]["launches"])
+    losses = re.findall(r"Train Loss: ([0-9.]+) \| Validation Loss: ([0-9.]+)", out)
+    piped = "1F1B pipeline-parallel run: mesh {'data': 1, 'stage': 1}, 4 microbatches x 4" in out
+    model = load_model_for_noise("white", os.path.join(tmp, "pp_saved"), device="cuda")
+    clip = torch.from_numpy(np.clip(np.random.default_rng(50).standard_normal(2 * SR) * 0.2,
+                                    -1, 1).astype(np.float32)).cuda()
+    served = DenoiserRunner(model, device="cuda").denoise_audio(clip[None])
+    print(f"[6i cli.train] --pp_stages 1: exit 0 in {wall:.1f} s; pipeline {piped}; losses "
+          f"{losses}; launches K1/K3/K4 {got}; export served {tuple(served.shape)}", flush=True)
+    check(piped and got == (PP_CLI_STEPS + 1, 0, 0) and counts["stft_kernel"]["fft"] == got[0],
+          f"cli.train --pp_stages 1: pipeline {piped}, launches {got}")
+    check(len(losses) == 1 and all(math.isfinite(float(v)) for v in losses[0]),
+          "cli.train --pp_stages 1's losses")
+    check(served.shape == (1, 2 * SR) and bool(torch.isfinite(served).all()),
+          "the --pp_stages export did not serve")
+    label, proc, log, t0, watcher, ended = runs["s2"]
+    watcher.join(timeout=600)
+    log.seek(0)
+    said = "--pp_stages 2 does not divide 1 devices" in log.read()
+    print(f"[6i cli.train] --pp_stages 2: exit {proc.returncode}; JAX's message {said}",
+          flush=True)
+    check(bool(ended) and proc.returncode != 0 and said,
+          "cli.train --pp_stages 2 on one card did not stop with JAX's message")
+    return got[0]
+
+
+def _full_sd(seed, **kw):
+    from audiodenoiser_torch.models import random_flax_variables, state_dict_from_flax
+
+    return state_dict_from_flax(random_flax_variables(seed, **kw))
+
+
+def _peak_run(torch, fn, reps: int = 5, warmup: int = 2):
+    """ms a call (wall clock over ``reps`` after ``warmup``) and the peak
+    GiB above what was allocated before."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / reps,
+            (torch.cuda.max_memory_allocated() - base) / 2**30)
+
+
+def pp_forward(torch, card):
+    """Phase 6i (a): ``PipelinedDenoiser`` at 2 and 4 stages on ``cuda:0``,
+    4 microbatches, full width: fp32 against the monolithic U-Net on the
+    same weights (cuDNN deterministic, no TF32), then bf16 at the bench
+    batch (256 x 2 s magnitudes) at 1, 2 and 4 stages against the
+    monolithic forward: frames/s and peak memory."""
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.parallel.pipeline import PipelinedDenoiser
+
+    sd = _full_sd(40)
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    x = torch.rand((8, 1, 257, 126), device="cuda", generator=gen)
+    out = {"fp32_rel_l2": {}}
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        mono = UNet().cuda().eval()
+        mono.load_state_dict(sd)
+        with torch.inference_mode():
+            want = mono(x)
+        for s in (2, 4):
+            got = PipelinedDenoiser(sd, devices=["cuda:0"] * s)(x, microbatches=4)
+            out["fp32_rel_l2"][s] = _rel_l2(got, want)
+    del mono
+    print(f"[6i pipeline] fp32 at 8 x (257, 126), 4 microbatches, against the monolithic "
+          f"U-Net: rel L2 {json.dumps(out['fp32_rel_l2'])}", flush=True)
+    check(all(e <= PP_TOL for e in out["fp32_rel_l2"].values()),
+          "the pipelined fp32 forward left the monolithic U-Net")
+    x = torch.rand((256, 1, 257, 126), device="cuda", generator=gen)
+    frames = 256 * 126
+    mono = UNet(dtype=torch.bfloat16).cuda().eval()
+    mono.load_state_dict(sd)
+    runs = {"monolithic": lambda: mono(x)}
+    for s in (1, 2, 4):
+        pipe = PipelinedDenoiser(sd, devices=["cuda:0"] * s, dtype=torch.bfloat16)
+        runs[f"stages_{s}"] = lambda p=pipe: p(x, microbatches=4)
+    bench = {}
+    with torch.inference_mode():
+        for label, fn in runs.items():
+            ms, gib = _peak_run(torch, fn)
+            bench[label] = {"ms": ms, "frames_per_sec": frames / ms * 1e3, "peak_gib": gib}
+    out["bf16"] = bench
+    print(f"[6i pipeline] bf16 at 256 x (257, 126), 4 microbatches, every stage on cuda:0: "
+          f"{json.dumps(bench)}; {card}", flush=True)
+    del runs, mono
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_train(torch, card):
+    """Phase 6i (b): the 1F1B trainer at 2 and 4 stages on ``cuda:0``,
+    M = 4, batch 16 of (256, 64) crops. One fp32 step against ``fit``'s
+    step with ``grad_accum`` 4 over the same microbatches (BatchNorm on each
+    microbatch; cuDNN deterministic, no TF32): losses within 1e-5
+    relative, every tensor within PP_STEP_TOL but the conv biases that feed
+    a train-mode BatchNorm, within 4 x lr. Then bf16 steps against the
+    monolithic step at batch 16: ms a step and peak memory."""
+    from audiodenoiser_torch.data.pipeline import OnDeviceMixer
+    from audiodenoiser_torch.models import UNet, random_flax_variables
+    from audiodenoiser_torch.parallel.pipeline_train import PipelineTrainer
+    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    lr = 1e-4
+    variables = random_flax_variables(41)
+    sd = _full_sd(41)
+    mixer = OnDeviceMixer(synth_chunks(32, seed=42), "white")
+    (noisy, clean), = _mixer_batches(torch, mixer, 16, 1, 43)
+    micro = (noisy.reshape(4, 4, *noisy.shape[1:]), clean.reshape(4, 4, *clean.shape[1:]))
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        state = create_train_state(0, UNet(), variables=variables, learning_rate=lr,
+                                   grad_accum=4)
+        losses = []
+        for m in range(4):
+            state, l = train_step(state, micro[0][m], micro[1][m])
+            losses.append(float(l.total))
+        want_loss = sum(losses) / 4
+        want = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+        del state
+        for s in (2, 4):
+            trainer = PipelineTrainer(["cuda:0"] * s, micro_batch=4, n_micro=4,
+                                      input_shape=(1, 256, 64), learning_rate=lr)
+            pstate, loss = trainer.step(trainer.init(sd), *micro)
+            got = trainer.unpack_state(pstate)
+            errs = {k: _rel_l2(got[k], want[k]) for k in want if want[k].is_floating_point()}
+            held = [k for k in errs if not k.endswith(BN_FED)]
+            worst = max(held, key=errs.get)
+            bn_fed = max(float((got[k] - want[k]).abs().max()) for k in errs
+                         if k.endswith(BN_FED))
+            loss_gap = abs(float(loss) - want_loss) / want_loss
+            out[s] = {"loss": float(loss), "ref_loss": want_loss, "loss_gap": loss_gap,
+                      "worst": worst, "worst_rel_l2": errs[worst], "bn_fed_max_abs": bn_fed}
+            print(f"[6i 1F1B fp32] {s} stages: loss {float(loss)} vs {want_loss} "
+                  f"({loss_gap:.2e}); {len(held)} tensors, worst {worst} {errs[worst]:.3e}; "
+                  f"the BN-fed conv biases max |diff| {bn_fed:.3e} (lr {lr})", flush=True)
+            check(loss_gap <= 1e-5 and errs[worst] <= PP_STEP_TOL and bn_fed <= 4 * lr,
+                  f"the {s}-stage 1F1B step left per-microbatch accumulation")
+            del trainer, pstate
+    bench = {}
+    states = {"monolithic": create_train_state(0, UNet(dtype=torch.bfloat16))}
+    runs = {"monolithic": lambda: train_step(states["monolithic"], noisy, clean)}
+    for s in (2, 4):
+        trainer = PipelineTrainer(["cuda:0"] * s, micro_batch=4, n_micro=4,
+                                  input_shape=(1, 256, 64), dtype=torch.bfloat16)
+        states[s] = trainer.init(sd)
+        runs[f"stages_{s}"] = lambda t=trainer, s=s: t.step(states[s], *micro)
+    for label, fn in runs.items():
+        ms, gib = _peak_run(torch, fn)
+        bench[label] = {"step_ms": ms, "peak_gib": gib}
+    out["bf16"] = bench
+    print(f"[6i 1F1B bench] bf16 batch 16 (M 4 x 4), every stage on cuda:0, ms a step and "
+          f"peak GiB: {json.dumps(bench)}; {card}", flush=True)
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def _long_clip(torch):
+    import numpy as np
+
+    rng = np.random.default_rng(51)
+    return torch.from_numpy(np.clip(rng.standard_normal(LONG_CLIP_S * SR) * 0.2, -1, 1)
+                            .astype(np.float32)).cuda()
+
+
+def _padded_reference(torch, model, wav):
+    """The oracle's waveform: K1's STFT, ``reference_padded_forward``, K2's
+    noisy-phase iSTFT."""
+    from audiodenoiser_torch.dsp import stft as stft_lib
+    from audiodenoiser_torch.parallel.spatial import reference_padded_forward
+
+    with torch.inference_mode():
+        mag, phase = stft_lib.magphase(stft_lib.stft(wav, N_FFT, HOP, precision="kernel"))
+        den = reference_padded_forward(model, mag)
+        return stft_lib.istft(den.float().clamp_min(0.0) * phase, HOP, n_fft=N_FFT,
+                              length=wav.shape[-1], precision="kernel")
+
+
+def seq_long_clip(torch, rows, card):
+    """Phase 6i (c): a 60 s clip through ``denoise_waveform_sharded`` on a
+    world-size-1 ('seq',) mesh (NCCL): K1 and K2 once each (FFT entries),
+    within SEQ_TOL of the padded oracle, then its ms against the runner on
+    the same clip and model (fp32, full width)."""
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+    from audiodenoiser_torch.parallel.spatial import denoise_waveform_sharded, make_seq_mesh
+
+    model = UNet().cuda().eval()
+    model.load_state_dict(_full_sd(43))
+    wav = _long_clip(torch)
+    mesh = make_seq_mesh(device="cuda")
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        reset_launch_counts()
+        got = denoise_waveform_sharded(model, wav, mesh)
+        torch.cuda.synchronize()
+        counts = {"stft_kernel": stft_kernel.launches, "istft_kernel": istft_kernel.launches}
+        require_variants("the sharded long clip", {"stft_kernel": "fft", "istft_kernel": "fft"})
+        count_off_path(rows, "the sharded long clip")
+        err = _rel_l2(got, _padded_reference(torch, model, wav))
+    runner = DenoiserRunner(model, device="cuda")
+    with torch.inference_mode():
+        times = {"sharded": _peak_run(torch, lambda: denoise_waveform_sharded(model, wav, mesh)),
+                 "runner": _peak_run(torch, lambda: runner.denoise_audio(wav[None]))}
+    out = {"frames": 1 + wav.shape[-1] // HOP, "rel_l2": err, "launches": counts,
+           **{k: {"ms": v[0], "peak_gib": v[1]} for k, v in times.items()}}
+    print(f"[6i seq] {LONG_CLIP_S} s clip ({out['frames']} frames), world size 1 (NCCL): rel L2 "
+          f"{err:.3e} to the padded oracle, launches {counts}; fp32 ms and peak GiB "
+          f"{json.dumps({k: out[k] for k in times})}; {card}", flush=True)
+    check(err <= SEQ_TOL and counts == {"stft_kernel": 1, "istft_kernel": 1},
+          "the sharded long clip")
+    return out
+
+
+def _gloo_ranks_start(tmp, entry: str, world: int, extra_env: dict):
+    """``world`` ranks of ``chip_smoke.<entry>()`` sharing the card over
+    gloo, their output to files."""
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "PYTHONPATH": HERE, "RANK": str(rank), "WORLD_SIZE": str(world),
+               "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               **extra_env}
+        log = open(os.path.join(tmp, f"{entry}_{extra_env.get('PROBE', 'run')}_{rank}.log"),
+                   "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.{entry}()"],
+            cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT, text=True), log))
+    return procs
+
+
+def _gloo_init(seconds: int) -> None:
+    import datetime
+
+    from audiodenoiser_torch.parallel.distributed import maybe_initialize
+
+    check(maybe_initialize("cuda", backend="gloo", timeout=datetime.timedelta(seconds=seconds)),
+          "no launcher environment")
+
+
+def gloo_probe_rank() -> None:
+    """One rank of a probe of what gloo carries on CUDA tensors, in
+    processes of their own (a refused exchange may abort the process):
+    ``PROBE=p2p``, two ranks swap a tensor through ``batch_isend_irecv``;
+    ``PROBE=a2a``, four ranks ``all_to_all_single``. Prints "[probe] ok"."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    _gloo_init(60)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if os.environ["PROBE"] == "p2p":
+        peer = rank ^ 1
+        got = torch.empty(4, device="cuda")
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, torch.full((4,), float(rank), device="cuda"), peer),
+            dist.P2POp(dist.irecv, got, peer)])
+        for req in reqs:
+            req.wait()
+        check(got.tolist() == [float(peer)] * 4, f"received {got.tolist()} from rank {peer}")
+    else:
+        recv = torch.empty(world, device="cuda")
+        dist.all_to_all_single(recv, torch.arange(world, device="cuda", dtype=torch.float32)
+                               + 10 * rank)
+        check(recv.tolist() == [10.0 * j + rank for j in range(world)],
+              f"received {recv.tolist()}")
+    print("[probe] ok", flush=True)
+    dist.destroy_process_group()
+
+
+def gloo_probe_result(procs) -> str:
+    """"ok" when every probe rank printed it and exited 0, else each
+    failed rank's exit code and last error line."""
+    for rank, (proc, log) in enumerate(procs):
+        try:
+            proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    failed = []
+    for rank, (proc, log) in enumerate(procs):
+        log.seek(0)
+        lines = log.read().strip().splitlines()
+        if proc.returncode != 0 or "[probe] ok" not in lines:
+            said = [ln for ln in lines if "rror" in ln or "what()" in ln or "xception" in ln]
+            failed.append(f"rank {rank} exit {proc.returncode}: "
+                          f"{(said or lines or [''])[-1].strip()[:240]}")
+    return "refused: " + "; ".join(failed) if failed else "ok"
+
+
+def _ep_passes(labels, n_ranks, capacity):
+    """JAX's pass count: every pass empties ``capacity`` of each (rank,
+    expert) bucket."""
+    import numpy as np
+
+    b_loc = len(labels) // n_ranks
+    counts = [np.bincount(labels[r * b_loc:(r + 1) * b_loc], minlength=4)
+              for r in range(n_ranks)]
+    return int(max(-(-c // capacity) for row in counts for c in row))
+
+
+def parallel_gloo_rank() -> None:
+    """One of phase 6i's four ranks on one card over gloo (NCCL will not
+    put two ranks on one device), after the probes (``PROBES``, their
+    results as JSON). Where the point-to-point probe passed, ranks 0-1 run
+    (c) on a 2-rank ('seq',) mesh: the 60 s clip, rank 0 holding it to its
+    own padded oracle. Where the all-to-all probe passed, (d): each rank
+    holds one full-width expert (the other slots of its mixture point at
+    the same module; rank 0 keeps the four for the bucketed reference),
+    ``denoise_ep`` on a (1, 4) mesh and ``denoise_ep_a2a`` at capacity
+    factors 1.0 and 4.0 on 64 clips of 2 s, fp32, on the same labels.
+    Prints one JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from audiodenoiser_torch.eval.ensemble import (
+        MixtureOfDenoisers,
+        make_a2a_mesh,
+        make_ep_mesh,
+    )
+    from audiodenoiser_torch.models import NOISE_CLASSES, NoiseClassifier, UNet
+    from audiodenoiser_torch.parallel.spatial import denoise_waveform_sharded, make_seq_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    # four ranks and the main process share the card: a cap makes cuDNN fall
+    # back to algorithms with smaller workspaces (uncapped, on an H100 80GB,
+    # the ranks' fp32 forwards of 64 clips took 9.6-27 GiB each)
+    torch.cuda.set_per_process_memory_fraction(EP_MEMORY_FRACTION)
+    _gloo_init(300)
+    rank = dist.get_rank()
+    out = {"rank": rank, **json.loads(os.environ["PROBES"])}
+    if out["probe_p2p"] == "ok":
+        mesh = make_seq_mesh(2, device="cuda")
+        if mesh.get_coordinate() is not None:
+            model = UNet().cuda().eval()
+            model.load_state_dict(_full_sd(43))
+            wav = _long_clip(torch)
+            got = denoise_waveform_sharded(model, wav, mesh)
+            dist.barrier(group=mesh.get_group())
+            t0 = time.perf_counter()
+            got = denoise_waveform_sharded(model, wav, mesh)
+            torch.cuda.synchronize()
+            out["seq2_ms"] = (time.perf_counter() - t0) * 1e3
+            if rank == 0:
+                out["seq2_rel_l2"] = _rel_l2(got, _padded_reference(torch, model, wav))
+            del model
+        dist.barrier()
+    if out["probe_a2a"] == "ok":
+        rng = np.random.default_rng(52)
+        specs = torch.from_numpy(np.abs(rng.standard_normal((EP_CLIPS, 1, 257, 126)))
+                                 .astype(np.float32)).cuda()
+        labels = rng.integers(0, 4, EP_CLIPS)
+
+        def expert(i):
+            m = UNet().cuda().eval()
+            m.load_state_dict(_full_sd(60 + i))
+            return m
+
+        own = expert(rank)
+        mix = MixtureOfDenoisers({nt: own for nt in NOISE_CLASSES}, NoiseClassifier(),
+                                 device="cuda")
+        dense, a2a_mesh = make_ep_mesh(device="cuda"), make_a2a_mesh(device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            answers, times = {}, {}
+            runs = {"dense": lambda: mix.denoise_ep(specs, dense, labels=labels)}
+            stats = {}
+            for f in (1.0, 4.0):
+                stats[f] = {}
+                runs[f"a2a_{f}"] = (lambda f=f: mix.denoise_ep_a2a(specs, a2a_mesh, f,
+                                                                   labels=labels,
+                                                                   stats=stats[f]))
+            for label, fn in runs.items():
+                answers[label] = fn()
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[label] = (time.perf_counter() - t0) * 1e3
+                dist.barrier()
+        out["ep_ms"] = times
+        out["ep_stats"] = {str(f): s for f, s in stats.items()}
+        out["ep_expected_passes"] = {str(f): _ep_passes(labels, 4, max(1, int(np.ceil(
+            (EP_CLIPS // 4) * f / 4)))) for f in (1.0, 4.0)}
+        out["ep_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if rank == 0:
+            full = MixtureOfDenoisers({nt: own if i == 0 else expert(i)
+                                       for i, nt in enumerate(NOISE_CLASSES)},
+                                      NoiseClassifier(), device="cuda")
+            with torch.inference_mode():
+                want = full.denoise(specs, labels=labels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                full.denoise(specs, labels=labels)
+                torch.cuda.synchronize()
+            out["bucketed_ms"] = (time.perf_counter() - t0) * 1e3
+            out["ep_rel_l2"] = {k: _rel_l2(v, want) for k, v in answers.items()}
+        dist.barrier()
+    print("[gloo4] " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def gloo4_check(procs, card):
+    """Phase 6i (c, d): every rank exits 0; where a probe passed, its
+    exchange's answers within their tolerance and ``n_passes`` by JAX's
+    rule."""
+    texts = []
+    for rank, (proc, log) in enumerate(procs):
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.seek(0)
+        texts.append(log.read())
+        lines = texts[-1].strip().splitlines()
+        said = [ln for ln in lines if "rror" in ln or "what()" in ln] if proc.returncode else []
+        for line in said[-3:] + lines[-3:]:
+            print(f"[6i gloo rank {rank}] {line[:2000]}", flush=True)
+    for rank, (proc, _) in enumerate(procs):
+        check(proc.returncode == 0, f"gloo rank {rank} exited {proc.returncode}")
+    reports = [json.loads(next(ln for ln in text.splitlines()
+                               if ln.startswith("[gloo4] "))[len("[gloo4] "):])
+               for text in texts]
+    first = reports[0]
+    if first["probe_p2p"] == "ok":
+        print(f"[6i seq gloo] 2 ranks sharing the card: rel L2 {first['seq2_rel_l2']:.3e} to "
+              f"the padded oracle; ms a call {[r.get('seq2_ms') for r in reports[:2]]}; {card}",
+              flush=True)
+        check(first["seq2_rel_l2"] <= SEQ_TOL, "the two-rank sharded clip left the oracle")
+    if first["probe_a2a"] == "ok":
+        print(f"[6i ep gloo] 4 ranks sharing the card, {EP_CLIPS} x 2 s, fp32: rel L2 to the "
+              f"bucketed dispatch {json.dumps(first['ep_rel_l2'])}; passes "
+              f"{json.dumps(first['ep_stats'])} (JAX's rule {first['ep_expected_passes']}); "
+              f"ms a call {json.dumps(first['ep_ms'])} vs bucketed {first['bucketed_ms']:.1f} "
+              f"on one rank; peak GiB by rank {[round(r['ep_peak_gib'], 3) for r in reports]}"
+              f"; {card}", flush=True)
+        check(all(e <= EP_TOL for e in first["ep_rel_l2"].values()),
+              "the expert-parallel answers left the bucketed dispatch")
+        check(all(first["ep_stats"][f]["n_passes"] == first["ep_expected_passes"][f]
+                  for f in first["ep_expected_passes"]), "n_passes is not JAX's rule")
+    return {k: v for k, v in first.items() if k != "rank"}
+
+
+def phase_parallel(torch, rows, card, wavs):
+    """Phase 6i: the stage pipeline, 1F1B training, the sequence-parallel
+    halos and the expert-parallel dispatch on the one card."""
+    from audiodenoiser_torch.cli import test as test_cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6i_")
+    runs, gloo, probes = {}, [], {}
+    try:
+        runs = pp_cli_start(tmp, wavs)
+        probes = {kind: _gloo_ranks_start(tmp, "gloo_probe_rank", n, {"PROBE": kind})
+                  for kind, n in (("p2p", 2), ("a2a", 4))}
+        out = {"pipeline": pp_forward(torch, card)}
+        k1_cli = pp_cli_check(torch, runs, tmp)
+        found = {f"probe_{kind}": gloo_probe_result(p) for kind, p in probes.items()}
+        print(f"[6i gloo probes] CUDA tensors over gloo, ranks sharing one card: "
+              f"point-to-point {found['probe_p2p']!r}; all_to_all_single "
+              f"{found['probe_a2a']!r}; {card}", flush=True)
+        # the four ranks' fp32 forwards of 64 clips need the card to themselves
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"[6i memory] before the four ranks: {free / 2**30:.2f} of {total / 2**30:.2f} "
+              f"GiB free; this process {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} reserved", flush=True)
+        gloo = _gloo_ranks_start(tmp, "parallel_gloo_rank", 4, {"PROBES": json.dumps(found)})
+        out["gloo"] = gloo4_check(gloo, card)
+        out["seq"] = seq_long_clip(torch, rows, card)
+        # one process is fewer than four ranks: the host-bucketed dispatch
+        check(test_cli._ep_mesh(test_cli.parse_args(["--auto_route", "--ep", "auto"]),
+                                torch.device("cuda")) is None,
+              "one process took an expert-parallel mesh")
+        out["train"] = pp_train(torch, card)
+        launches = {"stft_kernel": out["seq"]["launches"]["stft_kernel"] + k1_cli,
+                    "istft_kernel": out["seq"]["launches"]["istft_kernel"]}
+        for name, n in launches.items():
+            rows[name]["launches"] += n
+            rows[name]["launches_parallel"] = n
+        return out
+    finally:
+        for started in runs.values():  # a check failed first
+            if started[1].poll() is None:
+                started[1].kill()
+                started[1].wait()
+        for proc, _ in gloo + [pl for ps in probes.values() for pl in ps]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -4117,6 +4685,9 @@ def main() -> None:
         t0 = time.perf_counter()
         mesh = phase_mesh(torch, rows, card, os.path.join(shared, "6d", "wavs"))
         print(f"[6h] phase 6h in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        parallel = phase_parallel(torch, rows, card, os.path.join(shared, "6d", "wavs"))
+        print(f"[6i] phase 6i in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
     reset_launch_counts()
@@ -4170,6 +4741,15 @@ def main() -> None:
           f"headline {bench['value']:.1f}); bf16 steps at batch 16: "
           + ", ".join(f"{k} {v['mean_step_ms']:.2f} ms {max(v['peak_gib']):.2f} GiB"
                       for k, v in mesh["train_bench"].items()) + f"; {card}", flush=True)
+    pipe = parallel["pipeline"]["bf16"]
+    print(f"[bench] the parallel paths on the one card beside the headline: pipelined "
+          f"forward (bf16, 256 x 2 s) "
+          + ", ".join(f"{k} {v['frames_per_sec']:.1f}" for k, v in pipe.items())
+          + f" frames/s vs the folded runner's {bench['value']:.1f}; 1F1B bf16 steps at "
+          f"batch 16 " + ", ".join(f"{k} {v['step_ms']:.2f} ms"
+                                   for k, v in parallel["train"]["bf16"].items())
+          + f"; the {LONG_CLIP_S} s clip sharded {parallel['seq']['sharded']['ms']:.2f} ms vs "
+          f"the runner's {parallel['seq']['runner']['ms']:.2f} ms; {card}", flush=True)
     check(all("launches" in r for r in rows.values()), "a kernel's launches were not read")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(card, flush=True)

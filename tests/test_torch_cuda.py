@@ -1099,3 +1099,99 @@ def test_meshed_runner_on_card_matches_unmeshed(dev):
         want, got = plain.denoise_audio(x), meshed.denoise_audio(x)
         assert got.shape == want.shape == x.shape
         assert float((got - want).norm() / want.norm()) <= 1e-6
+
+
+QUARTER = dict(features=(16, 32, 64, 128), bottleneck=256)  # width_mult 0.25
+
+
+def _quarter_sd(seed):
+    from audiodenoiser_torch.models import random_flax_variables, state_dict_from_flax
+
+    return state_dict_from_flax(random_flax_variables(seed, **QUARTER))
+
+
+@pytest.mark.parametrize("stages", [2, 4])
+def test_pipelined_forward_on_card_matches_the_unet(dev, stages):
+    """Every stage on ``cuda:0``: the pipelined fp32 forward within 1e-5
+    relative L2 of the monolithic U-Net, cuDNN deterministic."""
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.parallel.pipeline import PipelinedDenoiser
+
+    sd = _quarter_sd(70)
+    x = torch.rand((6, 1, 257, 50), device=dev, generator=torch.Generator(dev).manual_seed(70))
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        mono = UNet(**QUARTER).to(dev).eval()
+        mono.load_state_dict(sd)
+        with torch.no_grad():
+            want = mono(x)
+        got = PipelinedDenoiser(sd, devices=[dev] * stages, **QUARTER)(x, microbatches=4)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert float((got - want).norm() / want.norm()) <= 1e-5
+
+
+def test_1f1b_step_on_card_matches_accumulation(dev):
+    """One fp32 1F1B step at 3 stages on ``cuda:0`` (M 4 x 2) against the
+    monolithic step with ``grad_accum`` 4: the loss within 1e-5 relative,
+    every tensor within 1e-4 relative L2 but the BN-fed conv biases, within
+    4 x lr."""
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.parallel.pipeline_train import PipelineTrainer
+    from audiodenoiser_torch.train.loop import create_train_state, train_step
+
+    lr, sd = 1e-4, _quarter_sd(71)
+    gen = torch.Generator(dev).manual_seed(71)
+    noisy = torch.rand((4, 2, 1, 64, 64), device=dev, generator=gen)
+    clean = 0.8 * noisy
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        state = create_train_state(0, UNet(**QUARTER), learning_rate=lr, device=dev,
+                                   grad_accum=4)
+        state.model.load_state_dict(sd)
+        losses = [float(train_step(state, noisy[m], clean[m])[1].total) for m in range(4)]
+        trainer = PipelineTrainer([dev] * 3, micro_batch=2, n_micro=4, input_shape=(1, 64, 64),
+                                  **QUARTER, learning_rate=lr)
+        pstate, loss = trainer.step(trainer.init(sd), noisy, clean)
+    assert float(loss) == pytest.approx(sum(losses) / 4, rel=1e-5)
+    got, want = trainer.unpack_state(pstate), state.model.state_dict()
+    for k, v in want.items():
+        if not v.is_floating_point():
+            continue
+        diff = (got[k].to(dev) - v).float()
+        if k.endswith(("double_conv.0.bias", "double_conv.3.bias")):
+            assert float(diff.abs().max()) <= 4 * lr, k
+        else:
+            assert float(diff.norm() / v.float().norm()) <= 1e-4, k
+
+
+def test_sharded_clip_on_card_is_the_padded_forward(dev):
+    """A world-size-1 ('seq',) mesh (NCCL) runs the padded oracle's
+    computation: a 20 s clip through ``denoise_waveform_sharded``, K1 and K2
+    once each."""
+    from audiodenoiser_torch.dsp import stft as stft_lib
+    from audiodenoiser_torch.models import UNet
+    from audiodenoiser_torch.ops.cuda import istft_kernel, stft_kernel
+    from audiodenoiser_torch.parallel.spatial import (
+        denoise_waveform_sharded,
+        make_seq_mesh,
+        reference_padded_forward,
+    )
+
+    model = UNet(**QUARTER).to(dev).eval()
+    model.load_state_dict(_quarter_sd(72))
+    rng = np.random.default_rng(72)
+    wav = torch.from_numpy(np.clip(0.2 * rng.standard_normal(20 * 8000), -1, 1)
+                           .astype(np.float32)).to(dev)
+    mesh = make_seq_mesh(device="cuda")
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        before = stft_kernel.launches, istft_kernel.launches
+        got = denoise_waveform_sharded(model, wav, mesh)
+        assert (stft_kernel.launches - before[0], istft_kernel.launches - before[1]) == (1, 1)
+        with torch.no_grad():
+            mag, phase = stft_lib.magphase(stft_lib.stft(wav, precision="kernel"))
+            den = reference_padded_forward(model, mag)
+            want = stft_lib.istft(den.clamp_min(0.0) * phase, 128, n_fft=512,
+                                  length=wav.shape[-1], precision="kernel")
+    assert got.shape == wav.shape
+    assert float((got - want).norm() / want.norm()) <= 1e-5

@@ -378,12 +378,13 @@ class TestTestCLI:
                                             (["--mesh", "on"], "A.11"),
                                             (["--model_parallel", "2"], "A.11")])
     def test_unported_flags_name_their_item(self, flags, item, monkeypatch, tmp_path,
-                                            request):
-        """On four cards ``--auto_route`` would take the expert-parallel
-        dispatch (``--ep auto`` or ``dense``), which is not ported: it exits
-        before it loads anything. The device mesh is ported (ROADMAP A.11,
-        its first half): ``--mesh on`` in one process runs a world-size-1
-        mesh whose scores are the unmeshed run's, and ``--model_parallel 2``
+                                            request, capsys):
+        """Every flag here is ported (ROADMAP A.11). ``--auto_route`` chooses
+        its dispatch by the process group's world size, as JAX's by its
+        device count: one process on four cards takes the host-bucketed
+        dispatch (``--ep auto`` and ``dense`` alike), so it goes on to load
+        the mixture. ``--mesh on`` in one process runs a world-size-1 mesh
+        whose scores are the unmeshed run's, and ``--model_parallel 2``
         there stops with JAX's error."""
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
@@ -407,9 +408,12 @@ class TestTestCLI:
             assert ((tmp_path / "mesh" / "white_metrics.txt").read_text()
                     == (tmp_path / "plain" / "white_metrics.txt").read_text())
             return
-        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        assert port_test_cli._ep_mesh(port_test_cli.parse_args(flags),
+                                      torch.device("cuda")) is None
+        with pytest.raises(FileNotFoundError, match="router checkpoint not found"):
             port_test_cli.main(flags + ["--saved_models_dir", str(tmp_path),
-                                        "--output_dir", str(tmp_path / "o")])
+                                        "--output_dir", str(tmp_path / "o"), "--device", "cpu"])
+        assert "Expert-parallel mesh" not in capsys.readouterr().out
 
     def test_auto_route_refuses_the_mesh_flags(self):
         with pytest.raises(SystemExit, match="builds its own expert-parallel mesh"):

@@ -272,10 +272,12 @@ class TestImportRules:
         "utils.debug", "cli.bench", "models.int8", "__init__", "dsp.__init__", "data.__init__",
         "eval.__init__", "train.__init__", "losses.__init__", "utils.__init__",
         "parallel.mesh", "parallel.distributed", "parallel.hybrid", "parallel.__init__",
-        "parallel.layers", "parallel.follow"])
+        "parallel.layers", "parallel.follow", "parallel.pipeline", "parallel.pipeline_train",
+        "parallel.spatial", "cli.install"])
     def test_rules_cover_the_training_path_modules(self, module):
-        """The training path's, the routed deployment's, the int8 model's and
-        the package surface's modules are among the sources both checks read."""
+        """The training path's, the routed deployment's, the int8 model's, the
+        package surface's and the parallel paths' modules are among the
+        sources both checks read."""
         path = ROOT / "audiodenoiser_torch" / (module.replace(".", "/") + ".py")
         assert path in _port_sources()
 

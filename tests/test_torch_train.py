@@ -468,8 +468,26 @@ class TestTrainCLI:
     @pytest.mark.parametrize("flag", [["--pp_microbatches", "8"], ["--pp_stages", "4"],
                                       ["--pp_stages", "2", "--mesh", "on"],
                                       ["--pp_stages", "2"]])
-    def test_unported_flags_name_their_roadmap_item(self, tmp_path, flag):
+    def test_unported_flags_name_their_roadmap_item(self, tmp_path, monkeypatch, flag):
+        """The pipeline flags are ported (ROADMAP A.11) and do what JAX's CLI
+        does with them: ``--pp_microbatches`` alone changes nothing (the
+        plain ``fit`` runs), ``--pp_stages S`` trains the 1F1B pipeline with
+        S stages (here on the CPU), and ``--mesh`` is ignored beside it."""
         from audiodenoiser_torch.cli.train import main
 
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            main(["--base_dataset_path", str(tmp_path), "--noise_type", "white", *flag])
+        monkeypatch.setattr(port_loop, "UNet", _tiny_unet)
+        data_dir = tmp_path / "white"
+        data_dir.mkdir()
+        _write_npy_dataset(data_dir, n=9, shape=(257, 122))
+        out = main(["--base_dataset_path", str(tmp_path), "--noise_type", "white",
+                    "--output_path", str(tmp_path / "runs"), "--run_name", "pp", "--epochs", "1",
+                    "--batch_size", "4", "--precision", "f32", "--device", "cpu", *flag])
+        log = (tmp_path / "runs" / "pp" / "training.log").read_text()
+        stages = int(flag[1]) if flag[0] == "--pp_stages" else 0
+        assert ("1F1B pipeline-parallel run: mesh {'data': 1, 'stage': %d}" % stages in log) \
+            == bool(stages)
+        assert ("trainer" in out) == bool(stages)
+        assert "Device mesh" not in log
+        if stages:
+            assert len(out["state"].stages) == stages and out["state"].step == 2
+        assert out["exported_best"] and os.path.exists(out["best_path"])

@@ -1,4 +1,6 @@
-"""One gloo rank of the mesh tests (``tests/test_torch_parallel*.py``).
+"""One gloo rank of the multi-rank tests (``tests/test_torch_parallel*.py``,
+``tests/test_torch_pp.py``, ``tests/test_torch_spatial.py``,
+``tests/test_torch_ep.py``).
 
   python tests/torch_parallel_worker.py SUITE RANK WORLD PORT WORKDIR
 
@@ -307,10 +309,114 @@ def scenario_cli_serve(inputs, tmp):
             "registered": len(calls.runners)}
 
 
+def scenario_pp_dp2(inputs):
+    """The pipelined forward and one fp32 1F1B step on two data ranks of
+    four CPU stages each."""
+    from audiodenoiser_torch.parallel.pipeline_train import PipelineTrainer
+
+    trainer = PipelineTrainer(["cpu"] * 4, micro_batch=2, n_micro=3, input_shape=(1, 32, 32),
+                              **inputs["pp_widths"], learning_rate=inputs["pp_lr"],
+                              data_group=dist.group.WORLD)
+    forward = trainer.forward(trainer.init(inputs["pp_sd"]), inputs["pp_noisy"])
+    state, loss = trainer.step(trainer.init(inputs["pp_sd"]), inputs["pp_noisy"],
+                               inputs["pp_clean"])
+    return {"loss": float(loss), "state": trainer.unpack_state(state), "forward": forward}
+
+
+def _seq_model(inputs):
+    from audiodenoiser_torch.models.unet import UNet
+
+    model = UNet(**inputs["seq_widths"]).eval()
+    model.load_state_dict(inputs["seq_sd"])
+    return model
+
+
+def _seq(inputs, n):
+    from audiodenoiser_torch.parallel.spatial import (
+        denoise_spec_sharded,
+        denoise_waveform_sharded,
+        make_seq_mesh,
+    )
+
+    mesh = make_seq_mesh(n, device="cpu")
+    if not _member(mesh):
+        return None
+    model = _seq_model(inputs)
+    return {"clip": denoise_spec_sharded(model, inputs["seq_clip"], mesh, halo=96),
+            "batch": denoise_spec_sharded(model, inputs["seq_batch"], mesh, halo=16),
+            "wave": denoise_waveform_sharded(model, inputs["seq_wav"], mesh, halo=96),
+            "short": denoise_spec_sharded(model, inputs["seq_clip"][:, :40], mesh, halo=96)}
+
+
+def scenario_seq4(inputs):
+    return _seq(inputs, 4)
+
+
+def scenario_seq2(inputs):
+    return _seq(inputs, 2)
+
+
+def _mixture(inputs):
+    from audiodenoiser_torch.eval.ensemble import MixtureOfDenoisers
+    from audiodenoiser_torch.models import NOISE_CLASSES, NoiseClassifier
+    from audiodenoiser_torch.models.unet import UNet
+
+    experts = {}
+    for nt, sd in zip(NOISE_CLASSES, inputs["ep_experts"]):
+        experts[nt] = UNet(**inputs["ep_widths"])
+        experts[nt].load_state_dict(sd)
+    router = NoiseClassifier(dtype=torch.float32)
+    router.load_state_dict(inputs["ep_router"])
+    return MixtureOfDenoisers(experts, router, device="cpu")
+
+
+def scenario_ep(inputs):
+    """The dense dispatch on a (1, 4) mesh and the all-to-all one at three
+    capacity factors, on given labels (a skewed set that overflows) and on
+    the router's."""
+    from audiodenoiser_torch.eval.ensemble import make_a2a_mesh, make_ep_mesh
+
+    mix = _mixture(inputs)
+    specs, labels, skewed = inputs["ep_specs"], inputs["ep_labels"], inputs["ep_skewed"]
+    dense, a2a = make_ep_mesh(device="cpu"), make_a2a_mesh(device="cpu")
+    out = {"dense": mix.denoise_ep(specs, dense, labels=labels),
+           "dense_routed": mix.denoise_ep(specs, dense),
+           "mesh": (tuple(dense.shape), tuple(a2a.shape))}
+    for factor in (1.0, 1.5, 4.0):
+        for name, lab in (("labels", labels), ("skewed", skewed)):
+            stats = {}
+            out[f"a2a_{name}_{factor}"] = (mix.denoise_ep_a2a(specs, a2a, factor, labels=lab,
+                                                              stats=stats), stats)
+    out["a2a_routed"] = mix.denoise_ep_a2a(specs, a2a)
+    try:
+        make_ep_mesh(6, device="cpu")
+    except ValueError as e:
+        out["error"] = str(e)
+    return out
+
+
+def scenario_ep_cli(inputs, tmp):
+    """``cli.test --auto_route`` with ``--ep auto`` and ``--ep dense`` on the
+    four ranks."""
+    from audiodenoiser_torch.cli import test as test_cli
+
+    out = {}
+    for ep in ("auto", "dense"):
+        out[ep] = test_cli.main(["--auto_route", "--saved_models_dir", inputs["ep_saved"],
+                                 "--test_data_dir", inputs["ep_npy"], "--output_dir",
+                                 os.path.join(tmp, f"ep_{ep}"), "--precision", "f32",
+                                 "--noise_types", "white", "urban", "--device", "cpu",
+                                 "--ep", ep])
+    return out
+
+
 SUITES = {
     "parallel": ["mesh_shapes", "step_2x2", "fsdp_2x2", "fsdp_4x1", "ragged", "mask_dp2",
                  "runner_2x1", "runner_1x2", "init_noop"],
     "cli": ["cli_train", "cli_resume", "cli_test", "cli_serve"],
+    "pp": ["pp_dp2"],
+    "seq": ["seq4", "seq2"],
+    "ep": ["ep", "ep_cli"],
 }
 
 
