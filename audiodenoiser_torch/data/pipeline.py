@@ -33,6 +33,7 @@ import torch.nn.functional as F
 import audiodenoiser_torch.dsp.stft as stft_lib
 from audiodenoiser_torch.device import DeviceLike, resolve_device
 from audiodenoiser_torch.dsp import noise as noise_lib
+from audiodenoiser_torch.utils.profiling import MIXER, span
 
 NOISE_TYPES = ("white", "urban", "reverb", "noise_cancellation")
 N_FFT, HOP = 512, 128
@@ -131,6 +132,10 @@ class OnDeviceMixer:
 
     def draw(self, generator: torch.Generator, batch_size: int) -> Draws:
         """Every random tensor one batch needs, on ``generator``'s device."""
+        with span(MIXER):
+            return self._draw(generator, batch_size)
+
+    def _draw(self, generator: torch.Generator, batch_size: int) -> Draws:
         dev, b, n = generator.device, batch_size, self.clean.shape[1]
         g = dict(generator=generator, device=dev)
         draws = {"idx": torch.randint(0, len(self), (b,), **g)}
@@ -191,16 +196,18 @@ class OnDeviceMixer:
     @torch.no_grad()
     def sample_audio_from(self, draws: Draws) -> tuple[torch.Tensor, torch.Tensor]:
         """(noisy, clean) (B, chunk) float32 waveforms from ``draws``."""
-        draws = {k: v.to(self.device) for k, v in draws.items()}
-        clean = self._augmented(self.clean[draws["idx"]], draws)
-        return self._corrupt(clean, draws), clean
+        with span(MIXER):
+            draws = {k: v.to(self.device) for k, v in draws.items()}
+            clean = self._augmented(self.clean[draws["idx"]], draws)
+            return self._corrupt(clean, draws), clean
 
     @torch.no_grad()
     def sample_from(self, draws: Draws) -> tuple[torch.Tensor, torch.Tensor]:
         """(noisy, clean) (B, 1, F, T) float32 magnitudes from ``draws``."""
         noisy, clean = self.sample_audio_from(draws)
         b = clean.shape[0]
-        feats = self._featurize(torch.cat([noisy, clean]))  # one K1 launch
+        with span(MIXER):
+            feats = self._featurize(torch.cat([noisy, clean]))  # one K1 launch
         return feats[:b], feats[b:]
 
     def sample(self, generator: torch.Generator, batch_size: int):

@@ -51,11 +51,16 @@ from audiodenoiser_torch.device import DeviceLike, resolve_device
 from audiodenoiser_torch.dsp.griffin_lim import griffin_lim, initial_phase
 from audiodenoiser_torch.eval.metrics import pesq, si_sdr, stoi
 from audiodenoiser_torch.losses.spectral import combined_perceptual_loss
-from audiodenoiser_torch.models.complex_mask import ComplexMaskUNet, mask_spectrogram
+from audiodenoiser_torch.models.complex_mask import (
+    ComplexMaskUNet,
+    apply_mask,
+    spectrogram_features,
+)
 from audiodenoiser_torch.models.convert import load_flax_variables
 from audiodenoiser_torch.models.folded import fold_for_inference
 from audiodenoiser_torch.models.unet import UNet, width_kwargs
 from audiodenoiser_torch.train.checkpoints import load_exported
+from audiodenoiser_torch.utils.profiling import ISTFT, MODEL, STFT, span
 
 # Griffin-Lim reconstruction modes of a magnitude model, by griffin_lim mode
 GL_MODES = {"griffin_lim": "correct", "reference_gl": "reference"}
@@ -284,24 +289,31 @@ class DenoiserRunner:
                      generator: Optional[torch.Generator],
                      theta: Optional[torch.Tensor]) -> torch.Tensor:
         lead, n = audio.shape[:-1], audio.shape[-1]
-        spec = stft_lib.stft(audio.reshape(-1, n), self.n_fft, self.hop,
-                             center=center, precision=self.precision)
-        if mode == "complex_mask":
-            rec = mask_spectrogram(self.model, spec)
-        else:
-            mag, phase = stft_lib.magphase(spec)
-            # magnitudes are non-negative
-            den = self.model(mag[:, None])[:, 0].float().clamp_min(0.0)
-            if mode in GL_MODES:
-                if theta is None and generator is None:
-                    generator = torch.Generator().manual_seed(0)
-                out = griffin_lim(den, generator, n_fft=self.n_fft, hop_length=self.hop,
-                                  n_iter=gl_iters, mode=GL_MODES[mode], length=n,
-                                  theta=theta, precision=self.precision)
-                return out.reshape(*lead, n)
-            rec = den * phase
-        out = stft_lib.istft(rec, self.hop, n_fft=self.n_fft, center=center,
-                             length=n, precision=self.precision)
+        with span(STFT):
+            spec = stft_lib.stft(audio.reshape(-1, n), self.n_fft, self.hop,
+                                 center=center, precision=self.precision)
+            if mode == "complex_mask":
+                x = spectrogram_features(spec).permute(0, 3, 1, 2)  # (N, 3, F, T) NHWC
+            else:
+                mag, phase = stft_lib.magphase(spec)
+                x = mag[:, None]
+        with span(MODEL):
+            y = self.model(x)
+        if mode in GL_MODES:
+            den = y[:, 0].float().clamp_min(0.0)  # magnitudes are non-negative
+            if theta is None and generator is None:
+                generator = torch.Generator().manual_seed(0)
+            out = griffin_lim(den, generator, n_fft=self.n_fft, hop_length=self.hop,
+                              n_iter=gl_iters, mode=GL_MODES[mode], length=n,
+                              theta=theta, precision=self.precision)
+            return out.reshape(*lead, n)
+        with span(ISTFT):
+            if mode == "complex_mask":
+                rec = apply_mask(y.float().permute(0, 2, 3, 1), spec)
+            else:
+                rec = y[:, 0].float().clamp_min(0.0) * phase
+            out = stft_lib.istft(rec, self.hop, n_fft=self.n_fft, center=center,
+                                 length=n, precision=self.precision)
         return out.reshape(*lead, n)
 
 

@@ -48,6 +48,7 @@ from audiodenoiser_torch.models.unet import UNet, width_kwargs
 from audiodenoiser_torch.parallel import distributed
 from audiodenoiser_torch.train import checkpoints as ckpt_lib
 from audiodenoiser_torch.train.logging_utils import ScalarWriter, setup_logger
+from audiodenoiser_torch.utils.profiling import BACKWARD, FORWARD, LOSS, OPTIMIZER, span
 
 SeedLike = Union[int, torch.Generator]
 
@@ -275,9 +276,12 @@ def apply_update(state: TrainState, losses: CombinedLossOutput):
     gradients are zeroed only before the first micro-step of an update."""
     opt = state.optimizer
     if opt.micro_step == 0:
-        opt.zero_grad()
-    losses.total.backward()
-    norm = opt.step()
+        with span(OPTIMIZER):
+            opt.zero_grad()
+    with span(BACKWARD):
+        losses.total.backward()
+    with span(OPTIMIZER):
+        norm = opt.step()
     if norm is not None:
         state.grad_norm = norm
     state.step += 1
@@ -286,8 +290,11 @@ def apply_update(state: TrainState, losses: CombinedLossOutput):
 
 def train_step(state: TrainState, noisy: torch.Tensor, clean: torch.Tensor):
     """One update in place; returns ``(state, losses)``."""
-    out = state.model.train()(noisy)
-    return apply_update(state, combined_perceptual_loss(out, clean))
+    with span(FORWARD):
+        out = state.model.train()(noisy)
+    with span(LOSS):
+        losses = combined_perceptual_loss(out, clean)
+    return apply_update(state, losses)
 
 
 @torch.no_grad()

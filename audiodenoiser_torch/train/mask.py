@@ -53,6 +53,7 @@ from audiodenoiser_torch.train.loop import (
     apply_update,
     create_train_state,
 )
+from audiodenoiser_torch.utils.profiling import FORWARD, LOSS, span
 
 WAVEFORM_L1_WEIGHT = 0.5
 # -SI-SDR enters the total as si_sdr_weight * (-si_sdr_db / SI_SDR_SCALE):
@@ -113,45 +114,47 @@ def _mask_losses(model: nn.Module, noisy_audio: torch.Tensor, clean_audio: torch
     """The losses of one batch, ``total`` being the objective; the model's
     mode (train or eval) is the caller's, the teacher's is eval."""
     b = noisy_audio.shape[0]
-    with torch.no_grad():  # the input spectra need no gradient: one K1 launch
-        spec = stft_lib.stft(torch.cat([noisy_audio, clean_audio]), N_FFT, HOP,
-                             center=True, precision="kernel")
-    spec, clean_mag = spec[:b], spec[b:].abs()
-    feats = spectrogram_features(spec).permute(0, 3, 1, 2)  # (N, 3, F, T) NHWC
-    distill = teacher is not None and bool(distill_weight or distill_feat_weight)
-    capture = distill and distill_feat_weight > 0
-    with _tapped(model, capture) as s_feats:
-        mask = model(feats)
-    s_hat = apply_mask(mask.float().permute(0, 2, 3, 1), spec)
-    losses = combined_perceptual_loss(s_hat.abs()[:, None], clean_mag[:, None])
-    y_hat = stft_lib.istft(s_hat, HOP, n_fft=N_FFT, center=True,
-                           length=clean_audio.shape[-1], precision="kernel")
-    total = losses.total + WAVEFORM_L1_WEIGHT * (y_hat - clean_audio).abs().mean()
-    if distill:
-        # the frozen teacher on the same features; no_grad, not
-        # inference_mode: its tensors meet the student's in the backward
-        with torch.no_grad(), _tapped(teacher, capture) as t_feats:
-            t_mask = teacher.eval()(feats)
-        if distill_weight:
-            t_hat = apply_mask(t_mask.float().permute(0, 2, 3, 1), spec)
-            gap = ((s_hat.real - t_hat.real).abs() + (s_hat.imag - t_hat.imag).abs()).mean()
-            total = total + distill_weight * gap
-        if distill_feat_weight:
-            for s, t in zip(s_feats, t_feats):
-                if s.shape[-2:] != t.shape[-2:]:
-                    raise ValueError(
-                        f"the student's bottleneck is {tuple(s.shape[-2:])} and the teacher's "
-                        f"{tuple(t.shape[-2:])}: the feature term needs one size (an s2d "
-                        "model's bottleneck is half a plain one's)")
-            feat = sum((_attention_map(s) - _attention_map(t)).square().sum(dim=(-2, -1)).mean()
-                       for s, t in zip(s_feats, t_feats)) / max(len(s_feats), 1)
-            total = total + distill_feat_weight * feat
-    if si_sdr_weight:
-        sdr = si_sdr(y_hat.float(), clean_audio.float())
-        if si_sdr_clamp is not None:
-            sdr = torch.clamp(sdr, max=si_sdr_clamp)
-        total = total - si_sdr_weight * sdr.mean() / SI_SDR_SCALE
-    return losses._replace(total=total)
+    with span(FORWARD):
+        with torch.no_grad():  # the input spectra need no gradient: one K1 launch
+            spec = stft_lib.stft(torch.cat([noisy_audio, clean_audio]), N_FFT, HOP,
+                                 center=True, precision="kernel")
+        spec, clean_mag = spec[:b], spec[b:].abs()
+        feats = spectrogram_features(spec).permute(0, 3, 1, 2)  # (N, 3, F, T) NHWC
+        distill = teacher is not None and bool(distill_weight or distill_feat_weight)
+        capture = distill and distill_feat_weight > 0
+        with _tapped(model, capture) as s_feats:
+            mask = model(feats)
+        s_hat = apply_mask(mask.float().permute(0, 2, 3, 1), spec)
+    with span(LOSS):
+        losses = combined_perceptual_loss(s_hat.abs()[:, None], clean_mag[:, None])
+        y_hat = stft_lib.istft(s_hat, HOP, n_fft=N_FFT, center=True,
+                               length=clean_audio.shape[-1], precision="kernel")
+        total = losses.total + WAVEFORM_L1_WEIGHT * (y_hat - clean_audio).abs().mean()
+        if distill:
+            # the frozen teacher on the same features; no_grad, not
+            # inference_mode: its tensors meet the student's in the backward
+            with torch.no_grad(), _tapped(teacher, capture) as t_feats:
+                t_mask = teacher.eval()(feats)
+            if distill_weight:
+                t_hat = apply_mask(t_mask.float().permute(0, 2, 3, 1), spec)
+                gap = ((s_hat.real - t_hat.real).abs() + (s_hat.imag - t_hat.imag).abs()).mean()
+                total = total + distill_weight * gap
+            if distill_feat_weight:
+                for s, t in zip(s_feats, t_feats):
+                    if s.shape[-2:] != t.shape[-2:]:
+                        raise ValueError(
+                            f"the student's bottleneck is {tuple(s.shape[-2:])} and the "
+                            f"teacher's {tuple(t.shape[-2:])}: the feature term needs one size "
+                            "(an s2d model's bottleneck is half a plain one's)")
+                feat = sum((_attention_map(s) - _attention_map(t)).square().sum(dim=(-2, -1))
+                           .mean() for s, t in zip(s_feats, t_feats)) / max(len(s_feats), 1)
+                total = total + distill_feat_weight * feat
+        if si_sdr_weight:
+            sdr = si_sdr(y_hat.float(), clean_audio.float())
+            if si_sdr_clamp is not None:
+                sdr = torch.clamp(sdr, max=si_sdr_clamp)
+            total = total - si_sdr_weight * sdr.mean() / SI_SDR_SCALE
+        return losses._replace(total=total)
 
 
 def make_mask_steps(si_sdr_weight: float = 0.0, si_sdr_clamp: Optional[float] = None,
