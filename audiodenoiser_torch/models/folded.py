@@ -6,7 +6,12 @@ pair collapses into one convolution: ``k' = k * gamma/sqrt(var+eps)`` and
 the fold runs in float32, the kernels are then cast to the compute dtype
 and the biases stay float32, cast into the conv epilogue at call time.
 Convolutions and deconvolutions go to cuDNN (``F.conv2d`` /
-``F.conv_transpose2d``), as the JAX folded graph leaves them to XLA.
+``F.conv_transpose2d``), as the JAX folded graph leaves them to XLA. On
+the card in bf16 or fp16 each ReLU'd convolution adds its bias and takes
+its ReLU in cuDNN's fused epilogue (``torch.cudnn_convolution_relu``), on
+the fp32 accumulator before the one rounding to the output's dtype: the
+plain path rounds the conv output, adds the bias in a second pass and
+clamps in a third, so the two differ by about one ulp of that dtype.
 
 The variants fold the same way. The s2d stem's first conv and the
 unpacked head are ordinary convolutions; the refinement path's
@@ -39,9 +44,13 @@ from audiodenoiser_torch.parallel.layers import gather_channels
 class _Conv(nn.Module):
     """One folded convolution: kernel in the compute dtype, bias float32.
     With ``tp`` (``parallel.mesh``) it holds an output-channel slice and
-    gathers the slices after its ReLU."""
+    gathers the slices after its ReLU. Its calls are counted by route in
+    ``_Conv.fused_launches`` and ``_Conv.plain_launches``
+    (``ops.cuda.variant_launches(_Conv)``)."""
 
     tp = None
+    variants = ("fused", "plain")
+    fused_launches = plain_launches = 0
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor,
                  transpose: bool = False):
@@ -51,13 +60,35 @@ class _Conv(nn.Module):
         self.transpose = transpose
 
     def forward(self, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
+        # the fused op reads its bias in the input's dtype: handed the
+        # float32 bias it read garbage on the card, so both routes cast it
         b = self.bias.to(x.dtype)
-        if self.transpose:
-            y = F.conv_transpose2d(x, self.weight, b, stride=2)
+        pad = self.weight.shape[-1] // 2
+        if relu and not self.transpose and fused_route(x):
+            _Conv.fused_launches += 1
+            y = torch.cudnn_convolution_relu(x, self.weight, b, (1, 1), (pad, pad), (1, 1), 1)
         else:
-            y = F.conv2d(x, self.weight, b, padding=self.weight.shape[-1] // 2)
-            y = F.relu(y) if relu else y
+            _Conv.plain_launches += 1
+            if self.transpose:
+                y = F.conv_transpose2d(x, self.weight, b, stride=2)
+            else:
+                y = F.conv2d(x, self.weight, b, padding=pad)
+                y = F.relu(y) if relu else y
         return gather_channels(y, self.tp)
+
+
+def fused_route(x: torch.Tensor) -> bool:
+    """Whether a ReLU'd folded convolution of ``x`` takes cuDNN's fused
+    conv + bias + ReLU: a CUDA tensor in bf16 or fp16 with cuDNN on. The
+    CPU and fp32 keep conv(+bias) then ReLU. No shape is kept plain: on an
+    H100 at 700 W the fused call was the faster at every ReLU'd shape of the
+    menu measured, batch 1-256 and 1-1024 input channels (a 256-clip
+    batch's 18, ``chip_smoke.py``: 0.35-2.64 against 0.47-4.86 ms a call,
+    19.2 against 36.0 ms in all, the 1-channel stem 2.26 against 4.61; its
+    first calls 0.19 against 0.10 s), and slower only at one output channel
+    (0.57 against 0.48 ms at 64 clips), which only the un-ReLU'd head has."""
+    return (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
+            and torch.backends.cudnn.enabled)
 
 
 def _fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d):

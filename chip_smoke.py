@@ -25,6 +25,9 @@ from the root of a checkout. Phases, each fatal on failure:
    ragged one at hop 100 and batch 10 at hop 512, in fp32 and bf16. Each
    library's variant counters say which entry ran: K1's and K2's FFT entries
    for n_fft 512, K3's TMA + wgmma variant at every U-Net layer in bf16;
+   then the folded conv's two routes at the 18 ReLU'd conv shapes of a
+   256-clip batch in bf16 (cuDNN's fused conv + bias + ReLU against
+   conv(+bias) then ReLU): first-call and per-call ms, summed to a batch;
 3. serve HTTP requests through the full-width 31,042,369-parameter
    BN-folded bf16 U-Net (``DenoiseService`` + ``make_http_server``) and
    check each answer against a direct ``DenoiserRunner`` call; K1 and K2's
@@ -1372,6 +1375,73 @@ def phase_deconv(torch, rng):
             "max_abs_err": train_err, **totals["train"],
             "student_shapes": totals["student"],
             "s2d_shapes": {"mask_step": totals["s2d_mask"], "crop_step": totals["s2d_crop"]}}
+
+
+def batch_conv_shapes(n=256, features=(64, 128, 256, 512), bottleneck=1024, f=257, t=126):
+    """(B, Cin, Cout, H, W) of the 18 ReLU'd convolutions of a folded U-Net
+    forward on n clips of an f x t spectrogram (down, bottleneck, up)."""
+    down, c = [], 1
+    for fe in features:
+        down += [(c, fe, f, t), (fe, fe, f, t)]
+        c, f, t = fe, f // 2, t // 2
+    mid = [(c, bottleneck, f, t), (bottleneck, bottleneck, f, t)]
+    up = [s for cin, fe, f, t in down[-1::-2] for s in ((2 * fe, fe, f, t), (fe, fe, f, t))]
+    return [(n, *s) for s in down + mid + up]
+
+
+def phase_fused_conv(torch, rng):
+    """Phase 2, the folded conv's two routes at the 18 ReLU'd conv shapes of
+    a 256-clip batch in bf16: cuDNN's fused conv + bias + ReLU (the route
+    ``models.folded._Conv`` takes on the card) against conv(+bias) then
+    ReLU. Each shape's first call (host clock, synchronised: plan building
+    included) and its time a call (events and device), summed over the
+    18 to a batch's."""
+    import torch.nn.functional as F
+
+    from audiodenoiser_torch.models.folded import _Conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    total = {}
+    first = {"fused_first_ms": 0.0, "plain_first_ms": 0.0}
+    for b, cin, cout, h, w in batch_conv_shapes():
+        x = (torch.randn(b, cin, h, w, device=dev, generator=gen).relu().to(torch.bfloat16)
+             .contiguous(memory_format=torch.channels_last))
+        wt = torch.randn(cout, cin, 3, 3, device=dev, generator=gen) * math.sqrt(2 / (9 * cin))
+        conv = _Conv(wt.to(torch.bfloat16), 0.1 * torch.randn(cout, device=dev, generator=gen))
+        bias = conv.bias.to(torch.bfloat16)
+
+        def plain():
+            return F.relu(F.conv2d(x, conv.weight, bias, padding=1))
+
+        ms = {}
+        with torch.no_grad():
+            for name, fn in (("fused", conv), ("plain", plain)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(x) if fn is conv else fn()
+                torch.cuda.synchronize()
+                ms[f"{name}_first_ms"] = 1e3 * (time.perf_counter() - t0)
+            before = _Conv.fused_launches
+            got, want = conv(x).float(), plain().float()
+            check(_Conv.fused_launches == before + 1, "the folded conv did not take the fused route")
+            rel = ((got - want).norm() / want.norm()).item()
+            check(rel <= 1e-2, f"fused conv at {(b, cin, cout, h, w)} is {rel:.3e} from plain")
+            del got, want
+            for name, fn in (("fused", lambda: conv(x)), ("plain", plain)):
+                ms[f"{name}_ms"] = time_ms(fn, 10)
+                ms[f"{name}_device_ms"] = device_ms(fn, 5)
+        for k, v in ms.items():
+            (first if k.endswith("first_ms") else total)[k] = (
+                (first if k.endswith("first_ms") else total).get(k, 0.0) + v)
+        print(f"[fused_conv] B={b} Cin={cin} Cout={cout} H={h} W={w}: {show(ms)} "
+              f"rel_l2_vs_plain={rel:.3e}", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    line = {"batch_shapes": 18, **total, **first,
+            "fused_calls_counted": _Conv.fused_launches}
+    print(f"[fused_conv] {json.dumps(line)}", flush=True)
+    return line
 
 
 def ola_bound_ms(batch: int, n_frames: int, n_fft: int, hop: int) -> tuple[float, str]:
@@ -4648,6 +4718,7 @@ def main() -> None:
     rows = phase_kernels(torch, rng)
     rows["deconv_kernel"] = phase_deconv(torch, rng)
     rows["overlap_add_kernel"] = phase_overlap_add(torch, rng)
+    phase_fused_conv(torch, rng)
     phase_serve(torch, rng, rows)
     mask_variables = phase_mask_serve(torch, rng, rows)
     t0 = time.perf_counter()

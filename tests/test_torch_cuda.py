@@ -239,6 +239,98 @@ def test_deconv_kernel_matches_plain(dev, dtype, b, cin, h, w, cout):
     assert _max_rel(ours.float(), ref) <= tol
 
 
+BATCH_CONV_SHAPES = [  # the 18 ReLU'd convs of a folded U-Net forward on 256 x 2 s
+    (256, 1, 64, 257, 126), (256, 64, 64, 257, 126),        # down0
+    (256, 64, 128, 128, 63), (256, 128, 128, 128, 63),      # down1
+    (256, 128, 256, 64, 31), (256, 256, 256, 64, 31),       # down2
+    (256, 256, 512, 32, 15), (256, 512, 512, 32, 15),       # down3
+    (256, 512, 1024, 16, 7), (256, 1024, 1024, 16, 7),      # bottleneck
+    (256, 1024, 512, 32, 15), (256, 512, 512, 32, 15),      # up0, after the concat
+    (256, 512, 256, 64, 31), (256, 256, 256, 64, 31),       # up1
+    (256, 256, 128, 128, 63), (256, 128, 128, 128, 63),     # up2
+    (256, 128, 64, 257, 126), (256, 64, 64, 257, 126),      # up3
+]
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w", BATCH_CONV_SHAPES)
+def test_fused_conv_matches_conv_bias_relu(dev, b, cin, cout, h, w):
+    """A ReLU'd folded conv in bf16 on the card (cuDNN's fused conv + bias
+    + ReLU) at each of the 18 shapes of a 256-clip batch, against the
+    fp32 sum ``r`` of the same bf16 inputs (TF32 off) and against today's
+    conv, bias add and ReLU. The fused output is one bf16 rounding of
+    ``r`` (at most 2^-8 of |r|), allowed twice that for the fp32 sums in
+    another order; the plain path rounds the conv output (2^-8 of
+    |r - bias|) and again the sum, so the two lie within 2^-8 (3|r| +
+    |bias|), allowed 2^-6 (|r| + |bias|). The absolute floor, 2^-16 of the
+    largest |r|, is for sums that cancel to near zero. The fused output
+    takes the plain one's layout (NCHW for the 1-channel stem, whose input
+    and kernel cuDNN cannot tell from channels-last). The output's block is
+    first filled with NaN, in a pool of its own so that the output gets
+    that block: the fused op passes its own output as the epilogue's
+    unused addend (scaled by 0), which must not be read."""
+    import torch.nn.functional as F
+
+    from audiodenoiser_torch.models.folded import _Conv
+
+    g = torch.Generator(device=dev).manual_seed(cin * 4096 + cout + h)
+    x = (torch.randn(b, cin, h, w, device=dev, generator=g).relu().to(torch.bfloat16)
+         .contiguous(memory_format=torch.channels_last))
+    conv = _Conv((torch.randn(cout, cin, 3, 3, device=dev, generator=g) * (2 / (9 * cin)) ** 0.5)
+                 .to(torch.bfloat16), 0.1 * torch.randn(cout, device=dev, generator=g))
+    bias = conv.bias.to(torch.bfloat16)
+    with torch.no_grad():
+        conv(x)  # plans built outside the pool
+        pool = torch.cuda.MemPool()
+        with torch.cuda.use_mem_pool(pool):
+            poison = torch.full((b * cout * h * w,), float("nan"), device=dev,
+                                dtype=torch.bfloat16)
+            block = poison.data_ptr()
+            del poison
+            before = _Conv.fused_launches, _Conv.plain_launches
+            got = conv(x)
+        assert (_Conv.fused_launches, _Conv.plain_launches) == (before[0] + 1, before[1])
+        assert got.data_ptr() == block and not torch.isnan(got).any()
+        plain = F.relu(F.conv2d(x, conv.weight, bias, padding=1))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            r = F.conv2d(x.float(), conv.weight.float(), bias.float(), padding=1)
+    assert got.shape == plain.shape and got.dtype == torch.bfloat16
+    assert got.stride() == plain.stride()
+    floor = 2.0 ** -16 * float(r.abs().max())
+    got, plain, mag = got.float(), plain.float(), r.abs()
+    assert bool(((got - r.relu()).abs() <= 2.0 ** -7 * mag + floor).all())
+    near = 2.0 ** -6 * (mag + bias.float().abs()[:, None, None]) + floor
+    assert bool(((got - plain).abs() <= near).all())
+
+
+@pytest.mark.parametrize("variant,fused,plain", [
+    ("plain", 18, 5),           # 18 ReLU'd convs; 4 deconvs and the head
+    ("s2d_skip", 19, 6),        # + the refinement path's ReLU'd conv, its plain head
+])
+def test_folded_forward_takes_the_fused_route(dev, variant, fused, plain):
+    """A bf16 ``FoldedUNet`` forward on the card counts each ReLU'd conv
+    fused and the rest plain; fp32 and cuDNN off count every call plain.
+    With cuDNN off (the plain route on the card) the bf16 forward lies
+    within the repo's bf16 bound (0.02 relative L2) of the fused one."""
+    from audiodenoiser_torch.models import UNet, fold_for_inference
+    from audiodenoiser_torch.models.folded import _Conv
+
+    kw = dict(s2d_stem=True, s2d_skip=16) if variant == "s2d_skip" else {}
+    torch.manual_seed(0)
+    model = UNet((16, 32, 64, 128), 256, **kw).eval().to(dev)
+    x = torch.rand(2, 1, 257, 126, device=dev)
+    outs = {}
+    for dtype, cudnn, want in ((torch.bfloat16, True, (fused, plain)),
+                               (torch.bfloat16, False, (0, fused + plain)),
+                               (torch.float32, True, (0, fused + plain))):
+        folded = fold_for_inference(model, dtype)
+        before = _Conv.fused_launches, _Conv.plain_launches
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=cudnn):
+            outs[dtype, cudnn] = folded(x).float()
+        assert (_Conv.fused_launches - before[0], _Conv.plain_launches - before[1]) == want
+    a, b = outs[torch.bfloat16, True], outs[torch.bfloat16, False]
+    assert float((a - b).norm() / b.norm()) < 0.02
+
+
 def test_deconv_backward_matches_autograd_of_plain(dev):
     from audiodenoiser_torch.ops.cuda import conv_transpose_2x2, conv_transpose_2x2_plain
 

@@ -157,6 +157,60 @@ class TestFoldedUNet:
         assert len(names) == 2 * (2 * 9 + 4 + 1)  # 18 convs, 4 deconvs, head
         assert not any("bn" in n or "running" in n for n in names)
 
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+    def test_cpu_takes_the_plain_route(self, port_unet, dtype):
+        """On the CPU every folded conv, deconv and the head goes the plain
+        way: 18 + 4 + 1 plain calls a forward, none fused."""
+        from audiodenoiser_torch.models.folded import _Conv
+
+        x = np.abs(np.random.default_rng(5).standard_normal((2, 32, 32))).astype(np.float32)
+        before = (_Conv.fused_launches, _Conv.plain_launches)
+        _port_out(fold_for_inference(port_unet, dtype), x)
+        assert _Conv.fused_launches == before[0]
+        assert _Conv.plain_launches == before[1] + 2 * 9 + 4 + 1
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+    @pytest.mark.parametrize("name,relu", [("down0_conv0", True), ("down1_conv1", True),
+                                           ("bottleneck_conv0", True), ("up3_conv_conv0", True),
+                                           ("out", False), ("up0_deconv", False)])
+    def test_conv_is_plain_conv_bias_relu(self, port_unet, dtype, name, relu):
+        """A folded layer on the CPU is bit for bit ``conv2d`` (or
+        ``conv_transpose2d``) with the bias cast to the input's dtype, then
+        ``relu`` where the layer takes one."""
+        import torch.nn.functional as F
+
+        conv = fold_for_inference(port_unet, dtype).convs[name]
+        cin = conv.weight.shape[0 if conv.transpose else 1]
+        x = (torch.from_numpy(np.random.default_rng(6).standard_normal((2, cin, 9, 7))
+                              .astype(np.float32)).to(dtype)
+             .contiguous(memory_format=torch.channels_last))
+        b = conv.bias.to(dtype)
+        if conv.transpose:
+            want = F.conv_transpose2d(x, conv.weight, b, stride=2)
+        else:
+            want = F.conv2d(x, conv.weight, b, padding=conv.weight.shape[-1] // 2)
+            want = F.relu(want) if relu else want
+        with torch.no_grad():
+            got = conv(x, relu=relu)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    @pytest.mark.parametrize("is_cuda,dtype,cudnn,fused", [
+        (True, torch.bfloat16, True, True),
+        (True, torch.float16, True, True),
+        (True, torch.float32, True, False),
+        (True, torch.bfloat16, False, False),
+        (False, torch.bfloat16, True, False),
+    ])
+    def test_fused_route_rule(self, is_cuda, dtype, cudnn, fused):
+        """The route depends on the device, the dtype and cuDNN's switch."""
+        from types import SimpleNamespace
+
+        from audiodenoiser_torch.models.folded import fused_route
+
+        with torch.backends.cudnn.flags(enabled=cudnn):
+            assert fused_route(SimpleNamespace(is_cuda=is_cuda, dtype=dtype)) is fused
+
     def test_fold_uses_running_stats_not_batch_stats(self, port_unet):
         """The fold reads eval BN: a train-mode model folds the same."""
         x = np.abs(np.random.default_rng(4).standard_normal((2, 32, 32))).astype(np.float32)
