@@ -28,6 +28,16 @@ advance in one batch per hop. ``POST /admin/reload`` reloads the
 checkpoint from ``--saved_models_dir`` without dropping traffic: open
 sessions finish on their generation.
 
+``--model mpsenet`` serves MP-SENet in ``mag_pha`` from
+``mpsenet_{noise_type}.pth`` (a torch state_dict, or the published
+``{"generator": state_dict}``) and its sidecar ``mpsenet_{noise_type}.json``
+(``{"model": "mpsenet", ...}``), whose STFT sizes and sample rate the
+service takes (``--sample_rate``, when given, has to agree). It is an
+offline model (InstanceNorm over the whole clip): ``/denoise`` only, no
+streams.
+
+  python -m audiodenoiser_torch.cli.serve --model mpsenet --sample_rate 16000
+
 ``--auto_route`` also loads the four specialists ``{stem}_{nt}.ckpt`` and
 the noise router ``noise_router.ckpt`` (``cli.train --model router``) and
 serves ``mode=auto``, the default then: each coalesced batch is classified
@@ -54,7 +64,9 @@ import threading
 
 # the modes each model serves, its own first
 MODEL_MODES = {"unet": ("noisy_phase", "griffin_lim", "reference_gl"),
-               "complex_mask": ("complex_mask",)}
+               "complex_mask": ("complex_mask",), "mpsenet": ("mag_pha",)}
+# each model's checkpoint stem: {stem}_{noise_type}.ckpt (.pth for MP-SENet)
+STEMS = {"unet": "unet_denoiser", "complex_mask": "mask_denoiser", "mpsenet": "mpsenet"}
 # --precision_path -> the runner's precision: JAX's Pallas path is the kernels
 PRECISION_PATHS = {"auto": "kernel", "pallas": "kernel", "matmul": "matmul", "fft": "fft"}
 
@@ -67,21 +79,23 @@ def parse_args(argv=None):
                    help="which specialised checkpoint to serve; 'mixed' is the "
                    "universal model, the recommended deployment of the mask family")
     p.add_argument("--saved_models_dir", default="./saved_models")
-    p.add_argument("--model", choices=["unet", "complex_mask"], default="unet")
+    p.add_argument("--model", choices=list(MODEL_MODES), default="unet")
     p.add_argument("--mode", default=None,
-                   choices=["noisy_phase", "complex_mask", "griffin_lim", "reference_gl",
-                            "auto"],
+                   choices=["noisy_phase", "complex_mask", "mag_pha", "griffin_lim",
+                            "reference_gl", "auto"],
                    help="default reconstruction mode of /denoise: noisy_phase (the "
                    "default), griffin_lim or reference_gl for --model unet, "
-                   "complex_mask for --model complex_mask, auto (the default with "
-                   "--auto_route); streams keep the model's own mode")
+                   "complex_mask for --model complex_mask, mag_pha for --model "
+                   "mpsenet, auto (the default with --auto_route); streams keep the "
+                   "model's own mode")
     p.add_argument("--auto_route", action="store_true",
                    help="load the four specialists and the trained noise router "
                    "(noise_router.ckpt) and serve mode=auto: each batch is classified "
                    "on the card and each group runs through its predicted specialist")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8800)
-    p.add_argument("--sample_rate", type=int, default=8000)
+    p.add_argument("--sample_rate", type=int, default=None,
+                   help="default 8000; --model mpsenet takes its sidecar's")
     p.add_argument("--bucket_seconds", type=float, default=2.0,
                    help="requests are padded to multiples of this many "
                    "seconds so the device sees few shapes; also the chunk "
@@ -134,6 +148,12 @@ def parse_args(argv=None):
         if args.stream_latency_ms is not None:
             raise SystemExit("--stream_pool supports WOLA sessions only (drop "
                              "--stream_latency_ms)")
+    if args.model == "mpsenet" and (args.auto_route or args.stream_pool is not None
+                                    or args.stream_latency_ms is not None):
+        raise SystemExit("--model mpsenet is offline: no --auto_route, --stream_pool "
+                         "or --stream_latency_ms")
+    if args.sample_rate is None and args.model != "mpsenet":
+        args.sample_rate = 8000
     served = MODEL_MODES[args.model] + (("auto",) if args.auto_route else ())
     if args.mode == "auto" and not args.auto_route:
         raise SystemExit("--mode auto requires --auto_route (the router and the specialists)")
@@ -172,11 +192,18 @@ def build_generation(args, mesh=None) -> dict:
     from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
 
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
-    stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
+    stem = STEMS[args.model]
     path = PRECISION_PATHS[args.precision_path]
     model = load_model_for_noise(args.noise_type, args.saved_models_dir, dtype=dtype,
                                  device=args.device, stem=stem, fold=args.fold)
     runner = DenoiserRunner(model, device=args.device, precision=path, mesh=mesh)
+    if args.model == "mpsenet":
+        if args.sample_rate not in (None, model.sample_rate):
+            raise SystemExit(f"--sample_rate {args.sample_rate}: the checkpoint's model "
+                             f"runs at {model.sample_rate} Hz")
+        args.sample_rate = model.sample_rate
+        return {"runner": runner, "streamer": None, "pooled": None, "mixture": None,
+                "router": None, "expert_runners": None}
     chunk = int(args.bucket_seconds * args.sample_rate)
     chunk -= chunk % 2  # WOLA needs an even chunk
     gen = {"runner": runner, "streamer": None, "pooled": None, "mixture": None,
@@ -213,7 +240,7 @@ def build_server(args, mesh=None):
     from audiodenoiser_torch.parallel import follow
     from audiodenoiser_torch.serve import DenoiseService, make_http_server
 
-    stem = "mask_denoiser" if args.model == "complex_mask" else "unet_denoiser"
+    stem = STEMS[args.model]
     calls = follow.active()
     gen = {"cur": build_generation(args, mesh)}
     if calls is not None:
@@ -244,6 +271,8 @@ def build_server(args, mesh=None):
             return RoutedStreamingSession(
                 cur["mixture"], chunk_samples=chunk, sample_rate=args.sample_rate,
                 precision=PRECISION_PATHS[args.precision_path]), cur["gen"]
+        if streamer is None:
+            raise NotImplementedError(f"--model {args.model} is offline: no streams")
         if mode not in (None, streamer.mode):
             raise NotImplementedError(f"this server streams mode {streamer.mode!r} only")
         if cur["pooled"] is not None:
@@ -305,6 +334,8 @@ def main(argv=None):
               else f"WOLA chunk {chunk}")
     if args.stream_pool is not None:
         stream += f", pooled ({args.stream_pool})"
+    if service.runner.mode == "mag_pha":
+        stream = "none: an offline model"
     print(f"Serving {name} on http://{host}:{port} "
           f"(mode={service.default_mode}, streaming {stream}, {service.runner.device})")
     try:

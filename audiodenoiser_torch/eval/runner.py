@@ -10,7 +10,12 @@ the centre-padded STFT through the K1 kernel, then, by mode:
   denoised magnitude through ``dsp.griffin_lim`` in its ``correct`` /
   ``reference`` mode, every transform through K1 and K2;
 - ``complex_mask`` (a ``ComplexMaskUNet``): ``[mag, cos, sin]`` features,
-  the model's bounded complex mask times the noisy spectrogram, one iSTFT.
+  the model's bounded complex mask times the noisy spectrogram, one iSTFT;
+- ``mag_pha`` (an ``MPSENet``, at its own STFT sizes): each clip scaled to
+  unit RMS, the STFT with reflect centre padding, magnitude and phase
+  (``models.mpsenet.mag_pha``), the model, its compressed magnitude
+  decompressed and put back in polar form in float32, one iSTFT, the
+  scale undone.
 
 On a ('data', 'model') mesh (``mesh=``, ``parallel.make_mesh``) the model
 is laid out by ``parallel.shard_variables`` (the wide convs channel-
@@ -29,7 +34,9 @@ model serves its three modes, a mask model ``complex_mask`` alone.
 ``load_model_for_noise`` / ``load_model_from_path`` read the JAX
 package's ``{stem}_{noise}.ckpt`` exports with their ``.json`` sidecars,
 and the reference's ``unet_denoiser_{noise}.pth``, and fold the model for
-inference. ``test_single_noise_type`` evaluates a magnitude model on the
+inference; a sidecar ``{"model": "mpsenet", ...}`` beside a torch
+state_dict (or the published ``{"generator": state_dict}``) loads
+MP-SENet. ``test_single_noise_type`` evaluates a magnitude model on the
 test set's ``.npy`` artifacts, ``test_noise_type_waveform`` any model in
 the waveform domain; both write the reference's artifact names.
 """
@@ -58,13 +65,14 @@ from audiodenoiser_torch.models.complex_mask import (
 )
 from audiodenoiser_torch.models.convert import load_flax_variables
 from audiodenoiser_torch.models.folded import fold_for_inference
+from audiodenoiser_torch.models.mpsenet import MPSENet, load_state, mag_pha
 from audiodenoiser_torch.models.unet import UNet, width_kwargs
 from audiodenoiser_torch.train.checkpoints import load_exported
 from audiodenoiser_torch.utils.profiling import ISTFT, MODEL, STFT, span
 
 # Griffin-Lim reconstruction modes of a magnitude model, by griffin_lim mode
 GL_MODES = {"griffin_lim": "correct", "reference_gl": "reference"}
-MODES = ("noisy_phase", "complex_mask", *GL_MODES)
+MODES = ("noisy_phase", "complex_mask", "mag_pha", *GL_MODES)
 
 
 def identity_bypass(out: torch.Tensor, orig: torch.Tensor,
@@ -111,7 +119,10 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
     sidecar, when there is one, rebuilds the architecture: ``width_mult``,
     the variants ``attn_bottleneck``, ``s2d_stem`` and ``s2d_skip``, and
     for ``stem="mask_denoiser"`` the mask head's ``mask_bound`` (default
-    2.0) and ``residual``."""
+    2.0) and ``residual``. A sidecar ``{"model": "mpsenet", ...}`` (the
+    rest ``MPSENet``'s arguments, its STFT sizes and sample rate among
+    them) makes ``path`` a torch state_dict of MP-SENet, or the published
+    ``{"generator": state_dict}``, served in ``dtype`` (nothing to fold)."""
     device = resolve_device(device)
     if not os.path.exists(path):
         raise FileNotFoundError(f"Model file not found: {path}")
@@ -120,6 +131,11 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
     if os.path.exists(sidecar):
         with open(sidecar) as f:
             meta = json.load(f)
+    if meta.get("model") == "mpsenet":
+        model = MPSENet(**{k: v for k, v in meta.items() if k != "model"})
+        load_state(model, torch.load(path, map_location="cpu", weights_only=True))
+        print(f"Loaded MP-SENet from: {path}")
+        return model.to(device=device, dtype=dtype).eval()
     kwargs = width_kwargs(float(meta.get("width_mult", 1.0)))
     if meta.get("attn_bottleneck"):
         kwargs["attn_bottleneck"] = True
@@ -146,9 +162,11 @@ def load_model_for_noise(noise_type: str, saved_models_dir: str = "./saved_model
     ``{stem}_{noise_type}.ckpt`` if it exists, else (for the magnitude
     U-Net, ``stem="unet_denoiser"``) the reference
     ``unet_denoiser_{noise_type}.pth``. Use ``stem="mask_denoiser"`` for
-    the complex-mask family."""
+    the complex-mask family, ``stem="mpsenet"`` for MP-SENet's torch
+    state_dict ``mpsenet_{noise_type}.pth`` with its sidecar."""
     device = resolve_device(device)
-    path = os.path.join(saved_models_dir, f"{stem}_{noise_type}.ckpt")
+    ext = ".pth" if stem == "mpsenet" else ".ckpt"
+    path = os.path.join(saved_models_dir, f"{stem}_{noise_type}{ext}")
     pth_path = os.path.join(saved_models_dir, f"unet_denoiser_{noise_type}.pth")
     if os.path.exists(path) or stem != "unet_denoiser" or not os.path.exists(pth_path):
         return load_model_from_path(path, dtype, device, stem, fold)
@@ -166,24 +184,37 @@ class DenoiserRunner:
     to (N, 1, F, T) and serves ``noisy_phase`` (its own mode),
     ``griffin_lim`` and ``reference_gl``; a complex-mask model (one with a
     ``mask_bound``) maps (N, 3, F, T) features to an (N, 2, F, T) mask and
-    serves ``complex_mask``. ``precision`` is the STFT and iSTFT path of
+    serves ``complex_mask``; an ``MPSENet`` serves ``mag_pha`` at its own
+    STFT sizes, the defaults of ``n_fft`` and ``hop_length`` (512 and 128
+    for the U-Nets). ``precision`` is the STFT and iSTFT path of
     ``dsp.stft``: ``"kernel"`` (K1 and K2), ``"fft"`` or ``"matmul"``.
     ``mesh`` lays the model out on a device mesh, in place (module
     docstring); the runner's results are the unmeshed runner's.
     """
 
-    def __init__(self, model: nn.Module, n_fft: int = 512, hop_length: int = 128,
-                 device: DeviceLike = None, precision: str = "kernel", mesh=None):
+    def __init__(self, model: nn.Module, n_fft: Optional[int] = None,
+                 hop_length: Optional[int] = None, device: DeviceLike = None,
+                 precision: str = "kernel", mesh=None):
         if precision not in stft_lib.PRECISIONS:
             raise ValueError(f"precision must be one of {stft_lib.PRECISIONS}, "
                              f"got {precision!r}")
         self.precision = precision
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.n_fft = n_fft
-        self.hop = hop_length
-        masked = getattr(model, "mask_bound", None) is not None
-        self.mode = "complex_mask" if masked else "noisy_phase"
+        mp = isinstance(model, MPSENet)
+        sizes = (model.n_fft, model.hop_length) if mp else (512, 128)
+        self.n_fft = sizes[0] if n_fft is None else n_fft
+        self.hop = sizes[1] if hop_length is None else hop_length
+        self.win_length = None
+        if mp:
+            if (self.n_fft, self.hop) != sizes:
+                raise ValueError(f"MP-SENet runs at n_fft={sizes[0]}, hop_length={sizes[1]}")
+            if mesh is not None:
+                raise NotImplementedError("MP-SENet is served without a mesh")
+            self.mode, self.win_length = "mag_pha", model.win_length
+        else:
+            masked = getattr(model, "mask_bound", None) is not None
+            self.mode = "complex_mask" if masked else "noisy_phase"
         self.mesh = mesh
         self.calls = None
         if mesh is not None:
@@ -244,9 +275,9 @@ class DenoiserRunner:
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
         if mode != self.mode and not (mode in GL_MODES and self.mode == "noisy_phase"):
+            need = {"complex_mask": "complex-mask", "mag_pha": "MP-SENet"}.get(mode, "magnitude")
             raise NotImplementedError(
-                f"mode {mode!r} needs a {'complex-mask' if mode == 'complex_mask' else 'magnitude'}"
-                f" model; this runner's model serves {self.mode!r}")
+                f"mode {mode!r} needs a {need} model; this runner's model serves {self.mode!r}")
         audio = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
         if self.mesh is not None and mode in GL_MODES and theta is None:
             # the unmeshed draw for the whole batch, made here (a follower
@@ -267,6 +298,11 @@ class DenoiserRunner:
                theta: Optional[torch.Tensor]) -> torch.Tensor:
         orig = audio
         n = audio.shape[-1]
+        if mode == "mag_pha":
+            with span(STFT):  # the published per-clip scale to unit RMS
+                scale = torch.rsqrt(audio.square().mean(-1, keepdim=True)
+                                    .clamp_min(torch.finfo(torch.float32).tiny))
+                audio = audio * scale
         rem = (-n) % self.hop
         if rem and center:
             audio = F.pad(audio, (0, rem))
@@ -281,6 +317,9 @@ class DenoiserRunner:
             out = self._gathered(out, b).reshape(*lead, -1)
         if rem and center:
             out = out[..., :n]
+        if mode == "mag_pha":
+            with span(ISTFT):
+                out = out / scale
         if bypass_db is not None:
             out = identity_bypass(out, orig, bypass_db)
         return out
@@ -291,14 +330,18 @@ class DenoiserRunner:
         lead, n = audio.shape[:-1], audio.shape[-1]
         with span(STFT):
             spec = stft_lib.stft(audio.reshape(-1, n), self.n_fft, self.hop,
-                                 center=center, precision=self.precision)
+                                 win_length=self.win_length, center=center,
+                                 pad_mode="reflect" if mode == "mag_pha" else "constant",
+                                 precision=self.precision)
             if mode == "complex_mask":
-                x = spectrogram_features(spec).permute(0, 3, 1, 2)  # (N, 3, F, T) NHWC
+                x = (spectrogram_features(spec).permute(0, 3, 1, 2),)  # (N, 3, F, T) NHWC
+            elif mode == "mag_pha":
+                x = mag_pha(spec, self.n_fft, self.win_length)
             else:
                 mag, phase = stft_lib.magphase(spec)
-                x = mag[:, None]
+                x = (mag[:, None],)
         with span(MODEL):
-            y = self.model(x)
+            y = self.model(*x)
         if mode in GL_MODES:
             den = y[:, 0].float().clamp_min(0.0)  # magnitudes are non-negative
             if theta is None and generator is None:
@@ -310,10 +353,13 @@ class DenoiserRunner:
         with span(ISTFT):
             if mode == "complex_mask":
                 rec = apply_mask(y.float().permute(0, 2, 3, 1), spec)
+            elif mode == "mag_pha":
+                mag_c, pha = y
+                rec = torch.polar(mag_c.pow(1.0 / self.model.compress_factor), pha)
             else:
                 rec = y[:, 0].float().clamp_min(0.0) * phase
-            out = stft_lib.istft(rec, self.hop, n_fft=self.n_fft, center=center,
-                                 length=n, precision=self.precision)
+            out = stft_lib.istft(rec, self.hop, win_length=self.win_length, n_fft=self.n_fft,
+                                 center=center, length=n, precision=self.precision)
         return out.reshape(*lead, n)
 
 

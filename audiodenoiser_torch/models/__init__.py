@@ -1,6 +1,7 @@
 """Model zoo of the port: live-BN U-Net and its variants (s2d stem,
 refinement path, attention bottleneck), the complex-mask U-Net, their
-BN-folded form, int8 compute, the noise router, weight carry-over."""
+BN-folded form, int8 compute, the noise router, weight carry-over, and
+MP-SENet (magnitude and phase, TS-Conformers)."""
 
 from audiodenoiser_torch.models.complex_mask import (
     ComplexMaskUNet,
@@ -19,6 +20,7 @@ from audiodenoiser_torch.models.convert import (
 )
 from audiodenoiser_torch.models.folded import FoldedUNet, fold_for_inference
 from audiodenoiser_torch.models.int8 import Int8UNet, prepare_int8
+from audiodenoiser_torch.models.mpsenet import MPSENet
 from audiodenoiser_torch.models.router import NOISE_CLASSES, NoiseClassifier
 from audiodenoiser_torch.models.unet import (
     BottleneckAttention,
@@ -32,7 +34,7 @@ from audiodenoiser_torch.models.unet import (
 )
 
 __all__ = ["UNet", "DoubleConv", "BottleneckAttention", "space_to_depth", "depth_to_space",
-           "ComplexMaskUNet", "FoldedUNet", "fold_for_inference", "Int8UNet", "prepare_int8",
+           "ComplexMaskUNet", "MPSENet", "FoldedUNet", "fold_for_inference", "Int8UNet", "prepare_int8",
            "count_params",
            "scaled_widths", "width_kwargs", "spectrogram_features", "apply_mask",
            "denoise_waveform", "state_dict_from_flax", "flax_from_state_dict", "random_flax_variables",

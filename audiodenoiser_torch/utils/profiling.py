@@ -20,7 +20,11 @@ the calling thread and are written out with the trace:
   the optimizer (``train.mask``, ``train.loop``);
 - ``STFT``, ``MODEL``, ``ISTFT``: a runner call's K1 side (the STFT, the
   magnitude and phase or the features), the model and its K2 side (the
-  phase or mask product, the iSTFT) (``eval.runner.DenoiserRunner``).
+  phase or mask product, the iSTFT) (``eval.runner.DenoiserRunner``);
+- ``MP_*``: MP-SENet's phases inside ``MODEL`` (``models.mpsenet``): the
+  encoder, each time and frequency half of a TS-Conformer block with its
+  attention nested inside, and the two decoders; they cover the model's
+  whole forward.
 """
 
 from __future__ import annotations
@@ -41,6 +45,12 @@ OPTIMIZER = "adt.optimizer"
 STFT = "adt.stft"
 MODEL = "adt.model"
 ISTFT = "adt.istft"
+MP_ENCODER = "adt.mp.encoder"
+MP_TIME = "adt.mp.time"
+MP_TIME_ATTENTION = "adt.mp.time_attention"
+MP_FREQ = "adt.mp.freq"
+MP_FREQ_ATTENTION = "adt.mp.freq_attention"
+MP_DECODERS = "adt.mp.decoders"
 
 _OFF = contextlib.nullcontext()
 

@@ -60,6 +60,12 @@ from the root of a checkout. Phases, each fatal on failure:
    K1 and K2 through their FFT entries only and K4 at 0 after each; then
    the stream benches of ``eval.bench`` (8 and 16 kHz sessions, pools of
    8 and 64) on one JSON line beside the card's name and power limit;
+3d. MP-SENet's serving path: ``DenoiserRunner`` in mode ``mag_pha`` over
+   the bf16 ``MPSENet`` (seeded weights) on 32 clips of 10 s at 16 kHz,
+   K1 and K2 one launch each through their direct entries (n_fft 400,
+   hop 100), counted from 0; then each against its plain version on the
+   runner's own inputs (unit-RMS clips padded by reflection, the model's
+   answer in polar form), timed beside its bound at that shape;
 4. run the serving slice in fp32 on the card (kernels) and on the CPU
    (plain versions) for one 2 s clip and compare; the same for the mask
    slice, and a streamed fp32 mask session against the offline
@@ -387,24 +393,25 @@ def require_variants(run: str, expect: dict) -> dict:
     return seen
 
 
-def stft_bound_ms(batch: int, n_frames: int, signal_len: int) -> tuple[float, str]:
+def stft_bound_ms(batch: int, n_frames: int, signal_len: int,
+                  n_fft: int = N_FFT) -> tuple[float, str]:
     """Least time for one STFT or iSTFT at these shapes, whatever the
     algorithm: the larger of its bytes (signal + re/im planes + window,
     each moved once) over the memory rate and the operations of an FFT
     (2.5*n_fft*log2(n_fft) per real frame, plus the window multiply) over
     the fp32 non-tensor rate."""
-    n_freq = N_FFT // 2 + 1
-    nbytes = 4 * batch * (signal_len + 2 * n_freq * n_frames) + 4 * N_FFT
-    flops = batch * n_frames * (2.5 * N_FFT * math.log2(N_FFT) + N_FFT)
+    n_freq = n_fft // 2 + 1
+    nbytes = 4 * batch * (signal_len + 2 * n_freq * n_frames) + 4 * n_fft
+    flops = batch * n_frames * (2.5 * n_fft * math.log2(n_fft) + n_fft)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def direct_dft_ms(batch: int, n_frames: int) -> float:
+def direct_dft_ms(batch: int, n_frames: int, n_fft: int = N_FFT) -> float:
     """The floor of the kernels' own algorithm, a direct DFT (re and im,
     one FMA each per sample and bin): a reference, not the bound."""
-    flops = 4 * N_FFT * (N_FFT // 2 + 1) * n_frames * batch
+    flops = 4 * n_fft * (n_fft // 2 + 1) * n_frames * batch
     return flops / PEAK_FP32_FLOPS * 1e3
 
 
@@ -718,6 +725,104 @@ def phase_serve(torch, rng, rows, device="cuda"):
     finally:
         server.shutdown()
         server.server_close()
+
+
+def phase_mpsenet(torch, rng, rows):
+    """Phase 3d: MP-SENet's serving path, ``DenoiserRunner`` mode
+    ``mag_pha`` over the bf16 model, on 32 clips of 10 s at 16 kHz (the
+    ``mpsenet2m.dns10s`` batch): K1 and K2 take their direct entries at
+    n_fft 400 / hop 100, one launch each, from launch counts set to 0
+    just before. Then each is held to its plain version on the runner's
+    own inputs (the unit-RMS clips padded by reflection; the model's
+    answer in polar form) and timed beside its bound at that shape."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from audiodenoiser_torch.dsp.window import hann_window
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.models.mpsenet import MPSENet, mag_pha
+    from audiodenoiser_torch.ops.cuda import (
+        istft_kernel,
+        istft_plain,
+        reset_launch_counts,
+        stft_kernel,
+        stft_plain,
+    )
+
+    dev, batch, seconds, sr = torch.device("cuda"), 32, 10, 16000
+    torch.manual_seed(19)
+    model = MPSENet().to(dev, torch.bfloat16).eval()
+    n_fft, hop = model.n_fft, model.hop_length
+    audio = torch.from_numpy(np.clip(0.2 * rng.standard_normal((batch, seconds * sr)), -1, 1)
+                             .astype(np.float32)).to(dev)
+    runner = DenoiserRunner(model, device=dev)
+    runner.denoise_audio(audio[:2])  # cuDNN's first plans, outside the counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = runner.denoise_audio(audio)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    seen = require_variants("the MP-SENet runner", {"stft_kernel": "direct",
+                                                    "istft_kernel": "direct"})
+    check(stft_kernel.launches == istft_kernel.launches == 1,
+          "the MP-SENet batch took more than one K1 and one K2 launch")
+    count_off_path(rows, "the MP-SENet runner")
+    check(out.shape == audio.shape and bool(torch.isfinite(out).all()),
+          "the MP-SENet runner's answer is not finite at the clips' shape")
+
+    w = torch.from_numpy(hann_window(n_fft)).to(dev)
+    scaled = audio * torch.rsqrt(audio.square().mean(-1, keepdim=True))
+    x = F.pad(scaled[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0].contiguous()
+    n_frames = 1 + (x.shape[1] - n_fft) // hop
+    spec_k = stft_kernel(x, w, n_fft, hop)
+    spec_p = stft_plain(x, w, n_fft, hop)
+    with torch.no_grad():
+        mag_c, pha = model(*mag_pha(spec_p, n_fft, model.win_length))
+    rec = torch.polar(mag_c.pow(1.0 / model.compress_factor), pha)
+    re, im = rec.real.contiguous(), rec.imag.contiguous()
+    y_k = istft_kernel(re, im, w, n_fft, hop)
+    y_p = istft_plain(re, im, w, n_fft, hop)
+    torch.cuda.synchronize()
+    check(spec_k.shape == spec_p.shape == (batch, n_fft // 2 + 1, n_frames),
+          f"K1 shape {tuple(spec_k.shape)} at the MP-SENet batch")
+    check(y_k.shape == y_p.shape == (batch, (n_frames - 1) * hop + n_fft),
+          f"K2 shape {tuple(y_k.shape)} at the MP-SENet batch")
+    ref1 = torch.view_as_real(spec_p)
+    err1 = (torch.view_as_real(spec_k) - ref1).abs().max().item()
+    scale1 = ref1.abs().max().item()
+    err2 = (y_k - y_p).abs().max().item()
+    scale2 = y_p.abs().max().item()
+    print(f"[mpsenet] B={batch} L={x.shape[1]} T={n_frames} n_fft={n_fft} hop={hop}: "
+          f"runner {run_s:.3f} s, launches by entry K1 {seen['stft_kernel']} "
+          f"K2 {seen['istft_kernel']}; K1 max_rel_err={err1 / scale1:.3e}, "
+          f"K2 max_rel_err={err2 / scale2:.3e}", flush=True)
+    check(err1 <= 1e-5 * scale1, "K1's direct entry disagrees with plain at n_fft 400")
+    check(err2 <= 1e-5 * scale2, "K2's direct entry disagrees with plain at n_fft 400")
+
+    def library_istft():
+        frames = torch.fft.irfft(torch.complex(re, im).transpose(-1, -2), n=n_fft, dim=-1) * w
+        return F.fold(frames.transpose(1, 2), (1, y_p.shape[1]), (1, n_fft), stride=(1, hop))
+
+    calls = {
+        "stft_kernel": (stft_kernel, lambda: stft_kernel(x, w, n_fft, hop),
+                        lambda: stft_plain(x, w, n_fft, hop),
+                        lambda: torch.stft(x, n_fft, hop, window=w, center=False,
+                                           return_complex=True), err1),
+        "istft_kernel": (istft_kernel, lambda: istft_kernel(re, im, w, n_fft, hop),
+                         lambda: istft_plain(re, im, w, n_fft, hop), library_istft, err2),
+    }
+    bound, bound_by = stft_bound_ms(batch, n_frames, x.shape[1], n_fft)
+    dft_ms = direct_dft_ms(batch, n_frames, n_fft)
+    for name, (entry, kernel, plain, library, err) in calls.items():
+        times = timings(kernel, plain, library)
+        check(entry.fft_launches == 0, f"{name} took its FFT entry at n_fft 400")
+        print(f"[kernels] {name} mpsenet: {show(times)} bound_ms={bound:.4f} "
+              f"({bound_by}) direct_dft_ms={dft_ms:.4f}", flush=True)
+        rows.setdefault(name, {}).setdefault("other_shapes", {})["mpsenet"] = {
+            **times, "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+            "runner_launches": seen[name]}
+    reset_launch_counts()
 
 
 def count_off_path(rows, run: str) -> None:
@@ -4724,6 +4829,9 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_stream(torch, rng, rows, mask_variables, card)
     print(f"[stream] phase 3c in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_mpsenet(torch, rng, rows)
+    print(f"[mpsenet] phase 3d in {time.perf_counter() - t0:.1f} s", flush=True)
     phase_slice_fp32(torch, rng)
     phase_mask_fp32(torch, rng, mask_variables)
     # phase 4c's test set and phase 6d's wavs stay here for phase 6e

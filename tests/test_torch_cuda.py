@@ -8,6 +8,8 @@ imports no JAX, so it runs where JAX is absent:
   python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1287,3 +1289,150 @@ def test_sharded_clip_on_card_is_the_padded_forward(dev):
                                   length=wav.shape[-1], precision="kernel")
     assert got.shape == wav.shape
     assert float((got - want).norm() / want.norm()) <= 1e-5
+
+
+MP_CONFIG = dict(dense_channel=64, num_tsconformers=4, n_fft=400, hop_length=100,
+                 win_length=400, sample_rate=16000, compress_factor=0.3, beta=2.0, n_head=4,
+                 conv_kernel=31, ffn_mult=4, conv_expansion=2)
+
+
+@pytest.mark.parametrize("batch,samples", [(32, 160000), (3, 8000)])
+def test_direct_entries_at_mpsenet_shape_match_torch_stft(dev, batch, samples):
+    """K1 and K2 at n_fft 400 / hop 100 (their direct entries), with reflect
+    centre padding, against ``torch.stft``/``torch.istft``: MP-SENet's
+    transforms at the 10 s cell's shape and at 0.5 s."""
+    from audiodenoiser_torch.dsp import stft as stft_lib
+    from audiodenoiser_torch.ops.cuda import istft_kernel, stft_kernel, variant_launches
+
+    rng = np.random.default_rng(batch)
+    x = torch.from_numpy((0.3 * rng.standard_normal((batch, samples))).astype(np.float32)).to(dev)
+    w = torch.hann_window(400, periodic=True, device=dev)
+    before = variant_launches(stft_kernel)["direct"], variant_launches(istft_kernel)["direct"]
+    ours = stft_lib.stft(x, 400, 100, center=True, pad_mode="reflect", precision="kernel")
+    ref = torch.stft(x, 400, 100, window=w, center=True, pad_mode="reflect",
+                     return_complex=True)
+    back = stft_lib.istft(ref, 100, n_fft=400, center=True, length=samples, precision="kernel")
+    want = torch.istft(ref, 400, 100, window=w, center=True, length=samples)
+    torch.cuda.synchronize()
+    assert (variant_launches(stft_kernel)["direct"] - before[0],
+            variant_launches(istft_kernel)["direct"] - before[1]) == (1, 1)
+    assert ours.shape == ref.shape == (batch, 201, samples // 100 + 1)
+    assert _max_rel(torch.view_as_real(ours), torch.view_as_real(ref)) < 1e-5
+    assert _max_rel(back, want) < 1e-5
+
+
+def _mp_case(dev, seed: int, rows: int, seconds: float):
+    """Seeded, calibrated reference weights and ``rows`` clips of noisy
+    harmonics, on the card."""
+    from benchmark.reference import mpsenet as ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = ref.seeded_weights(MP_CONFIG, gen, dev)
+    n = int(seconds * 16000)
+    t = torch.arange(n, device=dev) / 16000
+    f0 = 90 + 170 * torch.rand((rows + 4, 1), generator=gen, device=dev)
+    clean = sum(torch.sin(2 * np.pi * h * f0 * t) / h for h in range(1, 6))
+    audio = 0.2 * (clean + 0.5 * torch.randn(clean.shape, generator=gen, device=dev))
+    with _no_tf32():
+        ref.calibrate(p, MP_CONFIG, audio[rows:, :16000])
+    return p, audio[:rows]
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """TF32 off for matmuls and cuDNN inside the block, as the reference needs."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mpsenet_runner_on_card_matches_the_reference(dev, dtype):
+    """MP-SENet on the card against the float32 reference (TF32 off), on 2
+    clips of 10 s. The model alone, on the reference's own magnitude and
+    phase: float32 within 1e-4 (spectrum relative L2). Through
+    ``DenoiserRunner`` (K1/K2 direct, SDPA, cuDNN), the waveform: float32
+    within 1e-3 in each clip whose input phase plane agrees with the
+    reference's; bfloat16 with the root mean square of the clips' errors
+    under the cell's limit (``benchmark/limits/mpsenet2m.dns10s.json``).
+
+    The published phase, ``atan2(im + 1e-10, re + 1e-5)``, jumps by 2 pi
+    across the real line left of -1e-5, and by pi at -1e-5 on it (the DC
+    and Nyquist bins, whose imaginary parts are 0): a bin that rounding
+    puts on either side (a DC bin near -1e-5 in this case) reaches the
+    network pi or 2 pi apart from two correct STFTs, and its clip moves by
+    about 1%. Such a clip is left out of the waveform bound, and each bin
+    whose phases lie more than 1 rad apart has to lie within rounding of
+    that cut in the reference's spectrum."""
+    import json
+    from pathlib import Path
+
+    from benchmark.reference import mpsenet as ref
+
+    from audiodenoiser_torch.dsp import stft as stft_lib
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.models.mpsenet import MPSENet, mag_pha
+
+    p, audio = _mp_case(dev, 19, 2, 10.0)
+    model = MPSENet().to(dev)
+    model.load_state_dict(p)
+    model = model.to(dtype).eval()
+    with _no_tf32(), torch.no_grad():
+        x = audio * ref.norm_factor(audio)
+        mag, pha = ref.mag_pha_stft(x, MP_CONFIG)
+        spec = torch.stft(x, 400, 100, window=torch.hann_window(400, device=dev),
+                          center=True, pad_mode="reflect", return_complex=True)
+        _, pha_port = mag_pha(stft_lib.stft(x, 400, 100, center=True, pad_mode="reflect",
+                                            precision="kernel"), 400, 400)
+        got_c, got_p = model(mag, pha)
+        want_c, want_p = ref.forward(p, MP_CONFIG, mag, pha)
+        got = DenoiserRunner(model, device=dev).denoise_audio(audio)
+        want = ref.denoise(p, MP_CONFIG, audio)
+    got_s = torch.polar(got_c.pow(1 / 0.3), got_p)
+    want_s = torch.polar(want_c.pow(1 / 0.3), want_p)
+    model_err = ((got_s - want_s).abs().square().sum((1, 2))
+                 / want_s.abs().square().sum((1, 2))).sqrt()
+    wave_err = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    flipped = (pha_port - pha).abs() > 1.0
+    print(f"[mpsenet] {dtype}: model {model_err.tolist()}, waveform {wave_err.tolist()}, "
+          f"flipped input bins {flipped.nonzero().tolist()}")
+    if dtype == torch.float32:
+        assert float(model_err.max()) < 1e-4
+        for b, f, t in flipped.nonzero().tolist():
+            s, tol = spec[b, f, t], 1e-5 * float(spec[b].abs().max())
+            assert float(s.real) + 1e-5 < tol and abs(float(s.imag)) < tol, (b, f, t, s)
+        kept = ~flipped.flatten(1).any(1)
+        assert bool(kept.any()) and float(wave_err[kept].max()) < 1e-3
+    else:
+        limits = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "limits"
+                             / "mpsenet2m.dns10s.json").read_text())
+        assert float(wave_err.square().mean().sqrt()) < limits["rms_rel_err"]
+
+
+def test_mpsenet_attention_takes_a_fused_sdpa_kernel(dev):
+    """The time attention at the cell's shape (32 clips of 10 s: 3,200
+    sequences of 1,601 frames, 4 heads of 16) in bf16 runs through a fused
+    SDPA kernel: no (N, 4, 1601, 1601) score tensor, which would take
+    65.6 GB, is made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiodenoiser_torch.models.mpsenet import MultiheadAttention
+
+    attn = MultiheadAttention(64, 4).to(dev, torch.bfloat16)
+    x = torch.randn((3200, 1601, 64), device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        attn(x)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            attn(x)
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    print(f"[mpsenet] attention kernels: {names}")
+    assert any("flash" in n.lower() or "fmha" in n.lower() or "attention" in n.lower()
+               for n in names), names
+    assert torch.cuda.max_memory_allocated() - base < 4 * 2 ** 30
