@@ -33,10 +33,15 @@ running statistics, SiLU) and a final LayerNorm. The published code feeds
 runs along the axis the paper names (time, then frequency).
 
 The model computes in the dtype of its weights (``model.to(torch.bfloat16)``
-to serve in bf16): LayerNorm, InstanceNorm and BatchNorm accumulate their
-statistics in float32 inside PyTorch's kernels; the compression, the
-learnable sigmoid, the mask product and ``atan2`` run in float32, and both
-outputs are float32.
+to serve in bf16): the conformers' LayerNorms (``RowLayerNorm``, five a
+conformer, 40 a forward) go through the port's hand-written kernel
+(``ops.cuda.layer_norm_kernel``) on the card and its plain version on the
+CPU, both with float32 statistics and affine and one rounding;
+InstanceNorm and BatchNorm accumulate their statistics in float32 inside
+PyTorch's kernels; the compression, the learnable sigmoid, the mask
+product and ``atan2`` run in float32, and both outputs are float32. The
+card's route has no gradient: the model serves under
+``torch.inference_mode()``.
 
 Inside ``eval.runner``'s ``adt.model`` span the forward marks its phases
 (``utils.profiling``): ``adt.mp.encoder``, ``adt.mp.time`` around each
@@ -50,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audiodenoiser_torch.ops.cuda import layer_norm_kernel
 from audiodenoiser_torch.utils.profiling import (
     MP_DECODERS,
     MP_ENCODER,
@@ -98,13 +104,23 @@ class DenseEncoder(nn.Module):
         return self.dense_conv_2(self.dense_block(self.dense_conv_1(x)))
 
 
+class RowLayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm(dim)`` of the last axis through
+    ``ops.cuda.layer_norm_kernel``: the hand-written kernel on the card, its
+    plain version on the CPU. Parameters and ``eps`` are ``nn.LayerNorm``'s,
+    so published checkpoints load unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_kernel(x, self.weight, self.bias, self.eps)
+
+
 class FeedForwardModule(nn.Module):
     """LayerNorm -> Linear(C, 4C) -> SiLU -> Linear(4C, C). Indices are the
     published ``ffm`` Sequential's; its dropouts, 3 and 5, are identities."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
-        self.ffm = nn.Sequential(nn.LayerNorm(dim), nn.Linear(dim, dim * mult), nn.SiLU(),
+        self.ffm = nn.Sequential(RowLayerNorm(dim), nn.Linear(dim, dim * mult), nn.SiLU(),
                                  nn.Identity(), nn.Linear(dim * mult, dim), nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -137,7 +153,7 @@ class AttentionModule(nn.Module):
     def __init__(self, dim: int, n_head: int, attn_span: str):
         super().__init__()
         self.attn = MultiheadAttention(dim, n_head)
-        self.layernorm = nn.LayerNorm(dim)
+        self.layernorm = RowLayerNorm(dim)
         self.attn_span = attn_span
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -158,7 +174,7 @@ class ConformerConvModule(nn.Module):
         super().__init__()
         inner = dim * expansion
         self.ccm = nn.Sequential(
-            nn.LayerNorm(dim), nn.Identity(), nn.Conv1d(dim, inner * 2, 1), nn.GLU(dim=1),
+            RowLayerNorm(dim), nn.Identity(), nn.Conv1d(dim, inner * 2, 1), nn.GLU(dim=1),
             nn.Conv1d(inner, inner, kernel_size, padding=(kernel_size - 1) // 2, groups=inner),
             nn.BatchNorm1d(inner), nn.SiLU(), nn.Conv1d(inner, dim, 1), nn.Identity(),
             nn.Identity())
@@ -179,7 +195,7 @@ class ConformerBlock(nn.Module):
         self.attn = AttentionModule(dim, n_head, attn_span)
         self.ccm = ConformerConvModule(dim, kernel_size=kernel_size)
         self.ffm2 = FeedForwardModule(dim)
-        self.post_ln = nn.LayerNorm(dim)
+        self.post_ln = RowLayerNorm(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + 0.5 * self.ffm1(x)

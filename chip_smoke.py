@@ -22,7 +22,11 @@ from the root of a checkout. Phases, each fatal on failure:
    step and of the s2d pyramid's batch-16 mask and crop steps, in bf16
    and fp32, forward and backward; K4
    (overlap-add, a standalone op that no path calls) at the bench shape, a
-   ragged one at hop 100 and batch 10 at hop 512, in fp32 and bf16. Each
+   ragged one at hop 100 and batch 10 at hop 512, in fp32 and bf16; the
+   row LayerNorm (MP-SENet's conformer norms, no TPU kernel) at the
+   10 s cell's shape (3,200 x 1,601 x 64) in bf16 against its plain
+   version and ``F.layer_norm`` (one bf16 ulp beside float32's rounding),
+   timed beside its byte bound. Each
    library's variant counters say which entry ran: K1's and K2's FFT entries
    for n_fft 512, K3's TMA + wgmma variant at every U-Net layer in bf16;
    then the folded conv's two routes at the 18 ReLU'd conv shapes of a
@@ -63,7 +67,8 @@ from the root of a checkout. Phases, each fatal on failure:
 3d. MP-SENet's serving path: ``DenoiserRunner`` in mode ``mag_pha`` over
    the bf16 ``MPSENet`` (seeded weights) on 32 clips of 10 s at 16 kHz,
    K1 and K2 one launch each through their direct entries (n_fft 400,
-   hop 100), counted from 0; then each against its plain version on the
+   hop 100), the 40 LayerNorms through the row LayerNorm kernel and none
+   through its plain version, counted from 0; then each against its plain version on the
    runner's own inputs (unit-RMS clips padded by reflection, the model's
    answer in polar form), timed beside its bound at that shape;
 4. run the serving slice in fp32 on the card (kernels) and on the CPU
@@ -727,14 +732,19 @@ def phase_serve(torch, rng, rows, device="cuda"):
         server.server_close()
 
 
+MP_LAYER_NORMS = 40  # 4 TS-Conformers x 2 conformers x (ffm1, attn, ccm, ffm2, post_ln)
+
+
 def phase_mpsenet(torch, rng, rows):
     """Phase 3d: MP-SENet's serving path, ``DenoiserRunner`` mode
     ``mag_pha`` over the bf16 model, on 32 clips of 10 s at 16 kHz (the
     ``mpsenet2m.dns10s`` batch): K1 and K2 take their direct entries at
     n_fft 400 / hop 100, one launch each, from launch counts set to 0
-    just before. Then each is held to its plain version on the runner's
-    own inputs (the unit-RMS clips padded by reflection; the model's
-    answer in polar form) and timed beside its bound at that shape."""
+    just before, and the 40 LayerNorms take the hand-written kernel, none
+    its plain version. Then K1 and K2 are each held to their plain version
+    on the runner's own inputs (the unit-RMS clips padded by reflection;
+    the model's answer in polar form) and timed beside their bound at that
+    shape."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -764,9 +774,13 @@ def phase_mpsenet(torch, rng, rows):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     seen = require_variants("the MP-SENet runner", {"stft_kernel": "direct",
-                                                    "istft_kernel": "direct"})
+                                                    "istft_kernel": "direct",
+                                                    "layer_norm_kernel": "kernel"})
     check(stft_kernel.launches == istft_kernel.launches == 1,
           "the MP-SENet batch took more than one K1 and one K2 launch")
+    check(seen["layer_norm_kernel"] == {"kernel": MP_LAYER_NORMS, "plain": 0},
+          f"the MP-SENet batch's LayerNorms by route {seen['layer_norm_kernel']}")
+    rows["layer_norm_kernel"]["launches"] = MP_LAYER_NORMS
     count_off_path(rows, "the MP-SENet runner")
     check(out.shape == audio.shape and bool(torch.isfinite(out).all()),
           "the MP-SENet runner's answer is not finite at the clips' shape")
@@ -1616,6 +1630,66 @@ def phase_overlap_add(torch, rng):
                "max_abs_err": 0.0, "bound_ms": bound, "bound_by": bound_by, **times}
     row["max_abs_err"] = worst
     return row
+
+
+LN_SHAPE = (3200, 1601, 64)  # the MP-SENet cell's time half: 32 x 100 bins x 1,601 frames
+
+
+def bf16_gap(got, want) -> tuple[float, float]:
+    """Largest |got - want| in bf16 ulps of the pair's larger magnitude, and
+    in units of that ulp plus 2**-20 of ``want``'s largest magnitude (16
+    float32 roundings): where the float32 value both round once cancels to
+    near 0, a fused multiply-add and separate products differ by float32
+    rounding, which is many ulps of a tiny output (tests/test_torch_cuda.py)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    ulp = torch.ldexp(torch.ones_like(got), e - 8)
+    gap = (got - want).abs()
+    return float((gap / ulp).max()), float((gap / (ulp + 2.0 ** -20 * want.abs().max())).max())
+
+
+def phase_layer_norm(torch, rng):
+    """Phase 2, the row LayerNorm (MP-SENet's conformer norms; no TPU
+    kernel): the kernel against its plain version and ``F.layer_norm`` at
+    the cell's shape in bf16 (within one bf16 ulp beside float32's
+    rounding, ``bf16_gap``), timed beside its byte bound, the plain version
+    and ``F.layer_norm`` as ``library_ms`` (the yardstick; the port never
+    calls it)."""
+    import torch.nn.functional as F
+
+    from audiodenoiser_torch.ops.cuda import layer_norm_kernel, layer_norm_plain
+
+    dev, c = torch.device("cuda"), LN_SHAPE[-1]
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+    x = (torch.randn(LN_SHAPE, generator=gen, device=dev) * 3
+         + 5 * torch.randn(LN_SHAPE[:-1] + (1,), generator=gen, device=dev)).to(torch.bfloat16)
+    w = (1 + 0.5 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+    b = (0.3 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+    with torch.inference_mode():
+        ours = layer_norm_kernel(x, w, b, 1e-5)
+        plain = layer_norm_plain(x, w, b, 1e-5)
+        library = F.layer_norm(x, (c,), w, b, 1e-5)
+        torch.cuda.synchronize()
+        (ulps, gap), (lib_ulps, lib_gap) = bf16_gap(ours, plain), bf16_gap(ours, library)
+        del plain, library
+        times = timings(lambda: layer_norm_kernel(x, w, b, 1e-5),
+                        lambda: layer_norm_plain(x, w, b, 1e-5),
+                        lambda: F.layer_norm(x, (c,), w, b, 1e-5))
+    nbytes = 2 * 2 * x.numel() + 2 * 2 * c
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"[kernels] layer_norm_kernel {x.numel() // c} x {c} bf16: {show(times)} "
+          f"bound_ms={bound:.4f} (bytes) share_of_bound={bound / times['device_ms']:.3f}; "
+          f"bf16 ulps (beside float32 rounding) vs plain {ulps:.0f} ({gap:.3f}), vs "
+          f"F.layer_norm {lib_ulps:.0f} ({lib_gap:.3f})", flush=True)
+    check(gap <= 1.0, f"layer_norm_kernel is {gap} bf16 ulps from its plain version")
+    check(lib_gap <= 1.0, f"layer_norm_kernel is {lib_gap} bf16 ulps from F.layer_norm")
+    return {"name": "layer_norm_kernel", "route": "cuda",
+            "source": "audiodenoiser_torch/csrc/layer_norm_kernel.cu",
+            "replaces": "none (MP-SENet's conformer LayerNorm; the model exists only in the port)",
+            "max_bf16_ulps": ulps, "max_bf16_gap": gap, "bound_ms": bound,
+            "bound_by": "bytes", **times}
 
 
 def phase_train_step_fp32(torch):
@@ -4823,6 +4897,7 @@ def main() -> None:
     rows = phase_kernels(torch, rng)
     rows["deconv_kernel"] = phase_deconv(torch, rng)
     rows["overlap_add_kernel"] = phase_overlap_add(torch, rng)
+    rows["layer_norm_kernel"] = phase_layer_norm(torch, rng)
     phase_fused_conv(torch, rng)
     phase_serve(torch, rng, rows)
     mask_variables = phase_mask_serve(torch, rng, rows)

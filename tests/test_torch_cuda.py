@@ -1436,3 +1436,87 @@ def test_mpsenet_attention_takes_a_fused_sdpa_kernel(dev):
     assert any("flash" in n.lower() or "fmha" in n.lower() or "attention" in n.lower()
                for n in names), names
     assert torch.cuda.max_memory_allocated() - base < 4 * 2 ** 30
+
+
+def _bf16_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in units of one bf16 ulp of the pair's larger
+    magnitude plus 2**-20 of ``want``'s largest (16 float32 roundings): the
+    float32 value both sides round once can cancel to near 0, where the
+    kernel's fused multiply-add and the plain version's separate products
+    differ by float32 rounding (an output of 1.5e-8 against an exact 0 is
+    252 bf16 ulps), not by bf16's."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    unit = torch.ldexp(torch.ones_like(got), e - 8) + 2.0 ** -20 * want.abs().max()
+    return float(((got - want).abs() / unit).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [
+    (3200, 1601, 64),   # the MP-SENet cell's time half: 5,123,200 rows
+    (1_000_003, 8),     # ragged row counts past one pass of the grid
+    (1_000_003, 64),
+    (100_003, 512),
+    (1001, 24),         # widths whose last lanes are masked
+    (4099, 264),
+], ids=["cell", "ragged8", "ragged64", "ragged512", "masked24", "masked264"])
+def test_layer_norm_kernel_matches_plain(dev, dtype, shape):
+    """The row LayerNorm against its plain version on rows with means far
+    from 0 and non-trivial weight and bias: bf16 within one ulp (both round
+    a float32 result once) beside float32's rounding (``_bf16_gap``),
+    float32 within 1e-5 of the largest output."""
+    from audiodenoiser_torch.ops.cuda import layer_norm_kernel, layer_norm_plain, variant_launches
+
+    c = shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(c)
+    x = (torch.randn(shape, generator=gen, device=dev) * 3
+         + 5 * torch.randn(shape[:-1] + (1,), generator=gen, device=dev)).to(dtype)
+    w = (1 + 0.5 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+    b = (0.3 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+    before = variant_launches(layer_norm_kernel)["kernel"]
+    with torch.inference_mode():
+        got = layer_norm_kernel(x, w, b, 1e-5)
+        want = layer_norm_plain(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert variant_launches(layer_norm_kernel)["kernel"] == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        assert _max_rel(got, want) <= 1e-5
+    else:
+        assert _bf16_gap(got, want) <= 1.0
+
+
+def test_mpsenet_forward_takes_the_layer_norm_kernel_40_times(dev):
+    from audiodenoiser_torch.models.mpsenet import MPSENet
+    from audiodenoiser_torch.ops.cuda import layer_norm_kernel, reset_launch_counts, variant_launches
+
+    torch.manual_seed(0)
+    model = MPSENet().to(dev, torch.bfloat16).eval()
+    mag, pha = torch.rand((2, 201, 50), device=dev), torch.rand((2, 201, 50), device=dev)
+    reset_launch_counts()
+    with torch.inference_mode():
+        model(mag, pha)
+    torch.cuda.synchronize()
+    assert layer_norm_kernel.launches == 40
+    assert variant_launches(layer_norm_kernel) == {"kernel": 40, "plain": 0}
+
+
+def test_layer_norm_kernel_rejects_what_it_does_not_take(dev):
+    from audiodenoiser_torch.ops.cuda import layer_norm_kernel
+
+    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    half = torch.zeros(4, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        layer_norm_kernel(half, w.half(), b.half())
+    with pytest.raises(TypeError):  # weights in another dtype than the input
+        layer_norm_kernel(torch.zeros(4, 64, device=dev, dtype=torch.bfloat16), w, b)
+    for c in (60, 520):
+        with pytest.raises(ValueError):
+            layer_norm_kernel(torch.zeros(4, c, device=dev), torch.ones(c, device=dev),
+                              torch.zeros(c, device=dev))
+    with pytest.raises(ValueError):
+        layer_norm_kernel(torch.zeros(4, 128, device=dev)[:, ::2], w, b)
+    with pytest.raises(RuntimeError):
+        layer_norm_kernel(torch.zeros(4, 64, device=dev, requires_grad=True), w, b)
+    with pytest.raises(RuntimeError):
+        layer_norm_kernel(torch.zeros(4, 64, device=dev), torch.nn.Parameter(w), b)

@@ -264,6 +264,66 @@ def test_spans_cover_the_forward(model, audio):
 
 
 
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest distance in bf16 ulps of the larger magnitude of each pair."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    return float(((got - want).abs() / torch.ldexp(torch.ones_like(got), e - 8)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("width", [8, 64, 512])
+def test_layer_norm_plain_matches_f_layer_norm(dtype, width):
+    """The plain route (float32 statistics and affine, one rounding) is
+    ``F.layer_norm``: within 1e-6 of the largest output in float32, one
+    ulp in bf16, on rows with means far from 0."""
+    from audiodenoiser_torch.ops.cuda import layer_norm_plain
+
+    gen = torch.Generator().manual_seed(width)
+    x = torch.randn(5, 7, width, generator=gen) * 3 + 5 * torch.randn(5, 7, 1, generator=gen)
+    w = 1 + 0.5 * torch.randn(width, generator=gen)
+    b = 0.3 * torch.randn(width, generator=gen)
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    got, want = layer_norm_plain(x, w, b, 1e-5), F.layer_norm(x, (width,), w, b, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-6
+    else:
+        assert _bf16_ulps(got, want) <= 1.0
+
+
+@torch.no_grad()
+def test_cpu_forward_takes_the_plain_layer_norm_40_times(model):
+    from audiodenoiser_torch.ops.cuda import (
+        layer_norm_kernel,
+        reset_launch_counts,
+        variant_launches,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    mag, pha = torch.rand(1, 201, 4, generator=gen), torch.rand(1, 201, 4, generator=gen)
+    reset_launch_counts()
+    model(mag, pha)
+    assert layer_norm_kernel.launches == 40
+    assert variant_launches(layer_norm_kernel) == {"kernel": 0, "plain": 40}
+
+
+def test_layer_norms_keep_the_published_names(model):
+    """Each conformer's five norms are ``RowLayerNorm``s, still
+    ``nn.LayerNorm``s, under the published generator's state_dict names."""
+    sites = ("ffm1.ffm.0", "attn.layernorm", "ccm.ccm.0", "ffm2.ffm.0", "post_ln")
+    want = {f"TSConformer.{i}.{half}_conformer.{site}" for i in range(4)
+            for half in ("time", "freq") for site in sites}
+    fresh = mpsenet.MPSENet()
+    norms = {n for n, m in fresh.named_modules() if isinstance(m, mpsenet.RowLayerNorm)}
+    assert norms == want
+    assert {n for n, m in fresh.named_modules() if isinstance(m, torch.nn.LayerNorm)} == want
+    state = fresh.state_dict()
+    assert all(f"{n}.{p}" in state for n in want for p in ("weight", "bias"))
+    assert list(state) == list(model.state_dict())
+    mpsenet.load_state(fresh, {"generator": model.state_dict()})
+
+
 def test_the_reference_imports_nothing_but_torch():
     """The one reference, which the benchmark's check also uses, stands
     apart from the program: no module of the port, of JAX or of the JAX
