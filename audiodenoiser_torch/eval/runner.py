@@ -1,21 +1,21 @@
 """The fused denoise paths and the evaluation drivers (port of
 ``eval/runner.py``).
 
-``DenoiserRunner.denoise_audio`` pads the clip to a hop multiple and takes
-the centre-padded STFT through the K1 kernel, then, by mode:
+``DenoiserRunner.denoise_audio`` runs one path for every model family:
+the family's per-clip gain, zero padding to a hop multiple, the
+centre-padded STFT through the K1 kernel, the family's model inputs, the
+model, the family's complex spectrogram (or Griffin-Lim), one iSTFT, the
+trim and the gain taken off. The families (``_FAMILIES``):
 
-- ``noisy_phase`` (a magnitude U-Net): ``magphase``, the model on the
-  magnitude, a clamp at zero, the noisy phase back on, one iSTFT;
-- ``griffin_lim`` / ``reference_gl`` (a magnitude U-Net): the clamped
-  denoised magnitude through ``dsp.griffin_lim`` in its ``correct`` /
-  ``reference`` mode, every transform through K1 and K2;
-- ``complex_mask`` (a ``ComplexMaskUNet``): ``[mag, cos, sin]`` features,
-  the model's bounded complex mask times the noisy spectrogram, one iSTFT;
-- ``mag_pha`` (an ``MPSENet``, at its own STFT sizes): each clip scaled to
-  unit RMS, the STFT with reflect centre padding, magnitude and phase
-  (``models.mpsenet.mag_pha``), the model, its compressed magnitude
-  decompressed and put back in polar form in float32, one iSTFT, the
-  scale undone.
+- magnitude (a ``UNet``): ``magphase``, the model on the magnitude; in
+  ``noisy_phase`` the magnitude clamped at zero times the noisy phase, in
+  ``griffin_lim`` / ``reference_gl`` through ``dsp.griffin_lim`` in its
+  ``correct`` / ``reference`` mode, every transform through K1 and K2;
+- complex mask (a ``ComplexMaskUNet``): ``[mag, cos, sin]`` features, the
+  model's bounded complex mask times the noisy spectrogram;
+- MP-SENet (``mag_pha``, at its own STFT sizes): each clip scaled to unit
+  RMS, reflect centre padding, magnitude and phase (``mpsenet.mag_pha``),
+  the model's outputs back to a spectrogram (``mpsenet.polar_spectrum``).
 
 On a ('data', 'model') mesh (``mesh=``, ``parallel.make_mesh``) the model
 is laid out by ``parallel.shard_variables`` (the wide convs channel-
@@ -25,11 +25,10 @@ and the rows are all-gathered and trimmed; an unbatched clip runs whole on
 every rank, as JAX's meshed runner does. In a meshed service
 (``parallel.follow``) the leader's calls are replayed on every rank.
 
-The iSTFT goes through the K2 kernel. On a CUDA device the kernels launch;
-on the CPU their plain versions run. ``precision="fft"`` takes the
-``torch.fft`` versions instead and ``"matmul"`` the real-DFT-basis STFT
-(``dsp.stft``), as JAX's ``precision`` chooses its lowering. A magnitude
-model serves its three modes, a mask model ``complex_mask`` alone.
+On a CUDA device K1 and K2 launch; on the CPU their plain versions run.
+``precision="fft"`` takes the ``torch.fft`` versions instead and
+``"matmul"`` the real-DFT-basis STFT (``dsp.stft``), as JAX's
+``precision`` chooses its lowering.
 
 ``load_model_for_noise`` / ``load_model_from_path`` read the JAX
 package's ``{stem}_{noise}.ckpt`` exports with their ``.json`` sidecars,
@@ -46,7 +45,7 @@ from __future__ import annotations
 import json
 import os
 import warnings
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,18 +53,15 @@ import torch.nn.functional as F
 from torch import nn
 
 import audiodenoiser_torch.dsp.stft as stft_lib
+import audiodenoiser_torch.models.mpsenet as mpsenet
 from audiodenoiser_torch.device import DeviceLike, resolve_device
 from audiodenoiser_torch.dsp.griffin_lim import griffin_lim, initial_phase
 from audiodenoiser_torch.eval.metrics import pesq, si_sdr, stoi
 from audiodenoiser_torch.losses.spectral import combined_perceptual_loss
-from audiodenoiser_torch.models.complex_mask import (
-    ComplexMaskUNet,
-    apply_mask,
-    spectrogram_features,
-)
+from audiodenoiser_torch.models.complex_mask import (ComplexMaskUNet, apply_mask,
+                                                     spectrogram_features)
 from audiodenoiser_torch.models.convert import load_flax_variables
 from audiodenoiser_torch.models.folded import fold_for_inference
-from audiodenoiser_torch.models.mpsenet import MPSENet, load_state, mag_pha
 from audiodenoiser_torch.models.unet import UNet, width_kwargs
 from audiodenoiser_torch.train.checkpoints import load_exported
 from audiodenoiser_torch.utils.profiling import ISTFT, MODEL, STFT, span
@@ -73,6 +69,35 @@ from audiodenoiser_torch.utils.profiling import ISTFT, MODEL, STFT, span
 # Griffin-Lim reconstruction modes of a magnitude model, by griffin_lim mode
 GL_MODES = {"griffin_lim": "correct", "reference_gl": "reference"}
 MODES = ("noisy_phase", "complex_mask", "mag_pha", *GL_MODES)
+
+
+class _Family(NamedTuple):
+    """What one model family does that the others do not (module docstring)."""
+
+    name: str                  # as a refused mode names it
+    modes: tuple               # the modes it serves, its own first
+    sizes: tuple               # n_fft, hop, win_length: a U-Net's defaults, MP-SENet's own
+    pad_mode: str              # K1's centre padding
+    gain: Optional[Callable]   # audio -> a per-clip gain put on before K1, taken off after K2
+    inputs: Callable           # spec -> (the model's arguments, what spectrum keeps)
+    spectrum: Callable         # (y, spec, kept) -> the complex spectrogram for K2
+
+
+def _magnitude_inputs(spec: torch.Tensor):
+    mag, phase = stft_lib.magphase(spec)
+    return (mag[:, None],), phase
+
+
+_FAMILIES = (
+    _Family("magnitude", ("noisy_phase", *GL_MODES), (512, 128, None), "constant", None,
+            _magnitude_inputs, lambda y, spec, phase: y[:, 0].float().clamp_min(0.0) * phase),
+    _Family("complex-mask", ("complex_mask",), (512, 128, None), "constant", None,
+            # (N, 3, F, T) features in NHWC memory; the (N, 2, F, T) mask back
+            lambda spec: ((spectrogram_features(spec).permute(0, 3, 1, 2),), None),
+            lambda y, spec, _: apply_mask(y.float().permute(0, 2, 3, 1), spec)),
+    # the model's own sizes, inputs and spectrum: DenoiserRunner fills them in
+    _Family("MP-SENet", ("mag_pha",), None, "reflect", mpsenet.unit_rms_gain, None, None),
+)
 
 
 def identity_bypass(out: torch.Tensor, orig: torch.Tensor,
@@ -132,15 +157,12 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
         with open(sidecar) as f:
             meta = json.load(f)
     if meta.get("model") == "mpsenet":
-        model = MPSENet(**{k: v for k, v in meta.items() if k != "model"})
-        load_state(model, torch.load(path, map_location="cpu", weights_only=True))
+        model = mpsenet.MPSENet(**{k: v for k, v in meta.items() if k != "model"})
+        mpsenet.load_state(model, torch.load(path, map_location="cpu", weights_only=True))
         print(f"Loaded MP-SENet from: {path}")
         return model.to(device=device, dtype=dtype).eval()
     kwargs = width_kwargs(float(meta.get("width_mult", 1.0)))
-    if meta.get("attn_bottleneck"):
-        kwargs["attn_bottleneck"] = True
-    if meta.get("s2d_stem"):
-        kwargs["s2d_stem"] = True
+    kwargs.update({k: True for k in ("attn_bottleneck", "s2d_stem") if meta.get(k)})
     if meta.get("s2d_skip"):
         kwargs["s2d_skip"] = int(meta["s2d_skip"])
     if stem == "mask_denoiser":
@@ -180,14 +202,10 @@ def load_model_for_noise(noise_type: str, saved_models_dir: str = "./saved_model
 class DenoiserRunner:
     """Spectrogram and waveform denoising through ``model`` on ``device``.
 
-    ``model`` is moved to ``device``. A magnitude model maps (N, 1, F, T)
-    to (N, 1, F, T) and serves ``noisy_phase`` (its own mode),
-    ``griffin_lim`` and ``reference_gl``; a complex-mask model (one with a
-    ``mask_bound``) maps (N, 3, F, T) features to an (N, 2, F, T) mask and
-    serves ``complex_mask``; an ``MPSENet`` serves ``mag_pha`` at its own
-    STFT sizes, the defaults of ``n_fft`` and ``hop_length`` (512 and 128
-    for the U-Nets). ``precision`` is the STFT and iSTFT path of
-    ``dsp.stft``: ``"kernel"`` (K1 and K2), ``"fft"`` or ``"matmul"``.
+    ``model`` is moved to ``device``, and its family (module docstring) is
+    chosen once. A U-Net's ``n_fft`` and ``hop_length`` default to 512 and
+    128; MP-SENet runs at its own. ``precision`` is the STFT and iSTFT path
+    of ``dsp.stft``: ``"kernel"`` (K1 and K2), ``"fft"`` or ``"matmul"``.
     ``mesh`` lays the model out on a device mesh, in place (module
     docstring); the runner's results are the unmeshed runner's.
     """
@@ -201,20 +219,23 @@ class DenoiserRunner:
         self.precision = precision
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        mp = isinstance(model, MPSENet)
-        sizes = (model.n_fft, model.hop_length) if mp else (512, 128)
-        self.n_fft = sizes[0] if n_fft is None else n_fft
-        self.hop = sizes[1] if hop_length is None else hop_length
-        self.win_length = None
-        if mp:
-            if (self.n_fft, self.hop) != sizes:
-                raise ValueError(f"MP-SENet runs at n_fft={sizes[0]}, hop_length={sizes[1]}")
-            if mesh is not None:
-                raise NotImplementedError("MP-SENet is served without a mesh")
-            self.mode, self.win_length = "mag_pha", model.win_length
+        magnitude, mask, mp = _FAMILIES
+        if not isinstance(model, mpsenet.MPSENet):
+            self._family = mask if getattr(model, "mask_bound", None) is not None else magnitude
+        elif n_fft not in (None, model.n_fft) or hop_length not in (None, model.hop_length):
+            raise ValueError(
+                f"MP-SENet runs at n_fft={model.n_fft}, hop_length={model.hop_length}")
+        elif mesh is not None:
+            raise NotImplementedError("MP-SENet is served without a mesh")
         else:
-            masked = getattr(model, "mask_bound", None) is not None
-            self.mode = "complex_mask" if masked else "noisy_phase"
+            self._family = mp._replace(
+                sizes=(model.n_fft, model.hop_length, model.win_length),
+                inputs=lambda spec: (mpsenet.mag_pha(spec, model.n_fft, model.win_length), None),
+                spectrum=lambda y, spec, _: mpsenet.polar_spectrum(*y, model.compress_factor))
+        self.mode = self._family.modes[0]
+        default_n_fft, default_hop, self.win_length = self._family.sizes
+        self.n_fft = default_n_fft if n_fft is None else n_fft
+        self.hop = default_hop if hop_length is None else hop_length
         self.mesh = mesh
         self.calls = None
         if mesh is not None:
@@ -242,7 +263,7 @@ class DenoiserRunner:
 
     def denoise_spectrogram(self, noisy_mag: torch.Tensor) -> torch.Tensor:
         """(N, F, T) magnitudes -> (N, F, T) denoised magnitudes."""
-        if self.mode != "noisy_phase":
+        if self._family.name != "magnitude":
             raise ValueError("denoise_spectrogram needs a magnitude model")
         x = torch.as_tensor(noisy_mag, dtype=torch.float32).to(self.device)
         if self.calls is not None:
@@ -274,8 +295,8 @@ class DenoiserRunner:
         mode = self.mode if mode is None else mode
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
-        if mode != self.mode and not (mode in GL_MODES and self.mode == "noisy_phase"):
-            need = {"complex_mask": "complex-mask", "mag_pha": "MP-SENet"}.get(mode, "magnitude")
+        if mode not in self._family.modes:
+            need = next(f.name for f in _FAMILIES if mode in f.modes)
             raise NotImplementedError(
                 f"mode {mode!r} needs a {need} model; this runner's model serves {self.mode!r}")
         audio = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
@@ -298,10 +319,10 @@ class DenoiserRunner:
                theta: Optional[torch.Tensor]) -> torch.Tensor:
         orig = audio
         n = audio.shape[-1]
-        if mode == "mag_pha":
-            with span(STFT):  # the published per-clip scale to unit RMS
-                scale = torch.rsqrt(audio.square().mean(-1, keepdim=True)
-                                    .clamp_min(torch.finfo(torch.float32).tiny))
+        gain = self._family.gain
+        if gain is not None:
+            with span(STFT):
+                scale = gain(audio)
                 audio = audio * scale
         rem = (-n) % self.hop
         if rem and center:
@@ -317,7 +338,7 @@ class DenoiserRunner:
             out = self._gathered(out, b).reshape(*lead, -1)
         if rem and center:
             out = out[..., :n]
-        if mode == "mag_pha":
+        if gain is not None:
             with span(ISTFT):
                 out = out / scale
         if bypass_db is not None:
@@ -331,15 +352,8 @@ class DenoiserRunner:
         with span(STFT):
             spec = stft_lib.stft(audio.reshape(-1, n), self.n_fft, self.hop,
                                  win_length=self.win_length, center=center,
-                                 pad_mode="reflect" if mode == "mag_pha" else "constant",
-                                 precision=self.precision)
-            if mode == "complex_mask":
-                x = (spectrogram_features(spec).permute(0, 3, 1, 2),)  # (N, 3, F, T) NHWC
-            elif mode == "mag_pha":
-                x = mag_pha(spec, self.n_fft, self.win_length)
-            else:
-                mag, phase = stft_lib.magphase(spec)
-                x = (mag[:, None],)
+                                 pad_mode=self._family.pad_mode, precision=self.precision)
+            x, kept = self._family.inputs(spec)
         with span(MODEL):
             y = self.model(*x)
         if mode in GL_MODES:
@@ -349,17 +363,11 @@ class DenoiserRunner:
             out = griffin_lim(den, generator, n_fft=self.n_fft, hop_length=self.hop,
                               n_iter=gl_iters, mode=GL_MODES[mode], length=n,
                               theta=theta, precision=self.precision)
-            return out.reshape(*lead, n)
-        with span(ISTFT):
-            if mode == "complex_mask":
-                rec = apply_mask(y.float().permute(0, 2, 3, 1), spec)
-            elif mode == "mag_pha":
-                mag_c, pha = y
-                rec = torch.polar(mag_c.pow(1.0 / self.model.compress_factor), pha)
-            else:
-                rec = y[:, 0].float().clamp_min(0.0) * phase
-            out = stft_lib.istft(rec, self.hop, win_length=self.win_length, n_fft=self.n_fft,
-                                 center=center, length=n, precision=self.precision)
+        else:
+            with span(ISTFT):
+                out = stft_lib.istft(self._family.spectrum(y, spec, kept), self.hop,
+                                     win_length=self.win_length, n_fft=self.n_fft,
+                                     center=center, length=n, precision=self.precision)
         return out.reshape(*lead, n)
 
 
@@ -376,18 +384,21 @@ def _plot_comparison(noisy, denoised, clean, path):
         return
 
     plt.figure(figsize=(12, 6))
-    for pos, (spec, title) in enumerate(
-        [(noisy, "Noisy Spectrogram"), (denoised, "Denoised Spectrogram"),
-         (clean, "Clean Spectrogram")],
-        start=1,
-    ):
+    panels = [(noisy, "Noisy"), (denoised, "Denoised"), (clean, "Clean")]
+    for pos, (spec, title) in enumerate(panels, start=1):
         plt.subplot(1, 3, pos)
-        plt.title(title)
+        plt.title(f"{title} Spectrogram")
         plt.imshow(spec, aspect="auto", origin="lower", cmap="magma")
         plt.colorbar(format="%+2.0f dB")
     plt.tight_layout()
     plt.savefig(path)
     plt.close()
+
+
+def _loss_lines(metrics: dict) -> str:
+    """The metrics files' four loss lines, each ending in a newline."""
+    names = (("Total", "total"), ("STFT", "stft"), ("Mel", "mel"), ("L1", "l1"))
+    return "".join(f"{name} Loss: {metrics[key]:.6f}\n" for name, key in names)
 
 
 def _mean_si_sdr(estimate, reference, device) -> float:
@@ -472,11 +483,7 @@ def test_single_noise_type(
     total, s, m, l1 = combined_perceptual_loss(
         torch.from_numpy(denoised)[:, None].to(dev), torch.from_numpy(clean)[:, None].to(dev))
     metrics = {"total": float(total), "stft": float(s), "mel": float(m), "l1": float(l1)}
-    print(f"\nLoss metrics for noise type '{noise_type}':")
-    print(f"Total Loss: {metrics['total']:.6f}")
-    print(f"STFT Loss: {metrics['stft']:.6f}")
-    print(f"Mel Loss: {metrics['mel']:.6f}")
-    print(f"L1 Loss: {metrics['l1']:.6f}")
+    print(f"\nLoss metrics for noise type '{noise_type}':\n{_loss_lines(metrics)}", end="")
 
     def zero_phase_audio(mags):
         spec = torch.from_numpy(mags).to(dev).to(torch.complex64)
@@ -528,11 +535,7 @@ def test_single_noise_type(
     if not write:
         return metrics
     with open(os.path.join(output_dir, f"{noise_type}_metrics.txt"), "w") as f:
-        f.write(f"Perceptual metrics for noise type '{noise_type}':\n")
-        f.write(f"Total Loss: {metrics['total']:.6f}\n")
-        f.write(f"STFT Loss: {metrics['stft']:.6f}\n")
-        f.write(f"Mel Loss: {metrics['mel']:.6f}\n")
-        f.write(f"L1 Loss: {metrics['l1']:.6f}\n")
+        f.write(f"Perceptual metrics for noise type '{noise_type}':\n{_loss_lines(metrics)}")
         if "si_sdr" in metrics:
             f.write(f"SI-SDR (mag-only recon): {metrics['si_sdr']:.3f} dB\n")
         if "si_sdr_noisy_phase" in metrics:
@@ -612,8 +615,7 @@ def test_noise_type_waveform(
     if bypass_db is not None and bypass_db <= 0:
         bypass_db = None
     den_audio = runner.denoise_audio(noisy_audio, mode=mode, bypass_db=bypass_db)
-    den_mag = stft_lib.stft(den_audio, n_fft, hop_length, center=True,
-                            precision="kernel").abs()
+    den_mag = stft_lib.stft(den_audio, n_fft, hop_length, center=True, precision="kernel").abs()
 
     total, s, m, l1 = combined_perceptual_loss(den_mag[:, None], clean_mag[:, None])
     sdr_n_clips = si_sdr(noisy_audio, clean).cpu().numpy()
@@ -637,9 +639,7 @@ def test_noise_type_waveform(
     print(f"SI-SDR (clamped@30): {metrics['si_sdr30_noisy']:.3f} -> "
           f"{metrics['si_sdr30']:.3f} dB | median: "
           f"{metrics['si_sdr_median_noisy']:.3f} -> {metrics['si_sdr_median']:.3f} dB")
-    clean_np = clean.cpu().numpy()
-    noisy_np = noisy_audio.cpu().numpy()
-    den_np = den_audio.cpu().numpy()
+    clean_np, noisy_np, den_np = (a.cpu().numpy() for a in (clean, noisy_audio, den_audio))
     try:  # per-clip degenerate inputs drop out of the mean
         metrics["stoi_noisy"] = batch_metric_mean(stoi, clean_np, noisy_np, sample_rate)
         metrics["stoi"] = batch_metric_mean(stoi, clean_np, den_np, sample_rate)
@@ -660,23 +660,16 @@ def test_noise_type_waveform(
         return metrics  # multi-seed repeats, a follower rank: metrics only
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, f"{noise_type}_metrics.txt"), "w") as f:
-        f.write(f"Waveform-domain metrics ({mode}) for noise type '{noise_type}':\n")
-        f.write(f"Total Loss: {metrics['total']:.6f}\n")
-        f.write(f"STFT Loss: {metrics['stft']:.6f}\n")
-        f.write(f"Mel Loss: {metrics['mel']:.6f}\n")
-        f.write(f"L1 Loss: {metrics['l1']:.6f}\n")
-        f.write(f"SI-SDR noisy: {sdr_noisy:.3f} dB\n")
-        f.write(f"SI-SDR denoised: {sdr_den:.3f} dB\n")
-        f.write(f"SI-SDR clamped@30 noisy: {metrics['si_sdr30_noisy']:.3f} dB\n")
-        f.write(f"SI-SDR clamped@30 denoised: {metrics['si_sdr30']:.3f} dB\n")
-        f.write(f"SI-SDR median noisy: {metrics['si_sdr_median_noisy']:.3f} dB\n")
-        f.write(f"SI-SDR median denoised: {metrics['si_sdr_median']:.3f} dB\n")
-        if "stoi" in metrics:
-            f.write(f"STOI noisy: {metrics['stoi_noisy']:.4f}\n")
-            f.write(f"STOI denoised: {metrics['stoi']:.4f}\n")
+        f.write(f"Waveform-domain metrics ({mode}) for noise type '{noise_type}':\n"
+                f"{_loss_lines(metrics)}")
+        for label, key, fmt in (("SI-SDR", "si_sdr", "{:.3f} dB"),
+                                ("SI-SDR clamped@30", "si_sdr30", "{:.3f} dB"),
+                                ("SI-SDR median", "si_sdr_median", "{:.3f} dB"),
+                                ("STOI", "stoi", "{:.4f}"), ("PESQ-approx", "pesq", "{:.3f}")):
+            if key in metrics:  # STOI and PESQ only where some clip was scorable
+                f.write(f"{label} noisy: {fmt.format(metrics[key + '_noisy'])}\n"
+                        f"{label} denoised: {fmt.format(metrics[key])}\n")
         if "pesq" in metrics:
-            f.write(f"PESQ-approx noisy: {metrics['pesq_noisy']:.3f}\n")
-            f.write(f"PESQ-approx denoised: {metrics['pesq']:.3f}\n")
             f.write(
                 "# PESQ-approx is a calibrated approximation of ITU-T "
                 "P.862, valid for\n# internal deltas only — NOT comparable "

@@ -17,20 +17,16 @@ phase:
 - a dense encoder: a 1x1 conv, a dense block of four dilated (3, 3) convs
   along time, and a (1, 3) stride-(1, 2) conv along frequency (201 -> 100
   bins), each followed by InstanceNorm (affine) and PReLU;
-- four TS-Conformer blocks: a conformer along time over the (B*F, T, C)
-  sequences, then one along frequency over (B*T, F, C), each with the
-  block's own residual around it;
+- four TS-Conformer blocks (``TSConformerBlock``), time then frequency;
 - a mask decoder (dense block, transposed conv back to 201 bins, 1x1
   head, per-bin learnable sigmoid ``beta * sigmoid(slope_f * y)``) whose
   mask scales the compressed noisy magnitude, and a phase decoder (dense
   block, transposed conv, two 1x1 heads r and i, ``atan2(i, r)``).
 
-Each conformer is a macaron FFN, 4-head self-attention without positional
-encoding (``scaled_dot_product_attention``: no score tensor is
-materialised), a conv module (GLU, depthwise k=31, BatchNorm1d on its
-running statistics, SiLU) and a final LayerNorm. The published code feeds
-(B*F, T, C) to a sequence-first ``nn.MultiheadAttention``; here attention
-runs along the axis the paper names (time, then frequency).
+Each conformer (``ConformerBlock``) has 4-head self-attention without
+positional encoding. The published code feeds (B*F, T, C) to a
+sequence-first ``nn.MultiheadAttention``; here attention runs along the
+axis the paper names (time, then frequency).
 
 The model computes in the dtype of its weights (``model.to(torch.bfloat16)``
 to serve in bf16): the conformers' LayerNorms (``RowLayerNorm``, five a
@@ -336,6 +332,17 @@ def mag_pha(spec: torch.Tensor, n_fft: int, win_length: int):
             im[..., 0] = 0
     re = spec.real
     return torch.sqrt(re * re + im * im + 1e-9), torch.atan2(im + 1e-10, re + 1e-5)
+
+
+def polar_spectrum(mag_c: torch.Tensor, pha: torch.Tensor, compress_factor: float):
+    """``MPSENet``'s outputs as a complex64 spectrogram: decompressed, in polar form."""
+    return torch.polar(mag_c.pow(1.0 / compress_factor), pha)
+
+
+def unit_rms_gain(audio: torch.Tensor) -> torch.Tensor:
+    """The published per-clip scale to unit RMS, (..., samples) -> (..., 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.rsqrt(audio.square().mean(-1, keepdim=True).clamp_min(tiny))
 
 
 def load_state(model: MPSENet, state: dict) -> MPSENet:

@@ -96,8 +96,9 @@ from the root of a checkout. Phases, each fatal on failure:
    on the on-device mixer: 2 epochs of 10 steps at batch 16, K1 (FFT entry
    only) and K3 (TMA + wgmma only) counted (K4 0), K3's cached weight packs
    held to the weights the optimizer left and a K3 forward on them against
-   the plain version, the export served, then the steady step rate and its
-   device profile; and ``python -m audiodenoiser_torch.cli.train`` on wavs;
+   the plain version, the export served, then 3 more train steps (the
+   kernels' variants, a finite loss); and ``python -m
+   audiodenoiser_torch.cli.train`` on wavs;
 6c. complex-mask training: K2's gradient (its backward is K1) at the mask
    step's shape against autograd through the plain iSTFT, imaginary
    DC/Nyquist parts getting exactly 0; one full-width fp32 mask train step
@@ -111,8 +112,8 @@ from the root of a checkout. Phases, each fatal on failure:
    forward (FFT entries and TMA + wgmma only, K4 0), its ``.ckpt`` served by
    ``cli.serve --model complex_mask`` (2 requests against direct calls);
    ``cli.train --model complex_mask --noise_type mixed`` in a subprocess;
-   the mask training bench (``train.bench.run_mask_train_bench``) and its
-   device profile;
+   3 bf16 mask train steps (K1 2, K2 1 and K3 4 launches a step, a finite
+   loss);
 6d. the training set and the training extras: the native loader built
    with g++ into ``_build/`` (``load_batch`` against the scipy path within
    1e-6, ``load_clean_chunks`` through it); ``cli.create_train_dataset`` in
@@ -1702,7 +1703,7 @@ def phase_train_step_fp32(torch):
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import UNet, random_flax_variables
     from audiodenoiser_torch.ops.cuda import deconv_kernel, stft_kernel
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.loop import create_train_state, train_step
 
     chunks = synth_chunks(8, seed=1)
@@ -1744,25 +1745,6 @@ def phase_train_step_fp32(torch):
     check(stat_err <= TRAIN_TOL, "fp32 step BN running stats")
 
 
-def _categories(top):
-    """Device ms per step by kind of kernel, from profiler kernel names."""
-    kinds = (("K3 deconv", ("deconv_wgmma", "deconv_bf16", "deconv_f32")),
-             ("K2 istft", ("istft_fft", "istft_direct")),  # before K1: a substring
-             ("K1 stft", ("stft_fft", "stft_direct")),
-             ("optimizer", ("multi_tensor", "adam", "foreach")),
-             ("convolutions", ("conv", "xmma", "cudnn", "gemm", "cutlass", "wgrad",
-                               "dgrad", "sm90", "implicit")),
-             ("concat", ("CatArray",)), ("fft", ("fft",)),
-             ("reductions (BN stats, loss)", ("reduce",)),
-             ("elementwise (BN, ReLU, casts, pads)", ("elementwise", "Elementwise")))
-    out = {}
-    for row in top:
-        name = row["kernel"]
-        kind = next((k for k, pats in kinds if any(p in name for p in pats)), "other")
-        out[kind] = out.get(kind, 0.0) + row["ms"]
-    return out
-
-
 def check_weight_packs(torch, model) -> None:
     """After ``fit``'s optimizer steps (torch's AdamW, foreach on the card):
     each upsampling's cached wgmma weight pack must equal a fresh pack of
@@ -1798,13 +1780,13 @@ def check_weight_packs(torch, model) -> None:
 
 def phase_train_fit(torch, rows, tmp):
     """Phase 6: ``fit`` at full width in bf16 with K3 and the on-device
-    mixer (K1), the export served, the steady rate and its profile."""
+    mixer (K1), the export served, then a few more train steps."""
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
     from audiodenoiser_torch.models import UNet
     from audiodenoiser_torch.ops.cuda import deconv_kernel, reset_launch_counts, stft_kernel
-    from audiodenoiser_torch.train.bench import run_train_bench, synth_chunks
-    from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit
+    from audiodenoiser_torch.data.synth import synth_chunks
+    from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit, train_step
 
     batch, steps, val_steps, epochs = 16, 10, 2, 2
     chunks = synth_chunks(72, seed=2)
@@ -1847,31 +1829,21 @@ def phase_train_fit(torch, rows, tmp):
     print(f"[train fit] export served: 2 s clip, output rms "
           f"{out.square().mean().sqrt().item():.4f}", flush=True)
 
+    # mixer + forward + loss + backward + AdamW; cmask31m.train16 times the step
     reset_launch_counts()
-    bench = run_train_bench(batch, steps=20, profile_iters=3)
+    state, mixer = factory(), OnDeviceMixer(synth_chunks(64, 0), "white")
+    for _ in range(3):
+        losses = train_step(state, *mixer.sample(gen, batch))[1]
     require_variants("the steady training steps",
                      {"stft_kernel": "fft", "deconv_kernel": "wgmma"})
-    prof = bench.pop("profile")
-    print(f"[train] steady step, mixer + forward + loss + backward + AdamW: "
-          f"{json.dumps(bench)}", flush=True)
-    check(math.isfinite(bench["last_loss"]), "non-finite loss in the steady steps")
-    if isinstance(prof.get("device_busy_ms"), float):
-        cats = _categories(prof["top"])
-        print(f"[train profile] wall {prof['wall_ms']:.2f} ms/step, device busy "
-              f"{prof['device_busy_ms']:.2f} ms, idle {prof['idle_share']:.3f}; by kind "
-              + json.dumps({k: round(v, 4) for k, v in sorted(cats.items(),
-                                                               key=lambda kv: -kv[1])}),
-              flush=True)
-        for row in prof["top"][:15]:
-            print(f"[train profile] {row['ms']:.4f} ms {row['share']:.3f} {row['kernel']}",
-                  flush=True)
-    else:
-        print(f"[train profile] {prof}", flush=True)
+    print(f"[train] 3 more steps at batch {batch}, last loss {float(losses.total):.5f}",
+          flush=True)
+    check(math.isfinite(float(losses.total)), "non-finite loss in the steady steps")
 
 
 def _write_wav_dir(path: str, n_files: int, seconds: float = 4.0):
     from audiodenoiser_torch.data.wav_io import write_wav
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     os.makedirs(path, exist_ok=True)
     for i, chunk in enumerate(synth_chunks(2 * n_files, seed=3).reshape(n_files, -1)):
@@ -1938,7 +1910,7 @@ def mask_istft_grad(torch, rng):
 
 def _mask_mixer(torch, n_chunks, seed, device):
     from audiodenoiser_torch.data.pipeline import NoiseBank, OnDeviceMixer
-    from audiodenoiser_torch.train.bench import synth_chunks, synth_noise_clips
+    from audiodenoiser_torch.data.synth import synth_chunks, synth_noise_clips
 
     bank = NoiseBank(synth_noise_clips(6, seed + 1), device=device)
     return OnDeviceMixer(synth_chunks(n_chunks, seed), "mixed", noise_bank=bank, device=device)
@@ -2192,39 +2164,36 @@ def mask_cli_finish(export, started):
 
 
 def mask_bench(torch):
-    """Phase 6c (e): the mask training bench and its device profile."""
+    """Phase 6c (e): the bf16 mask train step of the recommended deployment
+    (full-width residual ``ComplexMaskUNet``, bound 8, K3) on the ``mixed``
+    mixer, over a few steps: its launches a step and a finite loss.
+    ``cmask31m.train16`` times the step."""
+    from audiodenoiser_torch.models import ComplexMaskUNet
     from audiodenoiser_torch.ops.cuda import (
         deconv_kernel,
         istft_kernel,
         reset_launch_counts,
         stft_kernel,
     )
-    from audiodenoiser_torch.train.bench import run_mask_train_bench
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
 
-    warmup, steps, profiled = 3, 20, 3
+    model = ComplexMaskUNet(dtype=torch.bfloat16, pallas_deconv=True, mask_bound=8.0,
+                            residual=True, zero_out_init=True)
+    state, mixer = create_mask_train_state(0, model), _mask_mixer(torch, 64, 0, "cuda")
+    train_step, _ = make_mask_steps(0.5, 30.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps = 3
     reset_launch_counts()
-    bench = run_mask_train_bench(16, steps=steps, warmup=warmup, profile_iters=profiled)
-    require_variants("the mask training bench", {"stft_kernel": "fft", "istft_kernel": "fft",
-                                                 "deconv_kernel": "wgmma"})
-    n = warmup + steps + profiled
-    per_step = {k.__name__: k.launches / n for k in (stft_kernel, istft_kernel, deconv_kernel)}
-    prof = bench.pop("profile")
-    print(f"[mask train bench] {json.dumps(bench)}; launches a step {per_step}", flush=True)
-    check(math.isfinite(bench["last_loss"]), "non-finite loss in the mask training bench")
+    for _ in range(steps):
+        losses = train_step(state, *mixer.sample_audio(gen, 16))[1]
+    require_variants("the mask train steps", {"stft_kernel": "fft", "istft_kernel": "fft",
+                                              "deconv_kernel": "wgmma"})
+    per_step = {k.__name__: k.launches / steps for k in (stft_kernel, istft_kernel, deconv_kernel)}
+    print(f"[mask train steps] {steps} at batch 16, last loss {float(losses.total):.5f}; "
+          f"launches a step {per_step}", flush=True)
+    check(math.isfinite(float(losses.total)), "non-finite loss in the mask train steps")
     check(per_step == {"stft_kernel": 2.0, "istft_kernel": 1.0, "deconv_kernel": 4.0},
-          "the mask training bench's launches a step")
-    if isinstance(prof.get("device_busy_ms"), float):
-        cats = _categories(prof["top"])
-        print(f"[mask train profile] wall {prof['wall_ms']:.2f} ms/step, device busy "
-              f"{prof['device_busy_ms']:.2f} ms, idle {prof['idle_share']:.3f}; by kind "
-              + json.dumps({k: round(v, 4) for k, v in sorted(cats.items(),
-                                                               key=lambda kv: -kv[1])}),
-              flush=True)
-        for row in prof["top"][:15]:
-            print(f"[mask train profile] {row['ms']:.4f} ms {row['share']:.3f} {row['kernel']}",
-                  flush=True)
-    else:
-        print(f"[mask train profile] {prof}", flush=True)
+          "the mask train step's launches a step")
 
 
 def phase_mask_train(torch, rng, rows):
@@ -2393,7 +2362,7 @@ def _serve_once(torch, saved, label):
     K1 and K2 counted."""
     from audiodenoiser_torch.eval.runner import DenoiserRunner, load_model_for_noise
     from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     runner = DenoiserRunner(load_model_for_noise("white", saved))
     clip = torch.from_numpy(synth_chunks(1, seed=21))
@@ -2445,7 +2414,7 @@ def extras_resume_fp32(torch, tmp):
     epoch, so an update spans the resume; warm-up + cosine; EMA 0.999)."""
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import UNet, random_flax_variables
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.checkpoints import restore_train_state
     from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit
 
@@ -2501,7 +2470,7 @@ def extras_remat_fp32(torch):
     (cuDNN deterministic): loss, gradients, running statistics."""
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import UNet, random_flax_variables
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.loop import create_train_state, train_step
 
     (noisy, clean), = _mixer_batches(torch, OnDeviceMixer(synth_chunks(8, seed=9), "white"),
@@ -2537,7 +2506,7 @@ def extras_accum_fp32(torch):
     batches."""
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import UNet, random_flax_variables
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.loop import create_train_state, train_step
 
     batches = _mixer_batches(torch, OnDeviceMixer(synth_chunks(8, seed=12), "white"), 2, 4, 5)
@@ -2585,7 +2554,7 @@ def extras_bench(torch, card):
     and without remat, with an EMA and with grad_accum 2."""
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import UNet
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.loop import create_train_state, train_step
 
     mixer = OnDeviceMixer(synth_chunks(64, seed=13), "white")
@@ -2743,7 +2712,7 @@ def eval_griffin_lim(torch, card):
     from audiodenoiser_torch.dsp.griffin_lim import griffin_lim, initial_phase
     from audiodenoiser_torch.dsp.stft import stft
     from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     clips = synth_chunks(10, seed=6).reshape(5, -1)[:, : 3 * SR]  # 5 clips of 3 s
     mag = stft(torch.from_numpy(clips), N_FFT, HOP).abs()
@@ -3032,7 +3001,7 @@ def _routed_clips(torch, n_each, seconds, seed, device="cpu"):
     import numpy as np
 
     from audiodenoiser_torch.dsp import noise as noise_lib
-    from audiodenoiser_torch.train.bench import synth_chunks, synth_noise_clips
+    from audiodenoiser_torch.data.synth import synth_chunks, synth_noise_clips
 
     n = int(seconds * SR)
     clean = torch.from_numpy(synth_chunks(4 * n_each, seed=seed)[:, :n]).to(device)
@@ -3221,7 +3190,7 @@ def routed_fp32(torch, saved):
     from audiodenoiser_torch.dsp.stft import stft
     from audiodenoiser_torch.eval.ensemble import load_mixture
     from audiodenoiser_torch.eval.streaming import RoutedStreamingSession
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     noisy, _ = _routed_clips(torch, 2, 2.0, seed=22)
     # 5 s of white noise, then 5 s of reverb, re-routed every chunk of 1 s
@@ -3508,9 +3477,10 @@ def student_fit(torch, rows, tmp, teacher_path, card):
         reset_launch_counts,
         stft_kernel,
     )
-    from audiodenoiser_torch.train.bench import _time_steps
+    from audiodenoiser_torch.eval.bench import device_breakdown
     from audiodenoiser_torch.train.loop import FitConfig, fit
     from audiodenoiser_torch.train.mask import make_mask_steps
+    from audiodenoiser_torch.utils import profiling
 
     teacher = load_model_from_path(teacher_path, dtype=torch.bfloat16,
                                    fold=False).requires_grad_(False)
@@ -3553,11 +3523,15 @@ def student_fit(torch, rows, tmp, teacher_path, card):
         def step():
             return steps[0](state, *mixer.sample_audio(gen, batch))[1]
 
-        r = _time_steps(step, label, batch, 10, 3, torch.device("cuda"), 3)
-        prof = r.pop("profile")
-        timed[label] = {"step_ms": r["step_ms"], "samples_per_sec": r["value"],
-                        "peak_memory_gib": r["peak_memory_gib"],
-                        "device_busy_ms": prof["device_busy_ms"],
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = profiling.timed(step, warmup=0, iters=10)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = device_breakdown(step, 3, torch.device("cuda"))
+        timed[label] = {"step_ms": r["mean_s"] * 1e3, "samples_per_sec": batch / r["mean_s"],
+                        "peak_memory_gib": peak, "device_busy_ms": prof["device_busy_ms"],
                         "idle_share": prof.get("idle_share", "not measured")}
         del state
         torch.cuda.empty_cache()
@@ -4056,7 +4030,7 @@ def mesh_step_fp32(torch, tmp):
     families, every tensor within MESH_TOL."""
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import random_flax_variables
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     batches = {"unet": OnDeviceMixer(synth_chunks(8, seed=21), "white").sample(gen, 4),
@@ -4089,7 +4063,7 @@ def mesh_fit_k3(torch, rows, tmp):
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import UNet
     from audiodenoiser_torch.ops.cuda import deconv_kernel, reset_launch_counts
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.loop import FitConfig, create_train_state, fit
 
     batches = _mixer_batches(torch, OnDeviceMixer(synth_chunks(32, seed=24), "white"), 16, 3, 25)
@@ -4208,7 +4182,7 @@ def mesh_train_bench(torch, card):
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import UNet
     from audiodenoiser_torch.parallel.mesh import make_mesh, shard_train_state
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.loop import create_train_state, train_step
 
     batches = _mixer_batches(torch, OnDeviceMixer(synth_chunks(32, seed=29), "white"), 16, 13, 30)
@@ -4467,7 +4441,7 @@ def pp_train(torch, card):
     from audiodenoiser_torch.data.pipeline import OnDeviceMixer
     from audiodenoiser_torch.models import UNet, random_flax_variables
     from audiodenoiser_torch.parallel.pipeline_train import PipelineTrainer
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.loop import create_train_state, train_step
 
     lr = 1e-4

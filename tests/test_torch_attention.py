@@ -262,7 +262,7 @@ def test_cli_train_mask_family_with_the_variants(tmp_path, monkeypatch):
     JAX's keys (``tests/test_torch_s2d.py`` loads such a sidecar)."""
     from audiodenoiser_torch.cli.train import main
     from audiodenoiser_torch.data.wav_io import write_wav
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.checkpoints import load_exported
 
     built = []

@@ -44,7 +44,7 @@ from audiodenoiser_torch.models import (
     state_dict_from_flax,
 )
 from audiodenoiser_torch.models.unet import BatchNorm2d, Down
-from audiodenoiser_torch.train.bench import synth_chunks, synth_noise_clips
+from audiodenoiser_torch.data.synth import synth_chunks, synth_noise_clips
 from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
 
 TWO_LEVELS = dict(features=(8, 16), bottleneck=32)

@@ -567,7 +567,7 @@ def test_griffin_lim_on_card_matches_cpu(dev, mode):
         stft_kernel,
         variant_launches,
     )
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     mag = stft(torch.from_numpy(synth_chunks(3, seed=5)), 512, 128).abs()
     theta = initial_phase(mag.shape, torch.Generator().manual_seed(1))
@@ -643,7 +643,7 @@ def test_mask_step_on_card_matches_cpu(dev):
         reset_launch_counts,
         stft_kernel,
     )
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
     from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
 
     class Tap(nn.Module):
@@ -722,7 +722,7 @@ def test_distilled_step_on_card_matches_autograd_of_plain(dev):
         stft_kernel,
     )
     from audiodenoiser_torch.train import mask as mask_lib
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     class Tap(nn.Module):
         def __init__(self, model):
@@ -804,7 +804,7 @@ def test_build_train_dataset_on_card_matches_cpu(dev, tmp_path):
     from audiodenoiser_torch.data.builders import build_train_dataset
     from audiodenoiser_torch.data.wav_io import write_wav
     from audiodenoiser_torch.ops.cuda import reset_launch_counts, stft_kernel, variant_launches
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     clean, noise = tmp_path / "clean", tmp_path / "noise"
     clean.mkdir(), noise.mkdir()

@@ -37,7 +37,7 @@ import torch
 from audiodenoiser_torch.models import ComplexMaskUNet, random_flax_variables
 from audiodenoiser_torch.models import state_dict_from_flax
 from audiodenoiser_torch.train import mask as port_mask
-from audiodenoiser_torch.train.bench import synth_chunks
+from audiodenoiser_torch.data.synth import synth_chunks
 from audiodenoiser_torch.train.checkpoints import export_model, load_exported
 from audiodenoiser_tpu.models import ComplexMaskUNet as FlaxMask
 from audiodenoiser_tpu.train import mask as jax_mask

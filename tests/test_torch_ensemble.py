@@ -264,7 +264,7 @@ def npy_set(tmp_path_factory):
 def wav_dirs(tmp_path_factory):
     """Two 1 s speech-like clips and a 0.5 s noise clip (tiled, so the urban
     segments need no draw)."""
-    from audiodenoiser_torch.train.bench import synth_chunks
+    from audiodenoiser_torch.data.synth import synth_chunks
 
     root = tmp_path_factory.mktemp("wavs")
     (root / "clean").mkdir(), (root / "noise").mkdir()

@@ -47,7 +47,7 @@ from audiodenoiser_torch.models import (
     load_flax_variables,
     random_flax_variables,
 )
-from audiodenoiser_torch.train.bench import synth_chunks
+from audiodenoiser_torch.data.synth import synth_chunks
 from audiodenoiser_torch.train.checkpoints import export_model
 from audiodenoiser_tpu.cli import create_test_dataset as jax_create_cli
 from audiodenoiser_tpu.data import builders as jax_builders

@@ -3,7 +3,7 @@ modes, given JAX's own initial phase ``jax.random.uniform(key, shape, 0,
 2*pi)``; and the runner's ``griffin_lim`` / ``reference_gl`` modes against
 the JAX runner's.
 
-Inputs are the repo's seeded speech-like clips (``train.bench.synth_chunks``).
+Inputs are the repo's seeded speech-like clips (``data.synth.synth_chunks``).
 Bounds, relative L2 of the waveform: 1e-4 in ``reference`` mode; 1e-3 in
 ``correct`` mode, whose ``rebuilt / |rebuilt|`` step amplifies the last-bit
 differences between the two packages' FFTs over the iterations (about 2e-7
@@ -32,7 +32,7 @@ from audiodenoiser_torch.models import (
     random_flax_variables,
     state_dict_from_flax,
 )
-from audiodenoiser_torch.train.bench import synth_chunks
+from audiodenoiser_torch.data.synth import synth_chunks
 from audiodenoiser_tpu.dsp import stft as jax_stft
 from audiodenoiser_tpu.dsp.griffin_lim import griffin_lim as jax_griffin_lim
 from audiodenoiser_tpu.eval.runner import DenoiserRunner as JaxRunner

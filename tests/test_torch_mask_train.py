@@ -50,7 +50,7 @@ from audiodenoiser_torch.models.complex_mask import mask_spectrogram
 from audiodenoiser_torch.models.unet import scaled_widths
 from audiodenoiser_torch.train import loop as port_loop
 from audiodenoiser_torch.train import mask as port_mask
-from audiodenoiser_torch.train.bench import synth_chunks, synth_noise_clips
+from audiodenoiser_torch.data.synth import synth_chunks, synth_noise_clips
 from audiodenoiser_torch.train.checkpoints import export_model, load_exported
 from audiodenoiser_tpu.data import NoiseBank as JaxBank
 from audiodenoiser_tpu.data import OnDeviceMixer as JaxMixer
@@ -422,11 +422,3 @@ class TestFitAndCLI:
         with pytest.raises(SystemExit, match="requires --pipeline on_device --noise_type mixed"):
             main(["--base_dataset_path", str(tmp_path), "--model", "router",
                   "--noise_type", "mixed"])
-
-
-def test_mask_train_bench_on_cpu_when_asked():
-    from audiodenoiser_torch.train.bench import run_mask_train_bench
-
-    out = run_mask_train_bench(batch_size=1, steps=1, warmup=0, device="cpu")
-    assert out["value"] > 0 and out["device"] == "cpu" and out["unit"] == "samples/s"
-    assert "mask" in out["metric"] and np.isfinite(out["last_loss"])

@@ -11,7 +11,7 @@ import torch
 
 from audiodenoiser_torch.eval import metrics
 from audiodenoiser_torch.eval.runner import batch_metric_mean
-from audiodenoiser_torch.train.bench import synth_chunks
+from audiodenoiser_torch.data.synth import synth_chunks
 from audiodenoiser_tpu.eval import metrics as jax_metrics
 from audiodenoiser_tpu.eval.runner import batch_metric_mean as jax_batch_metric_mean
 

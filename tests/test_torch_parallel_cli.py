@@ -41,7 +41,7 @@ from audiodenoiser_torch.data.wav_io import read_wav, write_wav
 from audiodenoiser_torch.models import random_flax_variables, state_dict_from_flax
 from audiodenoiser_torch.models.unet import scaled_widths
 from audiodenoiser_torch.train import loop
-from audiodenoiser_torch.train.bench import synth_chunks
+from audiodenoiser_torch.data.synth import synth_chunks
 from audiodenoiser_torch.train.checkpoints import export_model, load_exported, restore_train_state
 from tests import torch_parallel_worker as worker
 from tests.test_torch_parallel import collect, spawn

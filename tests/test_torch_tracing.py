@@ -24,7 +24,7 @@ from audiodenoiser_torch.models.complex_mask import ComplexMaskUNet
 from audiodenoiser_torch.models.unet import UNet, scaled_widths
 from audiodenoiser_torch.train import loop as port_loop
 from audiodenoiser_torch.train import mask as port_mask
-from audiodenoiser_torch.train.bench import synth_chunks, synth_noise_clips
+from audiodenoiser_torch.data.synth import synth_chunks, synth_noise_clips
 from audiodenoiser_torch.utils.profiling import (
     BACKWARD,
     FORWARD,

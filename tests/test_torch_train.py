@@ -413,13 +413,6 @@ class TestFit:
 
 
 class TestBenches:
-    def test_train_bench_on_cpu_when_asked(self):
-        from audiodenoiser_torch.train.bench import run_train_bench
-
-        out = run_train_bench(batch_size=1, steps=1, warmup=0, device="cpu")
-        assert out["value"] > 0 and out["device"] == "cpu" and out["unit"] == "samples/s"
-        assert np.isfinite(out["last_loss"])
-
     def test_inference_bench_pallas_deconv_on_cpu(self):
         from audiodenoiser_torch.eval.bench import build_runner, run_bench
 

@@ -21,7 +21,7 @@ import torch
 import audiodenoiser_torch.data.builders as port_builders
 from audiodenoiser_torch.cli import create_train_dataset as port_cli
 from audiodenoiser_torch.data.wav_io import write_wav
-from audiodenoiser_torch.train.bench import synth_chunks
+from audiodenoiser_torch.data.synth import synth_chunks
 from audiodenoiser_tpu.cli import create_train_dataset as jax_cli
 from audiodenoiser_tpu.data import builders as jax_builders
 

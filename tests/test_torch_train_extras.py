@@ -31,7 +31,7 @@ from audiodenoiser_torch.models.complex_mask import ComplexMaskUNet
 from audiodenoiser_torch.train import checkpoints as port_ckpt
 from audiodenoiser_torch.train import loop as port_loop
 from audiodenoiser_torch.train import mask as port_mask
-from audiodenoiser_torch.train.bench import synth_chunks
+from audiodenoiser_torch.data.synth import synth_chunks
 from audiodenoiser_torch.train.checkpoints import load_exported
 from audiodenoiser_torch.utils.profiling import maybe_trace, timed
 from audiodenoiser_tpu.models import UNet as FlaxUNet

@@ -22,7 +22,7 @@ import torch
 from audiodenoiser_torch.models import ComplexMaskUNet, UNet, count_params
 from audiodenoiser_torch.models.unet import scaled_widths, width_kwargs
 from audiodenoiser_torch.train import loop as port_loop
-from audiodenoiser_torch.train.bench import synth_chunks
+from audiodenoiser_torch.data.synth import synth_chunks
 from audiodenoiser_torch.train.checkpoints import load_exported
 from audiodenoiser_tpu.models import ComplexMaskUNet as FlaxMask
 from audiodenoiser_tpu.models import UNet as FlaxUNet
