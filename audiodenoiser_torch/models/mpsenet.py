@@ -32,11 +32,13 @@ The model computes in the dtype of its weights (``model.to(torch.bfloat16)``
 to serve in bf16): the conformers' LayerNorms (``RowLayerNorm``, five a
 conformer, 40 a forward) go through the port's hand-written kernel
 (``ops.cuda.layer_norm_kernel``) on the card and its plain version on the
-CPU, both with float32 statistics and affine and one rounding;
-InstanceNorm and BatchNorm accumulate their statistics in float32 inside
-PyTorch's kernels; the compression, the learnable sigmoid, the mask
-product and ``atan2`` run in float32, and both outputs are float32. The
-card's route has no gradient: the model serves under
+CPU, both with float32 statistics and affine and one rounding; in eval
+mode each conformer's conv module (8 a forward) runs its GLU, depthwise
+conv, BatchNorm and SiLU through ``ops.cuda.conv_module_kernel`` the same
+way, in float32 with one rounding; InstanceNorm accumulates its statistics
+in float32 inside PyTorch's kernels; the compression, the learnable
+sigmoid, the mask product and ``atan2`` run in float32, and both outputs
+are float32. The card's routes have no gradient: the model serves under
 ``torch.inference_mode()``.
 
 Inside ``eval.runner``'s ``adt.model`` span the forward marks its phases
@@ -51,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audiodenoiser_torch.ops.cuda import layer_norm_kernel
+from audiodenoiser_torch.ops.cuda import conv_module_kernel, layer_norm_kernel
 from audiodenoiser_torch.utils.profiling import (
     MP_DECODERS,
     MP_ENCODER,
@@ -161,35 +163,43 @@ class AttentionModule(nn.Module):
 class ConformerConvModule(nn.Module):
     """LayerNorm -> pointwise C -> 4C -> GLU -> depthwise k=31 -> BatchNorm1d
     -> SiLU -> pointwise 2C -> C, over (N, L, C). The pointwise convs run
-    as matmuls on the channel-last sequence; only the depthwise conv and
-    the BatchNorm see the (N, 2C, L) layout. Indices 0-9 are the published
-    ``ccm`` Sequential's (1 and 8 its Rearranges, 3 the GLU, 6 the SiLU, 9
-    its dropout)."""
+    as matmuls on the channel-last sequence. In eval mode the GLU, the
+    depthwise conv, the BatchNorm on its running statistics and the SiLU
+    are one channel-last call (``ops.cuda.conv_module_kernel``: the
+    hand-written kernel on the card, its plain version on the CPU); in
+    training mode, where BatchNorm takes the batch's statistics, they run
+    as published, the depthwise conv and the BatchNorm on the (N, 2C, L)
+    layout. Indices 0-9 are the published ``ccm`` Sequential's (1 and 8 its
+    Rearranges, 3 the GLU, 6 the SiLU, 9 its dropout)."""
 
-    def __init__(self, dim: int, expansion: int = 2, kernel_size: int = 31):
+    def __init__(self, dim: int, expansion: int = 2):
         super().__init__()
         inner = dim * expansion
         self.ccm = nn.Sequential(
             RowLayerNorm(dim), nn.Identity(), nn.Conv1d(dim, inner * 2, 1), nn.GLU(dim=1),
-            nn.Conv1d(inner, inner, kernel_size, padding=(kernel_size - 1) // 2, groups=inner),
+            nn.Conv1d(inner, inner, 31, padding=15, groups=inner),
             nn.BatchNorm1d(inner), nn.SiLU(), nn.Conv1d(inner, dim, 1), nn.Identity(),
             nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ln, pw1, dw, bn, pw2 = (self.ccm[i] for i in (0, 2, 4, 5, 7))
-        y = F.glu(F.linear(ln(x), pw1.weight[..., 0], pw1.bias), dim=-1)
-        y = F.silu(bn(dw(y.transpose(1, 2))))
-        return F.linear(y.transpose(1, 2), pw2.weight[..., 0], pw2.bias)
+        h = F.linear(ln(x), pw1.weight[..., 0], pw1.bias)
+        if self.training:
+            y = F.silu(bn(dw(F.glu(h, dim=-1).transpose(1, 2)))).transpose(1, 2)
+        else:
+            y = conv_module_kernel(h, dw.weight, dw.bias, bn.weight, bn.bias, bn.running_mean,
+                                   bn.running_var, bn.eps)
+        return F.linear(y, pw2.weight[..., 0], pw2.bias)
 
 
 class ConformerBlock(nn.Module):
     """x + FFN/2, + MHSA, + conv module, + FFN/2, then LayerNorm."""
 
-    def __init__(self, dim: int, attn_span: str, n_head: int = 4, kernel_size: int = 31):
+    def __init__(self, dim: int, attn_span: str, n_head: int = 4):
         super().__init__()
         self.ffm1 = FeedForwardModule(dim)
         self.attn = AttentionModule(dim, n_head, attn_span)
-        self.ccm = ConformerConvModule(dim, kernel_size=kernel_size)
+        self.ccm = ConformerConvModule(dim)
         self.ffm2 = FeedForwardModule(dim)
         self.post_ln = RowLayerNorm(dim)
 

@@ -26,7 +26,11 @@ from the root of a checkout. Phases, each fatal on failure:
    row LayerNorm (MP-SENet's conformer norms, no TPU kernel) at the
    10 s cell's shape (3,200 x 1,601 x 64) in bf16 against its plain
    version and ``F.layer_norm`` (one bf16 ulp beside float32's rounding),
-   timed beside its byte bound. Each
+   timed beside its byte bound; the conv module's GLU, depthwise conv,
+   BatchNorm and SiLU kernel at the time conformer's 5,123,200 x 256 in
+   bf16 against its plain version (one bf16 ulp beside float32's rounding),
+   timed beside its byte bound, its plain version and PyTorch's six-pass
+   sequence. Each
    library's variant counters say which entry ran: K1's and K2's FFT entries
    for n_fft 512, K3's TMA + wgmma variant at every U-Net layer in bf16;
    then the folded conv's two routes at the 18 ReLU'd conv shapes of a
@@ -67,8 +71,9 @@ from the root of a checkout. Phases, each fatal on failure:
 3d. MP-SENet's serving path: ``DenoiserRunner`` in mode ``mag_pha`` over
    the bf16 ``MPSENet`` (seeded weights) on 32 clips of 10 s at 16 kHz,
    K1 and K2 one launch each through their direct entries (n_fft 400,
-   hop 100), the 40 LayerNorms through the row LayerNorm kernel and none
-   through its plain version, counted from 0; then each against its plain version on the
+   hop 100), the 40 LayerNorms through the row LayerNorm kernel and the 8
+   conv modules through the conv-module kernel, none through a plain
+   version, counted from 0; then K1 and K2 each against its plain version on the
    runner's own inputs (unit-RMS clips padded by reflection, the model's
    answer in polar form), timed beside its bound at that shape;
 4. run the serving slice in fp32 on the card (kernels) and on the CPU
@@ -734,6 +739,7 @@ def phase_serve(torch, rng, rows, device="cuda"):
 
 
 MP_LAYER_NORMS = 40  # 4 TS-Conformers x 2 conformers x (ffm1, attn, ccm, ffm2, post_ln)
+MP_CONV_MODULES = 8  # 4 TS-Conformers x 2 conformers
 
 
 def phase_mpsenet(torch, rng, rows):
@@ -742,7 +748,8 @@ def phase_mpsenet(torch, rng, rows):
     ``mpsenet2m.dns10s`` batch): K1 and K2 take their direct entries at
     n_fft 400 / hop 100, one launch each, from launch counts set to 0
     just before, and the 40 LayerNorms take the hand-written kernel, none
-    its plain version. Then K1 and K2 are each held to their plain version
+    its plain version, and the 8 conv modules take theirs. Then K1 and K2
+    are each held to their plain version
     on the runner's own inputs (the unit-RMS clips padded by reflection;
     the model's answer in polar form) and timed beside their bound at that
     shape."""
@@ -776,12 +783,16 @@ def phase_mpsenet(torch, rng, rows):
     run_s = time.perf_counter() - t0
     seen = require_variants("the MP-SENet runner", {"stft_kernel": "direct",
                                                     "istft_kernel": "direct",
-                                                    "layer_norm_kernel": "kernel"})
+                                                    "layer_norm_kernel": "kernel",
+                                                    "conv_module_kernel": "kernel"})
     check(stft_kernel.launches == istft_kernel.launches == 1,
           "the MP-SENet batch took more than one K1 and one K2 launch")
     check(seen["layer_norm_kernel"] == {"kernel": MP_LAYER_NORMS, "plain": 0},
           f"the MP-SENet batch's LayerNorms by route {seen['layer_norm_kernel']}")
+    check(seen["conv_module_kernel"] == {"kernel": MP_CONV_MODULES, "plain": 0},
+          f"the MP-SENet batch's conv modules by route {seen['conv_module_kernel']}")
     rows["layer_norm_kernel"]["launches"] = MP_LAYER_NORMS
+    rows["conv_module_kernel"]["launches"] = MP_CONV_MODULES
     count_off_path(rows, "the MP-SENet runner")
     check(out.shape == audio.shape and bool(torch.isfinite(out).all()),
           "the MP-SENet runner's answer is not finite at the clips' shape")
@@ -1691,6 +1702,74 @@ def phase_layer_norm(torch, rng):
             "replaces": "none (MP-SENet's conformer LayerNorm; the model exists only in the port)",
             "max_bf16_ulps": ulps, "max_bf16_gap": gap, "bound_ms": bound,
             "bound_by": "bytes", **times}
+
+
+# the conv modules' first pointwise outputs in the MP-SENet cell: the time
+# conformer's 32 x 100 bins of 1,601 frames, the frequency conformer's
+# 32 x 1,601 frames of 100 bins (a 288-position tile spans about 2.5 of its
+# sequences); the row keeps the first, with the second under "other_shapes"
+CM_SHAPES = {"time": (3200, 1601, 256), "freq": (51232, 100, 256)}
+
+
+def phase_conv_module(torch, rng):
+    """Phase 2, the conv module's kernel (MP-SENet's GLU, depthwise k=31,
+    BatchNorm and SiLU; no TPU kernel): the kernel against its plain
+    version at both conformers' shapes in bf16 (within one bf16 ulp
+    beside float32's rounding, ``bf16_gap``), each timed beside its byte
+    bound, the plain version and PyTorch's six passes (GLU, the transposed
+    copy, the depthwise conv, BatchNorm, SiLU, the copy back) as
+    ``library_ms`` (the yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from audiodenoiser_torch.ops.cuda import conv_module_kernel, conv_module_plain
+
+    dev, row = torch.device("cuda"), None
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    for label, shape in CM_SHAPES.items():
+        c = shape[-1] // 2
+        h = rand(*shape, scale=2.0)
+        var = (0.3 + torch.rand(c, generator=gen, device=dev)).to(torch.bfloat16)
+        params = (rand(c, 1, 31, scale=0.2), rand(c, scale=0.1), rand(c, scale=0.3, shift=1.0),
+                  rand(c, scale=0.2), rand(c, scale=0.5), var)
+        w, b, bn_w, bn_b, mean, _ = params
+
+        def library():
+            y = F.conv1d(F.glu(h, dim=-1).transpose(1, 2), w, b, padding=15, groups=c)
+            y = F.silu(F.batch_norm(y, mean, var, bn_w, bn_b, False, 0.0, 1e-5))
+            return y.transpose(1, 2).contiguous()
+
+        with torch.inference_mode():
+            ours = conv_module_kernel(h, *params, 1e-5)
+            plain = conv_module_plain(h, *params, 1e-5)
+            torch.cuda.synchronize()
+            (ulps, gap), (lib_ulps, lib_gap) = bf16_gap(ours, plain), bf16_gap(ours, library())
+            del plain
+            times = timings(lambda: conv_module_kernel(h, *params, 1e-5),
+                            lambda: conv_module_plain(h, *params, 1e-5), library, plain_reps=5)
+        nbytes = 2 * (h.numel() + ours.numel()) + 2 * c * 36
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        print(f"[kernels] conv_module_kernel {label} {shape[0]} x {shape[1]} x {shape[2]} bf16: "
+              f"{show(times)} bound_ms={bound:.4f} (bytes) "
+              f"share_of_bound={bound / times['device_ms']:.3f}; bf16 ulps (beside float32 "
+              f"rounding) vs plain {ulps:.0f} ({gap:.3f}), vs PyTorch's six passes "
+              f"{lib_ulps:.0f} ({lib_gap:.3f})", flush=True)
+        check(gap <= 1.0, f"conv_module_kernel is {gap} bf16 ulps from its plain version at the "
+                          f"{label} shape")
+        figures = {"max_bf16_ulps": ulps, "max_bf16_gap": gap, "library_bf16_gap": lib_gap,
+                   "bound_ms": bound, "bound_by": "bytes", **times}
+        del h, ours
+        if row is not None:
+            row.setdefault("other_shapes", {})[label] = figures
+            continue
+        row = {"name": "conv_module_kernel", "route": "cuda",
+               "source": "audiodenoiser_torch/csrc/conv_module_kernel.cu",
+               "replaces": "none (MP-SENet's conformer conv module; the model exists only in "
+                           "the port)", **figures}
+    return row
 
 
 def phase_train_step_fp32(torch):
@@ -4872,6 +4951,7 @@ def main() -> None:
     rows["deconv_kernel"] = phase_deconv(torch, rng)
     rows["overlap_add_kernel"] = phase_overlap_add(torch, rng)
     rows["layer_norm_kernel"] = phase_layer_norm(torch, rng)
+    rows["conv_module_kernel"] = phase_conv_module(torch, rng)
     phase_fused_conv(torch, rng)
     phase_serve(torch, rng, rows)
     mask_variables = phase_mask_serve(torch, rng, rows)

@@ -1520,3 +1520,122 @@ def test_layer_norm_kernel_rejects_what_it_does_not_take(dev):
         layer_norm_kernel(torch.zeros(4, 64, device=dev, requires_grad=True), w, b)
     with pytest.raises(RuntimeError):
         layer_norm_kernel(torch.zeros(4, 64, device=dev), torch.nn.Parameter(w), b)
+
+
+def _conv_module_case(dev, dtype, n: int, length: int, seed: int, c: int = 128):
+    """h (n, length, 2C) and the depthwise and BatchNorm parameters in
+    ``dtype`` on the card, the running statistics far from (0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    h = rand(n, length, 2 * c, scale=2.0)
+    var = (0.3 + torch.rand(c, generator=gen, device=dev)).to(dtype)
+    return h, (rand(c, 1, 31, scale=0.2), rand(c, scale=0.1), rand(c, scale=0.3, shift=1.0),
+               rand(c, scale=0.2), rand(c, scale=0.5), var)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,length", [
+    (400, 1601),    # the time conformer's sequences (the cell has 3,200)
+    (6000, 100),    # the frequency conformer's (the cell has 51,232)
+    (2000, 1), (700, 16), (500, 31),   # a tile of 16, 8 and 5 whole sequences
+    (90, 1608),     # 1,601 + 7: tiles that straddle sequences at other offsets
+], ids=["time", "freq", "len1", "len16", "len31", "len1608"])
+def test_conv_module_kernel_matches_plain(dev, dtype, n, length):
+    """The conv module's kernel against its plain version: bf16 within one
+    ulp (both round a float32 result once) beside float32's rounding
+    (``_bf16_gap``); float32 within 1e-5 of the largest output (the
+    kernel's ``expf`` and FMA-rounded sums against PyTorch's exp and
+    separate products). The output's block is first filled with NaN, in a
+    pool of its own so that the output gets that block: every output,
+    those beside each sequence's edges too, must be written."""
+    from audiodenoiser_torch.ops.cuda import conv_module_kernel, conv_module_plain, variant_launches
+
+    h, params = _conv_module_case(dev, dtype, n, length, length)
+    with torch.inference_mode():
+        want = conv_module_plain(h, *params, 1e-5)
+        pool = torch.cuda.MemPool()
+        with torch.cuda.use_mem_pool(pool):
+            poison = torch.full((n * length * 128,), float("nan"), device=dev, dtype=dtype)
+            block = poison.data_ptr()
+            del poison
+            before = variant_launches(conv_module_kernel)["kernel"]
+            got = conv_module_kernel(h, *params, 1e-5)
+    torch.cuda.synchronize()
+    assert variant_launches(conv_module_kernel)["kernel"] == before + 1
+    assert got.data_ptr() == block and not torch.isnan(got).any()
+    assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
+    if dtype == torch.float32:
+        assert _max_rel(got, want) <= 1e-5
+    else:
+        assert _bf16_gap(got, want) <= 1.0
+
+
+def test_mpsenet_forward_takes_the_conv_module_kernel_8_times(dev):
+    from audiodenoiser_torch.models.mpsenet import MPSENet
+    from audiodenoiser_torch.ops.cuda import conv_module_kernel, reset_launch_counts, variant_launches
+
+    torch.manual_seed(0)
+    model = MPSENet().to(dev, torch.bfloat16).eval()
+    mag, pha = torch.rand((2, 201, 50), device=dev), torch.rand((2, 201, 50), device=dev)
+    reset_launch_counts()
+    with torch.inference_mode():
+        model(mag, pha)
+    torch.cuda.synchronize()
+    assert conv_module_kernel.launches == 8
+    assert variant_launches(conv_module_kernel) == {"kernel": 8, "plain": 0}
+
+
+def test_conv_module_kernel_rejects_what_it_does_not_take(dev):
+    from audiodenoiser_torch.ops.cuda import conv_module_kernel
+
+    h, params = _conv_module_case(dev, torch.float32, 2, 20, 0)
+    with pytest.raises(TypeError):
+        conv_module_kernel(h.half(), *(p.half() for p in params))
+    with pytest.raises(TypeError):  # parameters in another dtype than the input
+        conv_module_kernel(h.bfloat16(), *params)
+    with pytest.raises(ValueError):  # parameters on another device
+        conv_module_kernel(h, params[0].cpu(), *params[1:])
+    with pytest.raises(ValueError):  # C = 12, not a multiple of 8
+        conv_module_kernel(h[..., :24].contiguous(), params[0][:12].contiguous(),
+                           *(p[:12].contiguous() for p in params[1:]))
+    with pytest.raises(ValueError):  # kernel size 15
+        conv_module_kernel(h, params[0][..., :15].contiguous(), *params[1:])
+    with pytest.raises(ValueError):  # a non-contiguous input
+        conv_module_kernel(h.transpose(0, 1), *params)
+    with pytest.raises(ValueError):  # a misaligned input
+        conv_module_kernel(h.flatten()[2:2 + 2 * 19 * 256].view(2, 19, 256), *params)
+    with pytest.raises(RuntimeError):
+        conv_module_kernel(h.clone().requires_grad_(), *params)
+    with pytest.raises(RuntimeError):
+        conv_module_kernel(h, torch.nn.Parameter(params[0]), *params[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_module_kernel_runs_on_each_card(dev, dtype):
+    """The kernel opts in to its shared memory on every card it meets:
+    launches on the first card, the second and the first again, each made
+    while card 0 is the current one, match the plain version on their own
+    card. The comparison runs with the launch's card current: with card 0
+    current, ``_bf16_gap`` on card 1's tensors (its frexp and ldexp) ended
+    in an illegal address (torch 2.11 on H100s), and the kernel's output
+    alone read the same as the plain version's there."""
+    from audiodenoiser_torch.ops.cuda import conv_module_kernel, conv_module_plain
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for index in (0, 1, 0):
+        card = torch.device("cuda", index)
+        h, params = _conv_module_case(card, dtype, 40, 100, index)
+        with torch.inference_mode():
+            got = conv_module_kernel(h, *params, 1e-5)
+            want = conv_module_plain(h, *params, 1e-5)
+        torch.cuda.synchronize(card)
+        assert got.device == card
+        with torch.cuda.device(card):
+            if dtype == torch.float32:
+                assert _max_rel(got, want) <= 1e-5
+            else:
+                assert _bf16_gap(got, want) <= 1.0

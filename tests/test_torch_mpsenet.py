@@ -150,6 +150,18 @@ def _no_batchnorm(self, x):
     return F.linear(y.transpose(1, 2), pw2.weight[..., 0], pw2.bias)
 
 
+def _unscaled_fold(self, x):
+    """The eval route without the BatchNorm's scale: the running
+    statistics' shift is kept, the weight / sqrt(var + eps) not."""
+    from audiodenoiser_torch.ops.cuda import conv_module_kernel
+
+    ln, pw1, dw, bn, pw2 = (self.ccm[i] for i in (0, 2, 4, 5, 7))
+    h = F.linear(ln(x), pw1.weight[..., 0], pw1.bias)
+    y = conv_module_kernel(h, dw.weight, dw.bias, torch.ones_like(bn.weight), bn.bias,
+                           bn.running_mean, torch.ones_like(bn.running_var) - bn.eps, bn.eps)
+    return F.linear(y, pw2.weight[..., 0], pw2.bias)
+
+
 def _no_ts_residual(self, x):
     b, c, t, f = x.shape
     x = self.time_conformer(x.permute(0, 3, 2, 1).reshape(b * f, t, c))
@@ -170,7 +182,8 @@ def _unscaled_attention(self, x):
     ("ConformerConvModule", _no_batchnorm),
     ("TSConformerBlock", _no_ts_residual),
     ("MultiheadAttention", _unscaled_attention),
-], ids=["conv_module_batchnorm", "ts_residual", "attention_scale"])
+    ("ConformerConvModule", _unscaled_fold),
+], ids=["conv_module_batchnorm", "ts_residual", "attention_scale", "conv_module_fold"])
 def test_leaving_out_a_part_misses_the_tolerance(model, audio, want, monkeypatch, cls, fault):
     monkeypatch.setattr(getattr(mpsenet, cls), "forward", fault)
     assert _runner_error(model, audio, want) > 10 * TOL
@@ -264,11 +277,15 @@ def test_spans_cover_the_forward(model, audio):
 
 
 
-def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Largest distance in bf16 ulps of the larger magnitude of each pair."""
-    got, want = got.float(), want.float()
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """Largest distance in bf16 ulps of the larger magnitude of each pair,
+    the ulp widened by ``floor`` times ``want``'s largest magnitude (where a
+    value rounded once cancels to near 0, float32's own rounding is many bf16
+    ulps of it)."""
+    got, want = got.double(), want.double()
     _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
-    return float(((got - want).abs() / torch.ldexp(torch.ones_like(got), e - 8)).max())
+    unit = torch.ldexp(torch.ones_like(got), e - 8) + floor * want.abs().max()
+    return float(((got - want).abs() / unit).max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -338,3 +355,114 @@ def test_the_reference_imports_nothing_but_torch():
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module)
     assert {n.split(".")[0] for n in names} <= {"__future__", "math", "torch"}, names
+
+
+def _conv_module_case(length: int, seed: int, rows: int = 3, c: int = 128):
+    """h (rows, length, 2C) and the depthwise and BatchNorm parameters, at
+    scales like a calibrated conformer's: a BatchNorm whose running
+    statistics are far from (0, 1), so that a fault in the fold shows."""
+    gen = torch.Generator().manual_seed(seed)
+    h = 2 * torch.randn(rows, length, 2 * c, generator=gen)
+    params = (0.2 * torch.randn(c, 1, 31, generator=gen), 0.1 * torch.randn(c, generator=gen),
+              1 + 0.3 * torch.randn(c, generator=gen), 0.2 * torch.randn(c, generator=gen),
+              0.5 * torch.randn(c, generator=gen), 0.3 + torch.rand(c, generator=gen))
+    return h, params
+
+
+def _published_conv_module(h, dw_w, dw_b, bn_w, bn_b, mean, var, eps=1e-5):
+    """The published sequence on the (N, C, L) layout, in ``h``'s dtype:
+    GLU, depthwise conv (padding 15), BatchNorm on running statistics, SiLU."""
+    c = dw_w.shape[0]
+    y = F.conv1d(F.glu(h, dim=-1).transpose(1, 2), dw_w, dw_b, padding=15, groups=c)
+    y = F.batch_norm(y, mean, var, bn_w, bn_b, False, 0.0, eps)
+    return F.silu(y).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("length", [1, 15, 16, 31, 100, 257])
+def test_conv_module_plain_matches_the_published_sequence(dtype, length):
+    """The plain route (the published sequence on an upcast to float32,
+    rounded once) is the published sequence. float32: within 1e-6 of the
+    largest output, on every length the kernel's tiles treat apart. bf16,
+    on bf16 inputs: within one bf16
+    ulp of the published sequence taken in float64 on the same inputs, as a
+    float32 result rounded once is, beside 2**-20 of the largest output
+    where the output cancels to near 0."""
+    from audiodenoiser_torch.ops.cuda import conv_module_plain
+
+    h, params = _conv_module_case(length, length)
+    h, params = h.to(dtype), tuple(p.to(dtype) for p in params)
+    got = conv_module_plain(h, *params, 1e-5)
+    assert got.dtype == dtype and got.shape == h.shape[:-1] + (128,)
+    if dtype == torch.float32:
+        want = _published_conv_module(h, *params)
+        assert float((got - want).abs().max() / want.abs().max()) < 1e-6
+    else:
+        want = _published_conv_module(h.double(), *(p.double() for p in params))
+        assert _bf16_ulps(got, want, floor=2.0 ** -20) <= 1.0
+
+
+@pytest.mark.parametrize("fault", ["flattened", "edge_rows"])
+def test_conv_module_pads_each_sequence_with_zeros_of_g(fault):
+    """Each sequence's taps past its ends read zeros of g, the GLU's output:
+    on sequences whose edge rows carry large values behind open gates, a
+    version that reads the neighbouring sequence's rows (the depthwise conv
+    over the flattened (N * L) stream) or repeats the edge rows misses the
+    published sequence by far, while the plain route meets it."""
+    from audiodenoiser_torch.ops.cuda import conv_module_plain
+
+    h, params = _conv_module_case(40, 7, rows=4)
+    h[:, :3, :] *= 20  # values and gates at the sequences' first rows
+    h[:, -3:, :] *= 20  # ... and at their last
+    want = _published_conv_module(h, *params)
+    got = conv_module_plain(h, *params, 1e-5)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-6
+    if fault == "flattened":
+        flat = h.reshape(1, -1, h.shape[-1])
+        wrong = _published_conv_module(flat, *params).reshape(want.shape)
+    else:
+        wrong = conv_module_plain(F.pad(h.transpose(1, 2), (15, 15), mode="replicate")
+                                  .transpose(1, 2), *params, 1e-5)[:, 15:-15]
+    assert float((wrong - want).abs().max() / want.abs().max()) > 0.1
+
+
+def test_cpu_forward_takes_the_plain_conv_module_8_times(model):
+    """An eval forward on the CPU runs its 8 conv modules through the plain
+    route; a training-mode forward (BatchNorm on the batch's statistics)
+    through none, in the published sequence."""
+    from audiodenoiser_torch.ops.cuda import (
+        conv_module_kernel,
+        reset_launch_counts,
+        variant_launches,
+    )
+
+    gen = torch.Generator().manual_seed(4)
+    mag, pha = torch.rand(1, 201, 4, generator=gen), torch.rand(1, 201, 4, generator=gen)
+    reset_launch_counts()
+    with torch.no_grad():
+        model(mag, pha)
+    assert conv_module_kernel.launches == 8
+    assert variant_launches(conv_module_kernel) == {"kernel": 0, "plain": 8}
+    fresh = mpsenet.MPSENet()
+    fresh.load_state_dict(model.state_dict())
+    reset_launch_counts()
+    with torch.no_grad():
+        fresh.train()(mag, pha)
+    assert conv_module_kernel.launches == 0
+
+
+def test_conv_modules_keep_the_published_names(model):
+    """The conv module's parameters and BatchNorm buffers keep the
+    published generator's state_dict names."""
+    want = {f"TSConformer.{i}.{half}_conformer.ccm.ccm.{j}.{p}" for i in range(4)
+            for half in ("time", "freq")
+            for j, names in ((2, ("weight", "bias")), (4, ("weight", "bias")),
+                             (5, ("weight", "bias", "running_mean", "running_var",
+                                  "num_batches_tracked")), (7, ("weight", "bias")))
+            for p in names}
+    state = mpsenet.MPSENet().state_dict()
+    assert want <= set(state)
+    assert {k for k in state if ".ccm.ccm." in k} == want | {
+        f"TSConformer.{i}.{half}_conformer.ccm.ccm.0.{p}" for i in range(4)
+        for half in ("time", "freq") for p in ("weight", "bias")}
+    assert list(state) == list(model.state_dict())

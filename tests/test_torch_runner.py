@@ -273,7 +273,8 @@ class TestImportRules:
         "eval.__init__", "train.__init__", "losses.__init__", "utils.__init__",
         "parallel.mesh", "parallel.distributed", "parallel.hybrid", "parallel.__init__",
         "parallel.layers", "parallel.follow", "parallel.pipeline", "parallel.pipeline_train",
-        "parallel.spatial", "cli.install", "models.mpsenet", "ops.cuda.layer_norm", "data.synth"])
+        "parallel.spatial", "cli.install", "models.mpsenet", "ops.cuda.layer_norm", "data.synth",
+        "ops.cuda.conv_module"])
     def test_rules_cover_the_training_path_modules(self, module):
         """The training path's, the routed deployment's, the int8 model's, the
         package surface's and the parallel paths' modules are among the
