@@ -34,7 +34,9 @@ sessions finish on their generation.
 (``{"model": "mpsenet", ...}``), whose STFT sizes and sample rate the
 service takes (``--sample_rate``, when given, has to agree). It is an
 offline model (InstanceNorm over the whole clip): ``/denoise`` only, no
-streams.
+streams. ``--model semamba`` serves SEMamba the same way, from
+``semamba_{noise_type}.pth`` and its sidecar ``semamba_{noise_type}.json``
+(``{"model": "semamba", ...}``), with the same refusals.
 
   python -m audiodenoiser_torch.cli.serve --model mpsenet --sample_rate 16000
 
@@ -64,9 +66,13 @@ import threading
 
 # the modes each model serves, its own first
 MODEL_MODES = {"unet": ("noisy_phase", "griffin_lim", "reference_gl"),
-               "complex_mask": ("complex_mask",), "mpsenet": ("mag_pha",)}
-# each model's checkpoint stem: {stem}_{noise_type}.ckpt (.pth for MP-SENet)
-STEMS = {"unet": "unet_denoiser", "complex_mask": "mask_denoiser", "mpsenet": "mpsenet"}
+               "complex_mask": ("complex_mask",), "mpsenet": ("mag_pha",),
+               "semamba": ("mag_pha",)}
+# each model's checkpoint stem: {stem}_{noise_type}.ckpt (.pth for MP-SENet and SEMamba)
+STEMS = {"unet": "unet_denoiser", "complex_mask": "mask_denoiser", "mpsenet": "mpsenet",
+         "semamba": "semamba"}
+# the offline models: whole clips at the sidecar's sample rate, no streams
+OFFLINE = ("mpsenet", "semamba")
 # --precision_path -> the runner's precision: JAX's Pallas path is the kernels
 PRECISION_PATHS = {"auto": "kernel", "pallas": "kernel", "matmul": "matmul", "fft": "fft"}
 
@@ -86,7 +92,7 @@ def parse_args(argv=None):
                    help="default reconstruction mode of /denoise: noisy_phase (the "
                    "default), griffin_lim or reference_gl for --model unet, "
                    "complex_mask for --model complex_mask, mag_pha for --model "
-                   "mpsenet, auto (the default with --auto_route); streams keep the "
+                   "mpsenet or semamba, auto (the default with --auto_route); streams keep the "
                    "model's own mode")
     p.add_argument("--auto_route", action="store_true",
                    help="load the four specialists and the trained noise router "
@@ -95,7 +101,7 @@ def parse_args(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8800)
     p.add_argument("--sample_rate", type=int, default=None,
-                   help="default 8000; --model mpsenet takes its sidecar's")
+                   help="default 8000; --model mpsenet and semamba take their sidecar's")
     p.add_argument("--bucket_seconds", type=float, default=2.0,
                    help="requests are padded to multiples of this many "
                    "seconds so the device sees few shapes; also the chunk "
@@ -148,11 +154,11 @@ def parse_args(argv=None):
         if args.stream_latency_ms is not None:
             raise SystemExit("--stream_pool supports WOLA sessions only (drop "
                              "--stream_latency_ms)")
-    if args.model == "mpsenet" and (args.auto_route or args.stream_pool is not None
-                                    or args.stream_latency_ms is not None):
-        raise SystemExit("--model mpsenet is offline: no --auto_route, --stream_pool "
+    if args.model in OFFLINE and (args.auto_route or args.stream_pool is not None
+                                  or args.stream_latency_ms is not None):
+        raise SystemExit(f"--model {args.model} is offline: no --auto_route, --stream_pool "
                          "or --stream_latency_ms")
-    if args.sample_rate is None and args.model != "mpsenet":
+    if args.sample_rate is None and args.model not in OFFLINE:
         args.sample_rate = 8000
     served = MODEL_MODES[args.model] + (("auto",) if args.auto_route else ())
     if args.mode == "auto" and not args.auto_route:
@@ -197,7 +203,7 @@ def build_generation(args, mesh=None) -> dict:
     model = load_model_for_noise(args.noise_type, args.saved_models_dir, dtype=dtype,
                                  device=args.device, stem=stem, fold=args.fold)
     runner = DenoiserRunner(model, device=args.device, precision=path, mesh=mesh)
-    if args.model == "mpsenet":
+    if args.model in OFFLINE:
         if args.sample_rate not in (None, model.sample_rate):
             raise SystemExit(f"--sample_rate {args.sample_rate}: the checkpoint's model "
                              f"runs at {model.sample_rate} Hz")

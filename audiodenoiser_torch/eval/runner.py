@@ -13,9 +13,10 @@ trim and the gain taken off. The families (``_FAMILIES``):
   ``correct`` / ``reference`` mode, every transform through K1 and K2;
 - complex mask (a ``ComplexMaskUNet``): ``[mag, cos, sin]`` features, the
   model's bounded complex mask times the noisy spectrogram;
-- MP-SENet (``mag_pha``, at its own STFT sizes): each clip scaled to unit
-  RMS, reflect centre padding, magnitude and phase (``mpsenet.mag_pha``),
-  the model's outputs back to a spectrogram (``mpsenet.polar_spectrum``).
+- magnitude and phase (an ``MPSENet`` or a ``SEMamba``: ``mag_pha``, at
+  the model's own STFT sizes): each clip scaled to unit RMS, reflect centre
+  padding, magnitude and phase (``mpsenet.mag_pha``), the model's outputs
+  back to a spectrogram (``mpsenet.polar_spectrum``).
 
 On a ('data', 'model') mesh (``mesh=``, ``parallel.make_mesh``) the model
 is laid out by ``parallel.shard_variables`` (the wide convs channel-
@@ -33,11 +34,12 @@ On a CUDA device K1 and K2 launch; on the CPU their plain versions run.
 ``load_model_for_noise`` / ``load_model_from_path`` read the JAX
 package's ``{stem}_{noise}.ckpt`` exports with their ``.json`` sidecars,
 and the reference's ``unet_denoiser_{noise}.pth``, and fold the model for
-inference; a sidecar ``{"model": "mpsenet", ...}`` beside a torch
-state_dict (or the published ``{"generator": state_dict}``) loads
-MP-SENet. ``test_single_noise_type`` evaluates a magnitude model on the
-test set's ``.npy`` artifacts, ``test_noise_type_waveform`` any model in
-the waveform domain; both write the reference's artifact names.
+inference; a sidecar ``{"model": "mpsenet", ...}`` or ``{"model":
+"semamba", ...}`` beside a torch state_dict (or the published
+``{"generator": state_dict}``) loads MP-SENet or SEMamba.
+``test_single_noise_type`` evaluates a magnitude model on the test set's
+``.npy`` artifacts, ``test_noise_type_waveform`` any model in the waveform
+domain; both write the reference's artifact names.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from torch import nn
 
 import audiodenoiser_torch.dsp.stft as stft_lib
 import audiodenoiser_torch.models.mpsenet as mpsenet
+import audiodenoiser_torch.models.semamba as semamba
 from audiodenoiser_torch.device import DeviceLike, resolve_device
 from audiodenoiser_torch.dsp.griffin_lim import griffin_lim, initial_phase
 from audiodenoiser_torch.eval.metrics import pesq, si_sdr, stoi
@@ -76,7 +79,7 @@ class _Family(NamedTuple):
 
     name: str                  # as a refused mode names it
     modes: tuple               # the modes it serves, its own first
-    sizes: tuple               # n_fft, hop, win_length: a U-Net's defaults, MP-SENet's own
+    sizes: tuple               # n_fft, hop, win_length: a U-Net's defaults, the model's own
     pad_mode: str              # K1's centre padding
     gain: Optional[Callable]   # audio -> a per-clip gain put on before K1, taken off after K2
     inputs: Callable           # spec -> (the model's arguments, what spectrum keeps)
@@ -96,8 +99,11 @@ _FAMILIES = (
             lambda spec: ((spectrogram_features(spec).permute(0, 3, 1, 2),), None),
             lambda y, spec, _: apply_mask(y.float().permute(0, 2, 3, 1), spec)),
     # the model's own sizes, inputs and spectrum: DenoiserRunner fills them in
-    _Family("MP-SENet", ("mag_pha",), None, "reflect", mpsenet.unit_rms_gain, None, None),
+    _Family("magnitude-and-phase (MP-SENet or SEMamba)", ("mag_pha",), None, "reflect",
+            mpsenet.unit_rms_gain, None, None),
 )
+# the magnitude-and-phase models, by the name a sidecar's "model" gives
+MAG_PHA_MODELS = {"mpsenet": mpsenet.MPSENet, "semamba": semamba.SEMamba}
 
 
 def identity_bypass(out: torch.Tensor, orig: torch.Tensor,
@@ -144,10 +150,11 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
     sidecar, when there is one, rebuilds the architecture: ``width_mult``,
     the variants ``attn_bottleneck``, ``s2d_stem`` and ``s2d_skip``, and
     for ``stem="mask_denoiser"`` the mask head's ``mask_bound`` (default
-    2.0) and ``residual``. A sidecar ``{"model": "mpsenet", ...}`` (the
-    rest ``MPSENet``'s arguments, its STFT sizes and sample rate among
-    them) makes ``path`` a torch state_dict of MP-SENet, or the published
-    ``{"generator": state_dict}``, served in ``dtype`` (nothing to fold)."""
+    2.0) and ``residual``. A sidecar ``{"model": "mpsenet", ...}`` or
+    ``{"model": "semamba", ...}`` (the rest the model's arguments, its STFT
+    sizes and sample rate among them) makes ``path`` a torch state_dict of
+    MP-SENet or SEMamba, or the published ``{"generator": state_dict}``,
+    served in ``dtype`` (nothing to fold)."""
     device = resolve_device(device)
     if not os.path.exists(path):
         raise FileNotFoundError(f"Model file not found: {path}")
@@ -156,10 +163,11 @@ def load_model_from_path(path: str, dtype: torch.dtype = torch.bfloat16,
     if os.path.exists(sidecar):
         with open(sidecar) as f:
             meta = json.load(f)
-    if meta.get("model") == "mpsenet":
-        model = mpsenet.MPSENet(**{k: v for k, v in meta.items() if k != "model"})
+    if meta.get("model") in MAG_PHA_MODELS:
+        cls = MAG_PHA_MODELS[meta["model"]]
+        model = cls(**{k: v for k, v in meta.items() if k != "model"})
         mpsenet.load_state(model, torch.load(path, map_location="cpu", weights_only=True))
-        print(f"Loaded MP-SENet from: {path}")
+        print(f"Loaded {cls.__name__} from: {path}")
         return model.to(device=device, dtype=dtype).eval()
     kwargs = width_kwargs(float(meta.get("width_mult", 1.0)))
     kwargs.update({k: True for k in ("attn_bottleneck", "s2d_stem") if meta.get(k)})
@@ -184,10 +192,11 @@ def load_model_for_noise(noise_type: str, saved_models_dir: str = "./saved_model
     ``{stem}_{noise_type}.ckpt`` if it exists, else (for the magnitude
     U-Net, ``stem="unet_denoiser"``) the reference
     ``unet_denoiser_{noise_type}.pth``. Use ``stem="mask_denoiser"`` for
-    the complex-mask family, ``stem="mpsenet"`` for MP-SENet's torch
-    state_dict ``mpsenet_{noise_type}.pth`` with its sidecar."""
+    the complex-mask family, ``stem="mpsenet"`` (``"semamba"``) for
+    MP-SENet's (SEMamba's) torch state_dict ``mpsenet_{noise_type}.pth``
+    (``semamba_{noise_type}.pth``) with its sidecar."""
     device = resolve_device(device)
-    ext = ".pth" if stem == "mpsenet" else ".ckpt"
+    ext = ".pth" if stem in MAG_PHA_MODELS else ".ckpt"
     path = os.path.join(saved_models_dir, f"{stem}_{noise_type}{ext}")
     pth_path = os.path.join(saved_models_dir, f"unet_denoiser_{noise_type}.pth")
     if os.path.exists(path) or stem != "unet_denoiser" or not os.path.exists(pth_path):
@@ -204,8 +213,9 @@ class DenoiserRunner:
 
     ``model`` is moved to ``device``, and its family (module docstring) is
     chosen once. A U-Net's ``n_fft`` and ``hop_length`` default to 512 and
-    128; MP-SENet runs at its own. ``precision`` is the STFT and iSTFT path
-    of ``dsp.stft``: ``"kernel"`` (K1 and K2), ``"fft"`` or ``"matmul"``.
+    128; MP-SENet and SEMamba run at their own. ``precision`` is the STFT
+    and iSTFT path of ``dsp.stft``: ``"kernel"`` (K1 and K2), ``"fft"`` or
+    ``"matmul"``.
     ``mesh`` lays the model out on a device mesh, in place (module
     docstring); the runner's results are the unmeshed runner's.
     """
@@ -220,13 +230,14 @@ class DenoiserRunner:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         magnitude, mask, mp = _FAMILIES
-        if not isinstance(model, mpsenet.MPSENet):
+        name = type(model).__name__
+        if not isinstance(model, tuple(MAG_PHA_MODELS.values())):
             self._family = mask if getattr(model, "mask_bound", None) is not None else magnitude
         elif n_fft not in (None, model.n_fft) or hop_length not in (None, model.hop_length):
             raise ValueError(
-                f"MP-SENet runs at n_fft={model.n_fft}, hop_length={model.hop_length}")
+                f"{name} runs at n_fft={model.n_fft}, hop_length={model.hop_length}")
         elif mesh is not None:
-            raise NotImplementedError("MP-SENet is served without a mesh")
+            raise NotImplementedError(f"{name} is served without a mesh")
         else:
             self._family = mp._replace(
                 sizes=(model.n_fft, model.hop_length, model.win_length),

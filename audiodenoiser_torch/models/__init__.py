@@ -1,7 +1,8 @@
 """Model zoo of the port: live-BN U-Net and its variants (s2d stem,
 refinement path, attention bottleneck), the complex-mask U-Net, their
-BN-folded form, int8 compute, the noise router, weight carry-over, and
-MP-SENet (magnitude and phase, TS-Conformers)."""
+BN-folded form, int8 compute, the noise router, weight carry-over,
+MP-SENet (magnitude and phase, TS-Conformers) and SEMamba (MP-SENet's
+generator with bidirectional Mamba blocks)."""
 
 from audiodenoiser_torch.models.complex_mask import (
     ComplexMaskUNet,
@@ -22,6 +23,7 @@ from audiodenoiser_torch.models.folded import FoldedUNet, fold_for_inference
 from audiodenoiser_torch.models.int8 import Int8UNet, prepare_int8
 from audiodenoiser_torch.models.mpsenet import MPSENet
 from audiodenoiser_torch.models.router import NOISE_CLASSES, NoiseClassifier
+from audiodenoiser_torch.models.semamba import SEMamba
 from audiodenoiser_torch.models.unet import (
     BottleneckAttention,
     DoubleConv,
@@ -34,7 +36,7 @@ from audiodenoiser_torch.models.unet import (
 )
 
 __all__ = ["UNet", "DoubleConv", "BottleneckAttention", "space_to_depth", "depth_to_space",
-           "ComplexMaskUNet", "MPSENet", "FoldedUNet", "fold_for_inference", "Int8UNet", "prepare_int8",
+           "ComplexMaskUNet", "MPSENet", "SEMamba", "FoldedUNet", "fold_for_inference", "Int8UNet", "prepare_int8",
            "count_params",
            "scaled_widths", "width_kwargs", "spectrogram_features", "apply_mask",
            "denoise_waveform", "state_dict_from_flax", "flax_from_state_dict", "random_flax_variables",

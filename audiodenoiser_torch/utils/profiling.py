@@ -24,7 +24,12 @@ the calling thread and are written out with the trace:
 - ``MP_*``: MP-SENet's phases inside ``MODEL`` (``models.mpsenet``): the
   encoder, each time and frequency half of a TS-Conformer block with its
   attention nested inside, and the two decoders; they cover the model's
-  whole forward.
+  whole forward;
+- ``SM_*``: SEMamba's phases inside ``MODEL`` (``models.semamba``): each
+  time and frequency half of a TF-Mamba block (the permute, both
+  directions, the merge and the residual), with each Mamba mixer
+  (``in_proj`` to ``out_proj``, both directions) nested inside; its encoder
+  and decoders, MP-SENet's code, keep ``MP_ENCODER`` and ``MP_DECODERS``.
 """
 
 from __future__ import annotations
@@ -51,6 +56,10 @@ MP_TIME_ATTENTION = "adt.mp.time_attention"
 MP_FREQ = "adt.mp.freq"
 MP_FREQ_ATTENTION = "adt.mp.freq_attention"
 MP_DECODERS = "adt.mp.decoders"
+SM_TIME = "adt.sm.time"
+SM_TIME_MIXER = "adt.sm.time_mixer"
+SM_FREQ = "adt.sm.freq"
+SM_FREQ_MIXER = "adt.sm.freq_mixer"
 
 _OFF = contextlib.nullcontext()
 

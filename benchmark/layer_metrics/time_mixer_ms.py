@@ -1,0 +1,15 @@
+"""Device milliseconds a batch of SEMamba's time-axis Mamba mixers: the
+operations launched inside the program's ``adt.sm.time_mixer`` spans
+(in_proj to out_proj, both directions) over the traced sub-window
+(``benchmark.spans``), per profiled batch. None where the program has no
+such span."""
+
+PHASE = "sm.time_mixer"
+
+
+def read(record):
+    t = record.get("device_trace") or {}
+    program = t.get("program")
+    if not program or PHASE not in program["phases"]:
+        return None
+    return 1e3 * program["device_s"][PHASE] / t["iters"]

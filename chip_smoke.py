@@ -36,6 +36,11 @@ from the root of a checkout. Phases, each fatal on failure:
    then the folded conv's two routes at the 18 ReLU'd conv shapes of a
    256-clip batch in bf16 (cuDNN's fused conv + bias + ReLU against
    conv(+bias) then ReLU): first-call and per-call ms, summed to a batch;
+   the Mamba mixer's conv and selective scan (SEMamba's; no TPU kernel)
+   at the 10 s cell's two shapes (3,200 x 1,601 and 51,232 x 100, d_inner
+   256) in bf16, both directions, against their plain versions (one bf16
+   ulp beside float32's rounding), each timed beside its byte bound and
+   its plain route;
 3. serve HTTP requests through the full-width 31,042,369-parameter
    BN-folded bf16 U-Net (``DenoiseService`` + ``make_http_server``) and
    check each answer against a direct ``DenoiserRunner`` call; K1 and K2's
@@ -76,6 +81,11 @@ from the root of a checkout. Phases, each fatal on failure:
    version, counted from 0; then K1 and K2 each against its plain version on the
    runner's own inputs (unit-RMS clips padded by reflection, the model's
    answer in polar form), timed beside its bound at that shape;
+3e. SEMamba's serving path: ``DenoiserRunner`` in mode ``mag_pha`` over
+   the bf16 ``SEMamba`` (seeded weights) on 32 clips of 10 s at 16 kHz, K1
+   and K2 one launch each through their direct entries, the 16 conv and
+   16 scan launches through the ssm kernels, none plain, counted from 0;
+   the batch's time and peak memory;
 4. run the serving slice in fp32 on the card (kernels) and on the CPU
    (plain versions) for one 2 s clip and compare; the same for the mask
    slice, and a streamed fp32 mask session against the offline
@@ -848,6 +858,141 @@ def phase_mpsenet(torch, rng, rows):
         rows.setdefault(name, {}).setdefault("other_shapes", {})["mpsenet"] = {
             **times, "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
             "runner_launches": seen[name]}
+    reset_launch_counts()
+
+
+SM_MIXERS = 16  # 4 TF-Mamba blocks x 2 halves x 2 directions
+# a mixer's tokens in the SEMamba cell: the time axis's 32 x 100 bins of
+# 1,601 frames, the frequency axis's 32 x 1,601 frames of 100 bins
+SSM_SHAPES = {"time": (3200, 1601), "freq": (51232, 100)}
+SSM_INNER = 256
+
+
+def phase_ssm(torch, rng):
+    """Phase 2, the Mamba mixer's conv and scan (SEMamba's; no TPU kernel):
+    both entries against their plain versions at the cell's two shapes in
+    bf16, both directions (within one bf16 ulp beside float32's rounding,
+    ``bf16_gap``), each timed beside its byte bound and its plain route (the
+    scan's plain route steps through the sequence one token at a time with
+    PyTorch's operations). The bounds: the conv reads x and writes u (2 x
+    256 bf16 a token), the scan reads u, z and x_dbl and writes y (3 x 256
+    + 36 bf16 a token); the mixer's, x and z in and y out (3 x 256 bf16),
+    is the one the benchmark's ``ssm_roofline`` reads."""
+    import torch.nn.functional as F
+
+    from audiodenoiser_torch.ops.cuda import ssm_conv, ssm_conv_plain, ssm_scan, ssm_scan_plain
+
+    dev, d, row = torch.device("cuda"), SSM_INNER, None
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(shape, generator=gen, device=dev)
+
+    dt = torch.exp(torch.rand(d, generator=gen, device=dev) * math.log(100.0) + math.log(1e-3))
+    states = torch.arange(1, 17, device=dev, dtype=torch.float32)
+    scan = tuple(t.to(torch.bfloat16) for t in (
+        (torch.rand((d, 4), generator=gen, device=dev) * 2 - 1) * 0.5,
+        dt + torch.log(-torch.expm1(-dt)), torch.log(states) + rand(d, 16, scale=0.1),
+        rand(d, scale=0.1, shift=1.0)))
+    conv = tuple(t.to(torch.bfloat16) for t in (rand(d, 1, 4, scale=math.sqrt(0.5)),
+                                                rand(d, scale=0.1)))
+    x_proj = rand(36, d, scale=math.sqrt(2 / d)).to(torch.bfloat16)
+    for label, (n, length) in SSM_SHAPES.items():
+        xz = rand(n, length, 2 * d).to(torch.bfloat16)
+        tokens = n * length
+        bounds = {"conv": tokens * 2 * d * 2 / PEAK_BYTES_PER_S * 1e3,
+                  "scan": tokens * (3 * d + 36) * 2 / PEAK_BYTES_PER_S * 1e3,
+                  "mixer": tokens * 3 * d * 2 / PEAK_BYTES_PER_S * 1e3}
+        for reverse in (False, True):
+            with torch.inference_mode():
+                u = ssm_conv(xz, *conv, reverse)
+                x_dbl = F.linear(u, x_proj)
+                y = ssm_scan(u, xz, x_dbl, *scan, reverse)
+                torch.cuda.synchronize()
+                (u_ulps, u_gap) = bf16_gap(u, ssm_conv_plain(xz, *conv, reverse))
+                t0 = time.perf_counter()
+                want = ssm_scan_plain(u, xz, x_dbl, *scan, reverse)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                (y_ulps, y_gap) = bf16_gap(y, want)
+                del want
+                times = {
+                    "conv_ms": time_ms(lambda: ssm_conv(xz, *conv, reverse), 10, 2),
+                    "conv_device_ms": device_ms(lambda: ssm_conv(xz, *conv, reverse), 5),
+                    "conv_plain_ms": time_ms(lambda: ssm_conv_plain(xz, *conv, reverse), 3, 1),
+                    "scan_ms": time_ms(lambda: ssm_scan(u, xz, x_dbl, *scan, reverse), 5, 1),
+                    "scan_device_ms": device_ms(
+                        lambda: ssm_scan(u, xz, x_dbl, *scan, reverse), 3),
+                    "scan_plain_ms": 1e3 * plain_s}
+            share = bounds["mixer"] / (times["conv_device_ms"] + times["scan_device_ms"])
+            print(f"[kernels] ssm_kernel {label} {n} x {length} x {d} bf16 reverse={reverse}: "
+                  f"{show(times)} conv_bound_ms={bounds['conv']:.4f} "
+                  f"scan_bound_ms={bounds['scan']:.4f} mixer_bound_ms={bounds['mixer']:.4f} "
+                  f"(bytes) mixer_share_of_bound={share:.3f}; bf16 ulps (beside float32 "
+                  f"rounding) conv {u_ulps:.0f} ({u_gap:.3f}), scan {y_ulps:.0f} ({y_gap:.3f})",
+                  flush=True)
+            check(u_gap <= 1.0 and y_gap <= 1.0,
+                  f"ssm_kernel is {u_gap}/{y_gap} bf16 ulps from its plain versions at the "
+                  f"{label} shape, reverse={reverse}")
+            figures = {"conv_bf16_gap": u_gap, "scan_bf16_gap": y_gap, "bound_by": "bytes",
+                       **{f"{k}_bound_ms": v for k, v in bounds.items()}, **times,
+                       "mixer_share_of_bound": share}
+            del u, x_dbl, y
+            key = f"{label}_reverse" if reverse else label
+            if row is not None:
+                row.setdefault("other_shapes", {})[key] = figures
+                continue
+            row = {"name": "ssm_kernel", "route": "cuda",
+                   "source": "audiodenoiser_torch/csrc/ssm_kernel.cu",
+                   "replaces": "none (SEMamba's Mamba mixers; the model exists only in the "
+                               "port)", **figures}
+        del xz
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_semamba(torch, rng, rows):
+    """Phase 3e: SEMamba's serving path, ``DenoiserRunner`` mode
+    ``mag_pha`` over the bf16 model, on 32 clips of 10 s at 16 kHz (the
+    ``semamba2m.dns10s`` batch): K1 and K2 one direct launch each, the 16
+    conv and 16 scan launches through the ssm kernels and none plain, from
+    launch counts set to 0 just before; the batch's time by CUDA events
+    and its peak memory."""
+    import numpy as np
+
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.models.semamba import SEMamba
+    from audiodenoiser_torch.ops.cuda import istft_kernel, reset_launch_counts, stft_kernel
+
+    dev, batch, seconds, sr = torch.device("cuda"), 32, 10, 16000
+    torch.manual_seed(23)
+    model = SEMamba().to(dev, torch.bfloat16).eval()
+    audio = torch.from_numpy(np.clip(0.2 * rng.standard_normal((batch, seconds * sr)), -1, 1)
+                             .astype(np.float32)).to(dev)
+    runner = DenoiserRunner(model, device=dev)
+    runner.denoise_audio(audio[:2])  # cuDNN's first plans, outside the counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = runner.denoise_audio(audio)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    seen = require_variants("the SEMamba runner", {"stft_kernel": "direct",
+                                                   "istft_kernel": "direct",
+                                                   "ssm_kernel": "kernel"})
+    check(stft_kernel.launches == istft_kernel.launches == 1,
+          "the SEMamba batch took more than one K1 and one K2 launch")
+    check(seen["ssm_kernel"] == {"kernel": 2 * SM_MIXERS, "plain": 0},
+          f"the SEMamba batch's conv and scan by route {seen['ssm_kernel']}")
+    rows["ssm_kernel"]["launches"] = 2 * SM_MIXERS
+    count_off_path(rows, "the SEMamba runner")
+    check(out.shape == audio.shape and bool(torch.isfinite(out).all()),
+          "the SEMamba runner's answer is not finite at the clips' shape")
+    ms = time_ms(lambda: runner.denoise_audio(audio), 3, 1)
+    rate = batch * seconds / ms * 1e3
+    print(f"[semamba] B={batch} x {seconds} s: {ms:.2f} ms a batch ({rate:.1f} "
+          f"audio-s/s), peak {peak / 2 ** 30:.2f} GiB, launches K1 {seen['stft_kernel']} "
+          f"K2 {seen['istft_kernel']} ssm {seen['ssm_kernel']}", flush=True)
     reset_launch_counts()
 
 
@@ -4952,6 +5097,7 @@ def main() -> None:
     rows["overlap_add_kernel"] = phase_overlap_add(torch, rng)
     rows["layer_norm_kernel"] = phase_layer_norm(torch, rng)
     rows["conv_module_kernel"] = phase_conv_module(torch, rng)
+    rows["ssm_kernel"] = phase_ssm(torch, rng)
     phase_fused_conv(torch, rng)
     phase_serve(torch, rng, rows)
     mask_variables = phase_mask_serve(torch, rng, rows)
@@ -4961,6 +5107,9 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_mpsenet(torch, rng, rows)
     print(f"[mpsenet] phase 3d in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_semamba(torch, rng, rows)
+    print(f"[semamba] phase 3e in {time.perf_counter() - t0:.1f} s", flush=True)
     phase_slice_fp32(torch, rng)
     phase_mask_fp32(torch, rng, mask_variables)
     # phase 4c's test set and phase 6d's wavs stay here for phase 6e

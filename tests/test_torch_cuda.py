@@ -1639,3 +1639,232 @@ def test_conv_module_kernel_runs_on_each_card(dev, dtype):
                 assert _max_rel(got, want) <= 1e-5
             else:
                 assert _bf16_gap(got, want) <= 1.0
+
+
+SM_CONFIG = dict(dense_channel=64, num_tfmamba=4, d_state=16, d_conv=4, expand=4, n_fft=400,
+                 hop_length=100, win_length=400, sample_rate=16000, compress_factor=0.3, beta=2.0,
+                 norm_eps=1e-5)
+
+
+def _ssm_case(dev, dtype, n: int, length: int, seed: int, d: int = 256):
+    """xz (n, length, 2d), the conv's parameters, x_proj and the scan's
+    parameters in ``dtype`` on ``dev``, at mamba_ssm's initial distributions
+    (the reference's seeded weights)."""
+    import math
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return shift + scale * torch.randn(shape, generator=gen, device=dev)
+
+    dt = torch.exp(torch.rand(d, generator=gen, device=dev) * math.log(100.0) + math.log(1e-3))
+    states = torch.arange(1, 17, device=dev, dtype=torch.float32)
+    scan = ((torch.rand((d, 4), generator=gen, device=dev) * 2 - 1) * 0.5,
+            dt + torch.log(-torch.expm1(-dt)), torch.log(states) + rand(d, 16, scale=0.1),
+            rand(d, scale=0.1, shift=1.0))
+    conv = (rand(d, 1, 4, scale=math.sqrt(0.5)), rand(d, scale=0.1))
+    return (rand(n, length, 2 * d).to(dtype), tuple(t.to(dtype) for t in conv),
+            rand(36, d, scale=math.sqrt(2 / d)).to(dtype), tuple(t.to(dtype) for t in scan))
+
+
+def _into_nan(entry: str, inputs: tuple, like: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The entry's kernel launched straight through its C interface into an
+    output first filled with NaN: every output the kernel owes has to be
+    written. ``inputs`` are the entry's tensors in the order of its C
+    arguments; ``like`` the output's shape and dtype."""
+    from audiodenoiser_torch.ops.cuda import build
+    from audiodenoiser_torch.ops.cuda import ssm as ssm_ops
+
+    out = torch.full_like(like, float("nan"))
+    n, length, d = out.numel() // (out.shape[-2] * out.shape[-1]), out.shape[-2], out.shape[-1]
+    launch = getattr(ssm_ops._lib(), f"ssm_{entry}_launch")
+    rc = launch(*(t.data_ptr() for t in inputs), out.data_ptr(), int(out.dtype == torch.bfloat16),
+                n, length, d, int(reverse), build.stream_handle(out.device))
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("dtype,n,length,d", [
+    (torch.bfloat16, 3200, 1601, 256),   # the SEMamba cell's time axis: 3,200 sequences
+    (torch.bfloat16, 51232, 100, 256),   # ... and its frequency axis: 51,232
+    (torch.float32, 200, 1601, 256),
+    (torch.float32, 3000, 100, 256),
+    (torch.bfloat16, 300, 1, 256),       # one token
+    (torch.bfloat16, 70, 37, 72),        # a chunk and a run cut short, channels masked
+], ids=["time", "freq", "time_f32", "freq_f32", "len1", "ragged"])
+def test_ssm_kernels_match_plain(dev, dtype, n, length, d, reverse):
+    """Both entries against their plain versions (float32, the scan one
+    token a step), and launched again into outputs filled with NaN, which
+    they must overwrite with the same values: bf16 within one ulp
+    beside float32's rounding (``_bf16_gap``: both round a float32 result
+    once); float32 within 1e-5 of the largest output (the SFU's ex2 and
+    reciprocal, 2 and 1 ulps, against PyTorch's exp, over 1,601 steps:
+    7.4e-7 read)."""
+    from audiodenoiser_torch.ops.cuda import (
+        ssm_conv,
+        ssm_conv_plain,
+        ssm_kernel,
+        ssm_scan,
+        ssm_scan_plain,
+        variant_launches,
+    )
+
+    xz, conv, x_proj, scan = _ssm_case(dev, dtype, n, length, n + length, d)
+    before = variant_launches(ssm_kernel)["kernel"]
+    with torch.inference_mode():
+        u = ssm_conv(xz, *conv, reverse)
+        want_u = ssm_conv_plain(xz, *conv, reverse)
+        x_dbl = torch.nn.functional.linear(u, x_proj)
+        y = ssm_scan(u, xz, x_dbl, *scan, reverse)
+        assert variant_launches(ssm_kernel)["kernel"] == before + 2
+        assert torch.equal(_into_nan("conv", (xz, *conv), u, reverse), u)
+        assert torch.equal(_into_nan("scan", (u, xz, x_dbl, *scan), y, reverse), y)
+        want_y = ssm_scan_plain(u, xz, x_dbl, *scan, reverse)
+    for got, want in ((u, want_u), (y, want_y)):
+        assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
+        if dtype == torch.float32:
+            assert _max_rel(got, want) <= 1e-5
+        else:
+            assert _bf16_gap(got, want) <= 1.0
+
+
+def test_semamba_forward_takes_the_ssm_kernel_32_times(dev):
+    """16 conv and 16 scan launches a bf16 forward, none plain; the
+    MP-SENet kernels none."""
+    from audiodenoiser_torch.models.semamba import SEMamba
+    from audiodenoiser_torch.ops.cuda import (
+        conv_module_kernel,
+        layer_norm_kernel,
+        reset_launch_counts,
+        ssm_kernel,
+        variant_launches,
+    )
+
+    torch.manual_seed(0)
+    model = SEMamba().to(dev, torch.bfloat16).eval()
+    mag, pha = torch.rand((2, 201, 50), device=dev), torch.rand((2, 201, 50), device=dev)
+    reset_launch_counts()
+    with torch.inference_mode():
+        model(mag, pha)
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches == 32
+    assert variant_launches(ssm_kernel) == {"kernel": 32, "plain": 0}
+    assert layer_norm_kernel.launches == conv_module_kernel.launches == 0
+
+
+def test_ssm_kernels_reject_what_they_do_not_take(dev):
+    from audiodenoiser_torch.ops.cuda import ssm_conv, ssm_scan
+
+    xz, conv, x_proj, scan = _ssm_case(dev, torch.float32, 4, 20, 0, d=64)
+    with torch.no_grad():
+        u = ssm_conv(xz, *conv)
+        x_dbl = torch.nn.functional.linear(u, x_proj)
+    with pytest.raises(TypeError):
+        ssm_conv(xz.half(), *(t.half() for t in conv))
+    with pytest.raises(TypeError):  # parameters in another dtype than the input
+        ssm_conv(xz.bfloat16(), *conv)
+    with pytest.raises(TypeError):
+        ssm_scan(u.bfloat16(), xz.bfloat16(), x_dbl.bfloat16(), *scan)
+    with pytest.raises(ValueError):  # parameters on another device
+        ssm_scan(u, xz, x_dbl, scan[0].cpu(), *scan[1:])
+    with pytest.raises(ValueError):  # D = 12, not a multiple of 8
+        ssm_conv(xz[..., :24].contiguous(), conv[0][:12].contiguous(), conv[1][:12].contiguous())
+    with pytest.raises(ValueError):  # kernel size 3
+        ssm_conv(xz, conv[0][..., :3].contiguous(), conv[1])
+    with pytest.raises(ValueError):  # 8 states
+        ssm_scan(u, xz, torch.cat([x_dbl[..., :12], x_dbl[..., 20:28]], -1).contiguous(),
+                 scan[0], scan[1], scan[2][:, :8].contiguous(), scan[3])
+    with pytest.raises(ValueError):  # a non-contiguous input
+        ssm_conv(xz.transpose(0, 1), *conv)
+    with pytest.raises(ValueError):  # a misaligned input
+        ssm_conv(xz.flatten()[2:2 + 4 * 19 * 128].view(4, 19, 128), *conv)
+    with pytest.raises(RuntimeError):
+        ssm_conv(xz.clone().requires_grad_(), *conv)
+    with pytest.raises(RuntimeError):
+        ssm_scan(u, xz, x_dbl, torch.nn.Parameter(scan[0]), *scan[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssm_kernels_run_on_each_card(dev, dtype):
+    """Launches on the first card, the second and the first again, each
+    while card 0 is the current one, match the plain versions on their own
+    card (compared with that card current)."""
+    from audiodenoiser_torch.ops.cuda import ssm_conv, ssm_conv_plain, ssm_scan, ssm_scan_plain
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for index in (0, 1, 0):
+        card = torch.device("cuda", index)
+        xz, conv, x_proj, scan = _ssm_case(card, dtype, 40, 100, index)
+        with torch.inference_mode():
+            u = ssm_conv(xz, *conv, True)
+            x_dbl = torch.nn.functional.linear(u, x_proj)
+            y = ssm_scan(u, xz, x_dbl, *scan, True)
+            want_u = ssm_conv_plain(xz, *conv, True)
+            want_y = ssm_scan_plain(u, xz, x_dbl, *scan, True)
+        torch.cuda.synchronize(card)
+        assert u.device == y.device == card
+        with torch.cuda.device(card):
+            for got, want in ((u, want_u), (y, want_y)):
+                if dtype == torch.float32:
+                    assert _max_rel(got, want) <= 1e-5
+                else:
+                    assert _bf16_gap(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_semamba_runner_on_card_matches_the_reference(dev, dtype):
+    """SEMamba on the card against the float32 reference (TF32 off), on 2
+    clips of 10 s. The model alone, on the reference's own magnitude and
+    phase: float32 within 1e-4 (spectrum relative L2). Through
+    ``DenoiserRunner`` (K1/K2 direct, the ssm kernels), the waveform:
+    float32 within 1e-3 in each clip whose input phase plane agrees with
+    the reference's (the published phase's cut, as in the MP-SENet test
+    above); bfloat16 with the root mean square of the clips' errors under
+    the cell's limit (``benchmark/limits/semamba2m.dns10s.json``)."""
+    import json
+    from pathlib import Path
+
+    from benchmark.reference import semamba as ref
+
+    from audiodenoiser_torch.dsp import stft as stft_lib
+    from audiodenoiser_torch.eval.runner import DenoiserRunner
+    from audiodenoiser_torch.models.mpsenet import mag_pha
+    from audiodenoiser_torch.models.semamba import SEMamba
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    p = ref.seeded_weights(SM_CONFIG, gen, dev)
+    n = 160000
+    t = torch.arange(n, device=dev) / 16000
+    f0 = 90 + 170 * torch.rand((2, 1), generator=gen, device=dev)
+    clean = sum(torch.sin(2 * np.pi * h * f0 * t) / h for h in range(1, 6))
+    audio = 0.2 * (clean + 0.5 * torch.randn(clean.shape, generator=gen, device=dev))
+    model = SEMamba().to(dev)
+    model.load_state_dict(p)
+    model = model.to(dtype).eval()
+    with _no_tf32(), torch.inference_mode():
+        x = audio * ref.mp.norm_factor(audio)
+        mag, pha = ref.mp.mag_pha_stft(x, SM_CONFIG)
+        _, pha_port = mag_pha(stft_lib.stft(x, 400, 100, center=True, pad_mode="reflect",
+                                            precision="kernel"), 400, 400)
+        got_c, got_p = model(mag, pha)
+        want_c, want_p = ref.forward(p, SM_CONFIG, mag, pha)
+        got = DenoiserRunner(model, device=dev).denoise_audio(audio)
+        want = ref.denoise(p, SM_CONFIG, audio)
+    got_s = torch.polar(got_c.pow(1 / 0.3), got_p)
+    want_s = torch.polar(want_c.pow(1 / 0.3), want_p)
+    model_err = ((got_s - want_s).abs().square().sum((1, 2))
+                 / want_s.abs().square().sum((1, 2))).sqrt()
+    wave_err = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    flipped = (pha_port - pha).abs() > 1.0
+    print(f"[semamba] {dtype}: model {model_err.tolist()}, waveform {wave_err.tolist()}, "
+          f"flipped input bins {flipped.nonzero().tolist()}")
+    if dtype == torch.float32:
+        assert float(model_err.max()) < 1e-4
+        kept = ~flipped.flatten(1).any(1)
+        assert bool(kept.any()) and float(wave_err[kept].max()) < 1e-3
+    else:
+        limits = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "limits"
+                             / "semamba2m.dns10s.json").read_text())
+        assert float(wave_err.square().mean().sqrt()) < limits["rms_rel_err"]
