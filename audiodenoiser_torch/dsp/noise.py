@@ -4,8 +4,8 @@
 - **urban**: a real noise clip tiled or randomly snipped to length, then
   SNR-scaled;
 - **reverb**: the JUCE (Pedalboard) reverb as its exact impulse response,
-  computed once on the host with a scipy ``lfilter`` cascade and applied as
-  an FFT convolution;
+  computed once on the host with a scipy ``lfilter`` cascade, uploaded once
+  per device and applied as an FFT convolution;
 - **noise_cancellation**: with p=0.8 per 2 s block, add ``-0.8 x clean``
   over the first 8 000 samples of the block.
 
@@ -39,12 +39,24 @@ _DAMP_SCALE = 0.4
 SnrLike = Union[float, torch.Tensor]
 
 
+@functools.lru_cache(maxsize=64)
+def _scalar_on(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-d tensor on ``device``, made once: a copy from the
+    host at every call would wait for all the work queued on the device,
+    so the host could never run ahead of a training step. A normal tensor
+    even when first asked for under inference_mode."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype, device=device)
+
+
 def snr_scale(clean: torch.Tensor, noise: torch.Tensor,
               snr_db: SnrLike = SNR_DB) -> torch.Tensor:
     """Scale ``noise`` so that mixing with ``clean`` gives ``snr_db`` dB
     (RMS per example over the last axis, the reference's arithmetic)."""
     clean_rms = torch.sqrt(clean.square().mean(-1, keepdim=True) + 1e-12)
     noise_rms = torch.sqrt(noise.square().mean(-1, keepdim=True) + 1e-12)
+    if isinstance(snr_db, (int, float)):
+        snr_db = _scalar_on(float(snr_db), clean.dtype, clean.device)
     snr_linear = 10.0 ** (torch.as_tensor(snr_db, dtype=clean.dtype,
                                           device=clean.device) / 20.0)
     scaled = noise * ((clean_rms / snr_linear) / noise_rms)
@@ -150,13 +162,20 @@ def _next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+@functools.lru_cache(maxsize=16)
+def _impulse_response_on(device: torch.device, *args) -> torch.Tensor:
+    """``reverb_impulse_response(*args)`` on ``device``, uploaded once (see
+    ``_scalar_on``)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(reverb_impulse_response(*args)).to(device)
+
+
 def reverb(clean: torch.Tensor, sample_rate: int = 8000, room_size: float = 0.9,
            damping: float = 0.9, wet_level: float = 0.33,
            dry_level: float = 0.4) -> torch.Tensor:
     """Pedalboard-style reverb: ``dry * clean + clean (*) IR``, clipped."""
     length = clean.shape[-1]
-    ir = torch.from_numpy(reverb_impulse_response(sample_rate, length, room_size,
-                                                  damping, wet_level)).to(clean.device)
+    ir = _impulse_response_on(clean.device, sample_rate, length, room_size, damping, wet_level)
     fft_len = _next_pow2(2 * length - 1)
     spec = torch.fft.rfft(clean, n=fft_len, dim=-1) * torch.fft.rfft(ir, n=fft_len)
     wet = torch.fft.irfft(spec, n=fft_len, dim=-1)[..., :length]

@@ -21,6 +21,8 @@ bound run in float32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -28,13 +30,22 @@ import audiodenoiser_torch.dsp.stft as stft_lib
 from audiodenoiser_torch.models.unet import UNet
 
 
+@functools.lru_cache(maxsize=16)
+def _identity_mask(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The identity mask (1, 0) as a (2, 1, 1) tensor, made once per dtype
+    and device: a copy from the host at every forward waits for the device
+    and cannot be captured in a CUDA graph (``train.step_graph``). A normal
+    tensor even when first asked for under inference_mode."""
+    with torch.inference_mode(False):
+        return torch.tensor([1.0, 0.0], dtype=dtype, device=device)[:, None, None]
+
+
 def mask_head(out: torch.Tensor, bound: float, residual: bool) -> torch.Tensor:
     """(N, 2, F, T) head output -> the bounded mask ``K*tanh(out)``, plus
     the identity mask (1, 0) when ``residual``."""
     mask = bound * torch.tanh(out)
     if residual:
-        mask = mask + torch.tensor([1.0, 0.0], dtype=mask.dtype,
-                                   device=mask.device)[:, None, None]
+        mask = mask + _identity_mask(mask.dtype, mask.device)
     return mask
 
 

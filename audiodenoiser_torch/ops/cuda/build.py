@@ -119,13 +119,13 @@ def sm_count(device: torch.device) -> int:
 _count_lock = threading.Lock()
 
 
-def count_launch(kernel, variant: str) -> None:
-    """One launch of ``kernel`` through ``variant``: its total and the
-    variant's own counter, under a lock, since server threads launch
-    concurrently."""
+def count_launch(kernel, variant: str, n: int = 1) -> None:
+    """``n`` launches of ``kernel`` through ``variant`` (more than one from
+    a replayed CUDA graph): its total and the variant's own counter, under
+    a lock, since server threads launch concurrently."""
     with _count_lock:
-        kernel.launches += 1
-        setattr(kernel, f"{variant}_launches", getattr(kernel, f"{variant}_launches") + 1)
+        kernel.launches += n
+        setattr(kernel, f"{variant}_launches", getattr(kernel, f"{variant}_launches") + n)
 
 
 def load(name: str) -> ctypes.CDLL:

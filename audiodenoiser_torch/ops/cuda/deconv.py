@@ -16,7 +16,8 @@ and the result rounded to ``x.dtype`` once, as B3 does.
   (float32). Each counts its launches in ``deconv_kernel.<variant>_launches``
   beside ``deconv_kernel.launches``. The packed weight and the fp32 bias are
   cached on the parameter and made anew only when its ``_version`` (an
-  optimizer step), storage or the compute dtype changes.
+  optimizer step), storage or the compute dtype changes, and every call
+  inside a CUDA graph's capture.
 - ``conv_transpose_2x2``: the autograd Function the U-Net calls. Its
   forward is ``deconv_kernel``; its backward is B3's ``_bwd`` arithmetic in
   fp32 (dx a stride-2 convolution, dW a correlation, db a sum), which the
@@ -77,8 +78,10 @@ def deconv_variant(dtype: torch.dtype, cin: int, cout: int, x_ptr: int = 0) -> s
 def _cached(t: torch.Tensor, tag: tuple, make) -> torch.Tensor:
     """``make()``, kept on ``t`` until t's version, storage or ``tag``
     changes (an in-place optimizer step bumps ``t._version``). An inference
-    tensor keeps no version counter, so its operand is made each call."""
-    if t.is_inference():
+    tensor keeps no version counter, so its operand is made each call; so
+    is one made inside a CUDA graph's capture, since a replay checks no
+    version (``train.step_graph``)."""
+    if t.is_inference() or (t.is_cuda and torch.cuda.is_current_stream_capturing()):
         return make()
     cache = t.__dict__.setdefault("_deconv_cache", {})
     key = (t._version, t.data_ptr())

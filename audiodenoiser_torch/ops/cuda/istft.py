@@ -18,6 +18,7 @@ requires a gradient, with autograd on, it raises on every device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -179,9 +180,12 @@ def istft_kernel(re: torch.Tensor, im: torch.Tensor, window: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=16)
 def _bin_weights(n_fft: int, device: torch.device) -> torch.Tensor:
     """c_k / n_fft for the n_fft//2 + 1 bins of a real inverse DFT: c_k is 1
-    at DC and, for an even n_fft, at the Nyquist bin, 2 elsewhere."""
+    at DC and, for an even n_fft, at the Nyquist bin, 2 elsewhere. Made once
+    per (n_fft, device): setting its entries copies from the host, which a
+    CUDA graph's capture refuses (``train.step_graph``)."""
     c = torch.full((n_fft // 2 + 1,), 2.0, dtype=torch.float32, device=device)
     c[0] = 1.0
     if n_fft % 2 == 0:
@@ -209,9 +213,9 @@ class _ISTFT(torch.autograd.Function):
         # the incoming gradient may be strided or expanded; K1 takes rows
         spec = stft_kernel(grad.float().contiguous(), window, n_fft, ctx.hop_length)
         parts = torch.view_as_real(spec) * _bin_weights(n_fft, grad.device)[:, None, None]
-        parts[:, 0, :, 1] = 0
+        parts[:, 0, :, 1].zero_()
         if n_fft % 2 == 0:
-            parts[:, -1, :, 1] = 0
+            parts[:, -1, :, 1].zero_()
         return parts[..., 0], parts[..., 1], None, None, None
 
 

@@ -75,6 +75,13 @@ class ClippedAdamW:
     ``names``) every micro-step first averages the replicated gradients
     over the data group, and the clip takes the norm of the whole
     gradient across the ranks (``Layout.global_norm``).
+
+    ``make_capturable`` readies the update for a CUDA graph
+    (``train.step_graph``), which keeps its captured steps in ``graphs``:
+    AdamW's step counts move to the parameters' device and, under a
+    schedule, the rate into a device tensor that ``load_rate`` fills before
+    each update. Only a captured step calls it; ``state_dict`` writes the
+    eager form either way, so a resume state reads the same on any device.
     """
 
     def __init__(self, params, learning_rate: float, weight_decay: float = 0.01,
@@ -89,6 +96,8 @@ class ClippedAdamW:
         self.grad_accum = int(grad_accum)
         self.micro_step = 0  # backward passes summed into .grad since the last update
         self.updates = 0     # updates made: the schedule's count
+        self.rate = learning_rate  # the rate of the last update, or the first's
+        self.graphs: dict = {}  # captured steps over these parameters (train.step_graph)
         self.adamw = torch.optim.AdamW(self.params, lr=learning_rate,
                                        betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
@@ -119,28 +128,74 @@ class ClippedAdamW:
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                             self.clip_norm / norm)
         torch._foreach_mul_(grads, scale)
-        if self.schedule is not None:
-            for group in self.adamw.param_groups:
-                group["lr"] = self.schedule(self.updates)
+        if not _capturing():  # a captured step's rate is loaded before each replay
+            self.load_rate()
         self.adamw.step()
         self.updates += 1
         return norm
 
+    def load_rate(self) -> None:
+        """The schedule's rate for the next update into every group: as a
+        float, or into a capturable group's rate tensor, which a captured
+        update reads."""
+        if self.schedule is None:
+            return
+        self.rate = self.schedule(self.updates)
+        for group in self.adamw.param_groups:
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(self.rate)
+            else:
+                group["lr"] = self.rate
+
+    def make_capturable(self) -> None:
+        """AdamW's update in the form a CUDA graph can hold: ``capturable``,
+        each parameter's step count on its device and, under a schedule, the
+        rate in a float32 device tensor. Done once; the moments stay where
+        they are."""
+        for group in self.adamw.param_groups:
+            if group["capturable"]:
+                continue
+            group["capturable"] = True
+            if self.schedule is not None:
+                self.rate = float(group["lr"])
+                group["lr"] = torch.full((), self.rate, dtype=torch.float32,
+                                         device=group["params"][0].device)
+            for p in group["params"]:
+                st = self.adamw.state.get(p)
+                if st:
+                    st["step"] = st["step"].to(p.device, torch.float32)
+
     def state_dict(self) -> dict:
         """AdamW's moments and step, the update count, the micro-step and,
-        between updates, the summed gradients."""
+        between updates, the summed gradients; a capturable AdamW's in the
+        eager form (step counts on the host, the rate a float)."""
         grads = [p.grad.detach().clone() if p.grad is not None else None
                  for p in self.params] if self.micro_step else []
-        return {"adamw": self.adamw.state_dict(), "updates": self.updates,
+        adamw = self.adamw.state_dict()
+        if any(g["capturable"] for g in adamw["param_groups"]):
+            adamw = {
+                "state": {i: {**st, "step": st["step"].to("cpu", torch.float32)}
+                          for i, st in adamw["state"].items()},
+                "param_groups": [{**g, "capturable": False,
+                                  "lr": self.rate if torch.is_tensor(g["lr"]) else g["lr"]}
+                                 for g in adamw["param_groups"]]}
+        return {"adamw": adamw, "updates": self.updates,
                 "micro_step": self.micro_step, "grads": grads}
 
     def load_state_dict(self, state: dict) -> None:
+        # new moments: a graph captured over the old ones would write freed memory
+        self.graphs.clear()
         self.adamw.load_state_dict(state["adamw"])
         self.updates = int(state["updates"])
         self.micro_step = int(state["micro_step"])
         self.zero_grad()
         for p, g in zip(self.params, state["grads"]):
             p.grad = None if g is None else g.to(p.device, p.dtype)
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:

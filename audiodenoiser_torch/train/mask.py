@@ -27,7 +27,10 @@ both STFTs in one K1 launch.
 
 On the card both STFTs are one K1 launch, the reconstruction is K2, and
 K2's gradient is one more K1 launch (``ops.cuda.istft_with_grad``); the
-iSTFT and SI-SDR run in float32 whatever the model's dtype.
+iSTFT and SI-SDR run in float32 whatever the model's dtype. From the
+second call on, the train step replays all of that, backward, clip and
+AdamW included, as one captured CUDA graph (``train.step_graph``), except
+where its docstring says why not.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from audiodenoiser_torch.train.loop import (
     apply_update,
     create_train_state,
 )
+from audiodenoiser_torch.train.step_graph import GraphedStep
 from audiodenoiser_torch.utils.profiling import FORWARD, LOSS, span
 
 WAVEFORM_L1_WEIGHT = 0.5
@@ -168,7 +172,10 @@ def make_mask_steps(si_sdr_weight: float = 0.0, si_sdr_clamp: Optional[float] = 
     ``teacher``: a mask model, run frozen (eval mode, no gradient), whose
     masked spectrum the student matches with ``distill_weight`` and whose
     bottleneck attention map it matches with ``distill_feat_weight``: the
-    port's counterpart of the JAX steps' ``(apply_fn, variables)``."""
+    port's counterpart of the JAX steps' ``(apply_fn, variables)``.
+
+    On the card the train step replays one CUDA graph where it can
+    (``train.step_graph.GraphedStep``; ``.step`` is the eager step)."""
 
     def losses_of(model, noisy_audio, clean_audio):
         return _mask_losses(model, noisy_audio, clean_audio, si_sdr_weight, si_sdr_clamp,
@@ -184,7 +191,7 @@ def make_mask_steps(si_sdr_weight: float = 0.0, si_sdr_clamp: Optional[float] = 
         """Eval-mode forward (running BN statistics, no update) and the losses."""
         return losses_of(state.model.eval(), noisy_audio, clean_audio)
 
-    return train_step, eval_step
+    return GraphedStep(train_step, teacher), eval_step
 
 
 # the spectral-only steps (si_sdr_weight 0), as the JAX package's defaults

@@ -17,7 +17,13 @@ the calling thread and are written out with the trace:
 - ``FORWARD``, ``LOSS``, ``BACKWARD``, ``OPTIMIZER``: a training step's
   forward (the input STFTs, the features, the model, the mask), its losses
   (K2, the waveform terms, SI-SDR, distillation), autograd's backward and
-  the optimizer (``train.mask``, ``train.loop``);
+  the optimizer (``train.mask``, ``train.loop``), in an eager step only;
+- ``STEP_GRAPH``: a complex-mask training step replayed from its CUDA
+  graph (``train.step_graph``): the batch copied in, the rate loaded, the
+  replay, which holds all four phases above in one launch, and the losses
+  copied out. A replay runs no Python, so the four ranges mark the
+  family's eager steps alone (the CPU, hooks, a teacher, accumulation, a
+  mesh, remat, a first call) and the capture, which runs nothing;
 - ``STFT``, ``MODEL``, ``ISTFT``: a runner call's K1 side (the STFT, the
   magnitude and phase or the features), the model and its K2 side (the
   phase or mask product, the iSTFT) (``eval.runner.DenoiserRunner``);
@@ -47,6 +53,7 @@ FORWARD = "adt.forward"
 LOSS = "adt.loss"
 BACKWARD = "adt.backward"
 OPTIMIZER = "adt.optimizer"
+STEP_GRAPH = "adt.step_graph"
 STFT = "adt.stft"
 MODEL = "adt.model"
 ISTFT = "adt.istft"

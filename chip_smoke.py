@@ -128,7 +128,10 @@ from the root of a checkout. Phases, each fatal on failure:
    ``cli.serve --model complex_mask`` (2 requests against direct calls);
    ``cli.train --model complex_mask --noise_type mixed`` in a subprocess;
    3 bf16 mask train steps (K1 2, K2 1 and K3 4 launches a step, a finite
-   loss);
+   loss); the same step at batch 16 without K3, as ``cmask31m.train16``
+   runs it, through its CUDA graph (``train.step_graph``: a warm-up, a
+   capture, then replays; the counters by kind and K1 2 and K2 1 a step)
+   beside the eager step, ms a step by each;
 6d. the training set and the training extras: the native loader built
    with g++ into ``_build/`` (``load_batch`` against the scipy path within
    1e-6, ``load_clean_chunks`` through it); ``cli.create_train_dataset`` in
@@ -2420,6 +2423,57 @@ def mask_bench(torch):
           "the mask train step's launches a step")
 
 
+def mask_graph(torch):
+    """Phase 6c (f): the full-width bf16 residual mask step at batch 16, as
+    ``cmask31m.train16`` runs it (cuDNN's upsamplings), through its CUDA
+    graph: a warm-up, a capture, then timed replays beside timed eager steps
+    of the same state on the same batches; the step graph's counters."""
+    from audiodenoiser_torch.models import ComplexMaskUNet
+    from audiodenoiser_torch.ops.cuda import istft_kernel, stft_kernel, variant_launches
+    from audiodenoiser_torch.train import step_graph
+    from audiodenoiser_torch.train.mask import create_mask_train_state, make_mask_steps
+
+    model = ComplexMaskUNet(dtype=torch.bfloat16, mask_bound=8.0, residual=True,
+                            zero_out_init=True)
+    state, mixer = create_mask_train_state(0, model), _mask_mixer(torch, 64, 4, "cuda")
+    train_step, _ = make_mask_steps(0.5, 30.0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batches = [mixer.sample_audio(gen, 16) for _ in range(12)]
+    before = variant_launches(step_graph.counts)
+    for noisy, clean in batches[:2]:  # the warm-up, then the capture and its replay
+        train_step(state, noisy, clean)
+    torch.cuda.synchronize()
+
+    def timed(step) -> tuple[float, int, int]:
+        k1, k2 = stft_kernel.launches, istft_kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for noisy, clean in batches[2:]:
+            losses = step(state, noisy, clean)[1]
+        torch.cuda.synchronize()
+        check(math.isfinite(float(losses.total)), "non-finite loss in the graphed mask steps")
+        n = len(batches) - 2
+        return ((time.perf_counter() - t0) * 1e3 / n, (stft_kernel.launches - k1) // n,
+                (istft_kernel.launches - k2) // n)
+
+    replay = timed(train_step)
+    eager = timed(train_step.step)
+    counts = {k: v - before[k] for k, v in variant_launches(step_graph.counts).items()}
+    t0 = time.perf_counter()
+    for _ in range(1000):  # what a replay adds on the host to decide that it replays
+        train_step.eager_reason(state, *batches[0])
+        train_step._key(state, *batches[0])
+    decide_us = (time.perf_counter() - t0) * 1e3
+    print(f"[mask train graph] batch 16 x 2 s, full width: replay {replay[0]:.2f} ms a step, "
+          f"eager {eager[0]:.2f} ms ({eager[0] / replay[0]:.2f}x); K1/K2 a step "
+          f"{replay[1:]} replayed, {eager[1:]} eager; step_graph counters {counts}; "
+          f"eligibility and key {decide_us:.1f} us a call on the host", flush=True)
+    check(counts == {**dict.fromkeys(counts, 0), "eager_warmup": 1, "capture": 1,
+                     "replay": len(batches) - 2},
+          "the graphed mask steps did not warm up once, capture once and replay")
+    check(replay[1:] == eager[1:] == (2, 1), "K1/K2 launches a graphed mask step")
+
+
 def phase_mask_train(torch, rng, rows):
     """Phase 6c: complex-mask training on the card."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mask_train_")
@@ -2432,6 +2486,7 @@ def phase_mask_train(torch, rng, rows):
         mask_fit(torch, rows, tmp)
         mask_cli_finish(export, started)
         mask_bench(torch)
+        mask_graph(torch)
         print(f"[mask train] phase 6c in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         if started is not None and started[1].poll() is None:  # a check failed first

@@ -1868,3 +1868,233 @@ def test_semamba_runner_on_card_matches_the_reference(dev, dtype):
         limits = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "limits"
                              / "semamba2m.dns10s.json").read_text())
         assert float(wave_err.square().mean().sqrt()) < limits["rms_rel_err"]
+
+
+# --- the complex-mask step's CUDA graph (train.step_graph) ---------------------------------
+
+GRAPH_WIDTHS = dict(features=(16, 32), bottleneck=64)
+
+
+def _graph_state(dev, **opt):
+    """A bf16 residual mask model, as the deployment trains it, at two
+    levels, from one seeded weight tree, with its optimizer on the card."""
+    from audiodenoiser_torch.models import ComplexMaskUNet, random_flax_variables
+    from audiodenoiser_torch.train.mask import create_mask_train_state
+
+    v = random_flax_variables(5, **GRAPH_WIDTHS, in_channels=3, out_channels=2)
+    model = ComplexMaskUNet(dtype=torch.bfloat16, mask_bound=8.0, residual=True,
+                            **GRAPH_WIDTHS)
+    return create_mask_train_state(0, model, variables=v, device=dev, **opt)
+
+
+def _graph_batches(dev, n, batch=4, seed=0):
+    """``n`` (noisy, clean) batches of 2 s from the ``mixed`` mixer on the card."""
+    from audiodenoiser_torch.data.pipeline import NoiseBank, OnDeviceMixer
+    from audiodenoiser_torch.data.synth import synth_chunks, synth_noise_clips
+
+    bank = NoiseBank(synth_noise_clips(4, seed + 1), device=dev)
+    mixer = OnDeviceMixer(synth_chunks(16, seed), "mixed", noise_bank=bank, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [mixer.sample_audio(gen, batch) for _ in range(n)]
+
+
+def _graph_counts_since(before):
+    from audiodenoiser_torch.ops.cuda import variant_launches
+    from audiodenoiser_torch.train import step_graph
+
+    return {k: v - before[k] for k, v in variant_launches(step_graph.counts).items()
+            if v != before[k]}
+
+
+def _states_equal(a, b) -> None:
+    """Parameters, BatchNorm statistics and ``num_batches_tracked``, and
+    AdamW's moments and step counts, bit for bit."""
+    for (n, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        assert torch.equal(x, y), n
+    for p, q in zip(a.optimizer.params, b.optimizer.params):
+        sa, sb = a.optimizer.adamw.state[p], b.optimizer.adamw.state[q]
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[key], sb[key]), key
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic kernels, so that two runs of one step agree
+    bit for bit (its default backward weight gradients sum in any order)."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        yield
+
+
+def test_mask_step_graph_matches_the_eager_step(dev, deterministic):
+    """Six steps of one batch stream through the graph (a warm-up, a
+    capture, four replays) and through the eager step on a capturable
+    optimizer: every step's losses and gradient norm, and then the
+    parameters, BatchNorm statistics and AdamW's moments, bit-equal; K1
+    and K2 counted 2 and 1 a step; what a step returned unchanged by later
+    replays. Against the eager step on the non-capturable optimizer that
+    an eager caller gets, the first step is bit-equal and the later ones
+    part by AdamW's bias-correction rounding (printed)."""
+    from audiodenoiser_torch.ops.cuda import istft_kernel, stft_kernel, variant_launches
+    from audiodenoiser_torch.train import step_graph
+    from audiodenoiser_torch.train.mask import make_mask_steps
+
+    batches = _graph_batches(dev, 6)
+    train_step, _ = make_mask_steps(0.5, 30.0)
+    graph, eager, plain = _graph_state(dev), _graph_state(dev), _graph_state(dev)
+    eager.optimizer.make_capturable()
+    before = variant_launches(step_graph.counts)
+    kept = []
+    for k, (noisy, clean) in enumerate(batches):
+        launches = stft_kernel.launches, istft_kernel.launches
+        _, got = train_step(graph, noisy, clean)
+        assert (stft_kernel.launches - launches[0], istft_kernel.launches - launches[1]) == (2, 1)
+        _, want = train_step.step(eager, noisy, clean)
+        _, base = train_step.step(plain, noisy, clean)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), k
+        assert torch.equal(graph.grad_norm, eager.grad_norm), k
+        if k == 0:
+            assert all(torch.equal(a, b) for a, b in zip(got, base))
+        gaps = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got, base)]
+        print(f"[step graph] step {k}: losses {[float(x) for x in got]}, relative gaps to the "
+              f"non-capturable eager step {gaps}")
+        kept.append((got, graph.grad_norm, [float(x) for x in got], float(graph.grad_norm)))
+    assert _graph_counts_since(before) == {"eager_warmup": 1, "capture": 1, "replay": 4}
+    for got, norm, values, norm_value in kept:
+        assert [float(x) for x in got] == values and float(norm) == norm_value
+    assert graph.step == eager.step == 6
+    assert graph.optimizer.updates == eager.optimizer.updates == 6
+    _states_equal(graph, eager)
+    for p, q in zip(graph.optimizer.params, eager.optimizer.params):
+        assert p.grad is not None and torch.equal(p.grad, q.grad)
+    worst = max(float((p - q).abs().max() / q.abs().max().clamp_min(1e-30))
+                for p, q in zip(graph.optimizer.params, plain.optimizer.params))
+    print(f"[step graph] the parameters after 6 steps against the non-capturable eager "
+          f"step's: worst relative max gap {worst:.3e}")
+
+
+def test_mask_step_graph_follows_a_schedule(dev, deterministic):
+    """Warm-up and cosine decay over eight updates: the rate tensor holds
+    each update's rate when it replays, and the run stays bit-equal to the
+    eager step on a capturable optimizer; the resume state is the eager
+    form."""
+    from audiodenoiser_torch.train.mask import make_mask_steps
+
+    batches = _graph_batches(dev, 8, seed=3)
+    train_step, _ = make_mask_steps(0.5, 30.0)
+    kw = dict(schedule="cosine", warmup_steps=2, total_steps=8)
+    graph, eager = _graph_state(dev, **kw), _graph_state(dev, **kw)
+    eager.optimizer.make_capturable()
+    opt = graph.optimizer
+    for noisy, clean in batches:
+        rate = opt.schedule(opt.updates)
+        train_step(graph, noisy, clean)
+        train_step.step(eager, noisy, clean)
+        assert float(opt.adamw.param_groups[0]["lr"]) == float(
+            torch.tensor(rate, dtype=torch.float32))
+        assert opt.state_dict()["adamw"]["param_groups"][0]["lr"] == rate
+    _states_equal(graph, eager)
+    sd = opt.state_dict()["adamw"]
+    assert not sd["param_groups"][0]["capturable"]
+    assert all(st["step"].device.type == "cpu" for st in sd["state"].values())
+
+
+def test_mask_step_graph_runs_eagerly_where_it_must(dev):
+    """A forward hook, a teacher and accumulation run eagerly, each under
+    its reason; a new batch shape warms up and captures anew while the old
+    shape's graph still replays; a hook that fired in an eager step fires
+    there and not in a replay."""
+    from audiodenoiser_torch.models import ComplexMaskUNet
+    from audiodenoiser_torch.ops.cuda import variant_launches
+    from audiodenoiser_torch.train import step_graph
+    from audiodenoiser_torch.train.mask import make_mask_steps
+
+    (b4, b4b), (b2, b2b) = _graph_batches(dev, 2), _graph_batches(dev, 2, batch=2, seed=1)
+    train_step, _ = make_mask_steps(0.5, 30.0)
+    state = _graph_state(dev)
+    before = variant_launches(step_graph.counts)
+    train_step(state, *b4)
+    train_step(state, *b4b)
+    fired = []
+    handle = state.model.bottleneck.register_forward_hook(lambda *_: fired.append(1))
+    train_step(state, *b4)
+    handle.remove()
+    assert fired == [1]
+    train_step(state, *b4b)
+    train_step(state, *b2)
+    train_step(state, *b2b)
+    train_step(state, *b4)
+    train_step(state, *b2)
+    assert fired == [1] and state.step == 8
+    assert _graph_counts_since(before) == {"eager_warmup": 2, "capture": 2, "replay": 3,
+                                           "eager_hook": 1}
+    teacher = ComplexMaskUNet(dtype=torch.bfloat16, mask_bound=8.0, residual=True,
+                              **GRAPH_WIDTHS).to(dev)
+    distilled, _ = make_mask_steps(0.5, 30.0, teacher=teacher, distill_weight=0.5)
+    accum = _graph_state(dev, grad_accum=2)
+    before = variant_launches(step_graph.counts)
+    for _ in range(2):
+        distilled(state, *b4)
+        train_step(accum, *b4)
+    assert _graph_counts_since(before) == {"eager_teacher": 2, "eager_grad_accum": 2}
+    assert accum.optimizer.updates == 1 and not accum.optimizer.graphs
+
+
+def test_mixed_batches_and_replays_never_wait_for_the_device(dev):
+    """Once warm, drawing a ``mixed`` batch and replaying the step make no
+    host synchronisation, so the host queues the next step while the
+    device runs this one (a host copy at every call, as the mixer's SNR
+    level and reverb response once were, waits for the queued work)."""
+    from audiodenoiser_torch.data.pipeline import NoiseBank, OnDeviceMixer
+    from audiodenoiser_torch.data.synth import synth_chunks, synth_noise_clips
+    from audiodenoiser_torch.train import step_graph
+    from audiodenoiser_torch.train.mask import make_mask_steps
+
+    bank = NoiseBank(synth_noise_clips(4, 1), device=dev)
+    mixer = OnDeviceMixer(synth_chunks(16, 0), "mixed", noise_bank=bank, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    train_step, _ = make_mask_steps(0.5, 30.0)
+    state = _graph_state(dev)
+    for _ in range(3):  # a warm-up, a capture and a replay
+        train_step(state, *mixer.sample_audio(gen, 4))
+    torch.cuda.synchronize()
+    replays = step_graph.counts.replay_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            train_step(state, *mixer.sample_audio(gen, 4))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert step_graph.counts.replay_launches - replays == 3
+    assert bool(torch.isfinite(state.grad_norm))
+
+
+def test_mask_step_graph_replay_is_one_span_the_profiler_sees(dev):
+    """Under the CUDA profiler a replay is one ``adt.step_graph`` range and
+    none of the eager phases, and the device runs the graph's kernels (the
+    traced benchmark reads its idle share from them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiodenoiser_torch.train.mask import make_mask_steps
+    from audiodenoiser_torch.utils.profiling import FORWARD, STEP_GRAPH
+
+    batches = _graph_batches(dev, 3)
+    train_step, _ = make_mask_steps(0.5, 30.0)
+    state = _graph_state(dev)
+    for noisy, clean in batches[:2]:
+        train_step(state, noisy, clean)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(state, *batches[2])
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = [e.name for e in events if e.device_type != DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    print(f"[step graph] a replay under the profiler: {len(kernels)} device operations, "
+          f"{sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3:.3f} ms")
+    assert names.count(STEP_GRAPH) == 1 and FORWARD not in names
+    assert len(kernels) > 200

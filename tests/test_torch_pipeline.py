@@ -85,6 +85,22 @@ class TestNoise:
         ours = noise.reverb(torch.from_numpy(clean))
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
 
+    def test_device_constants_are_made_once(self, clean):
+        """A fixed SNR level and the reverb's impulse response are uploaded
+        once per value and device (an upload at every call waits for the
+        device), and scale and convolve as a fresh upload does."""
+        c, n = torch.from_numpy(clean), torch.from_numpy(clean[::-1].copy())
+        with torch.inference_mode():  # first asked for by a serving path
+            noise.snr_scale(c, n, 8.0)
+        assert torch.equal(noise.snr_scale(c, n, 8.0), noise.snr_scale(c, n, torch.tensor(8.0)))
+        assert not noise._scalar_on(8.0, torch.float32, c.device).is_inference()
+        assert noise._scalar_on(8.0, torch.float32, c.device) is \
+            noise._scalar_on(8.0, torch.float32, c.device)
+        args = (8000, clean.shape[-1], 0.9, 0.9, 0.33)
+        ir = noise._impulse_response_on(c.device, *args)
+        assert ir is noise._impulse_response_on(c.device, *args)
+        np.testing.assert_array_equal(ir.numpy(), noise.reverb_impulse_response(*args))
+
     def test_add_noise_dispatch(self, clean):
         c = torch.from_numpy(clean)
         torch.testing.assert_close(noise.add_noise(c, "reverb"), noise.reverb(c))

@@ -274,7 +274,7 @@ class TestImportRules:
         "parallel.mesh", "parallel.distributed", "parallel.hybrid", "parallel.__init__",
         "parallel.layers", "parallel.follow", "parallel.pipeline", "parallel.pipeline_train",
         "parallel.spatial", "cli.install", "models.mpsenet", "ops.cuda.layer_norm", "data.synth",
-        "ops.cuda.conv_module", "models.semamba", "ops.cuda.ssm"])
+        "ops.cuda.conv_module", "models.semamba", "ops.cuda.ssm", "train.step_graph"])
     def test_rules_cover_the_training_path_modules(self, module):
         """The training path's, the routed deployment's, the int8 model's, the
         package surface's and the parallel paths' modules are among the
